@@ -1,0 +1,480 @@
+"""Sequential long/short-term track association (host driver).
+
+The port's copy of ``gomatching_tpu/tracking/tracker.py``: the tracking driver of
+``GoMatching.batch_inference`` / ``run_short_term_match`` / ``run_long_term_match``
+(gomatching/modeling/meta_arch/gom_lstmatcher.py:366-564).
+
+  - the spotter runs batched over frames on the device, producing per-frame
+    detections + reid embeddings;
+  - this module consumes them sequentially and calls back into the association
+    transformer on the device with bucket-padded token counts;
+  - Hungarian assignment and the softmax-with-background activation run on host
+    numpy -- matrices are at most (dets x window_dets), i.e. hundreds.
+
+Track-id bookkeeping quirks of the reference are reproduced exactly (frame 0 sets
+id_count = n0 + 1, so the next new track gets id n0 + 2; unmatched marker -1).
+This copy keeps the plain ``associate_fn(tokens, valid, short_term)`` contract; the
+JAX package's device-pool (indexed), row-sliced fetch and positional-embedding
+variants are not ported.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from ..ops.hungarian import solve
+from ..utils.boxes import pairwise_iou_np
+
+BUCKETS = (32, 64, 128, 256, 512, 1024)
+
+
+def _bucket(n: int) -> int:
+    for b in BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // BUCKETS[-1]) * BUCKETS[-1]
+
+
+@dataclass
+class FrameDetections:
+    """Dense (unpadded) detections of one frame, host numpy."""
+
+    boxes: np.ndarray  # (n, 4) xyxy in model-input pixels
+    scores: np.ndarray  # (n,)
+    ctrl_points: np.ndarray  # (n, npts*2)
+    recs: np.ndarray  # (n, npts) int
+    bd: np.ndarray  # (n, npts, 4)
+    reid: Optional[np.ndarray]  # (n, F); dropped once the frame leaves the window
+    track_ids: np.ndarray = field(default=None)  # (n,)
+    image_hw: tuple = (0, 0)
+
+    def __len__(self):
+        return len(self.scores)
+
+
+def activate_asso(asso: np.ndarray, n_t: List[int]) -> np.ndarray:
+    """Softmax with an appended zero background column per frame block, background
+    dropped (lstmatcher.py:373-381). asso: (M, N) with N = sum(n_t)."""
+    out = []
+    start = 0
+    for n in n_t:
+        block = asso[:, start : start + n]
+        with_bg = np.concatenate([block, np.zeros((block.shape[0], 1), block.dtype)], axis=1)
+        with_bg = with_bg - with_bg.max(axis=1, keepdims=True)
+        e = np.exp(with_bg)
+        sm = e / e.sum(axis=1, keepdims=True)
+        out.append(sm[:, :-1])
+        start += n
+    return np.concatenate(out, axis=1) if out else asso
+
+
+class Tracker:
+    """Stateful per-video tracker.
+
+    ``associate_fn(tokens (B, Npad, F) f32, valid (B, Npad) bool, short_term)`` must
+    return (B, Npad, Npad) affinity logits as a host array
+    (``GoMatchingModel.associate`` run on the device).
+    """
+
+    def __init__(
+        self,
+        associate_fn: Callable,
+        test_len: int = 6,
+        overlap_thresh: float = 0.2,
+        min_track_len: int = 5,
+        max_center_dist: float = -1.0,
+        decay_time: float = -1.0,
+        with_iou: bool = True,
+        not_mult_thresh: bool = True,
+    ):
+        self.associate_fn = associate_fn
+        self.test_len = test_len
+        self.overlap_thresh = overlap_thresh
+        self.min_track_len = min_track_len
+        self.max_center_dist = max_center_dist
+        self.decay_time = decay_time
+        self.with_iou = with_iou
+        self.not_mult_thresh = not_mult_thresh
+        self.reset()
+
+    def reset(self):
+        self.frames: List[FrameDetections] = []
+        self.id_count = 0
+        # speculative long-term matcher cache (precompute_long_asso):
+        # {request key -> activated (n_k, N) rows}
+        self._long_cache: Dict = {}
+        # stage wall-clock parity with the reference's time_cost buckets
+        # (gom_lstmatcher.py:381-399): per-video short/long match seconds
+        self.time_cost = {"short_match": 0.0, "long_match": 0.0}
+        # matcher-call accounting: batched short calls, speculative long rounds,
+        # requests answered by them, and real-pass cache misses
+        self.asso_stats = {
+            "short_calls": 0, "long_rounds": 0, "long_reqs": 0, "long_miss": 0,
+        }
+
+    # ------------------------------------------------------------------
+    def _run_matcher(self, frames: List[FrameDetections], short_term: bool) -> np.ndarray:
+        """Stack reid features of the given frames, run the association transformer,
+        return activated (n_query_frame, N) scores for the *last* frame's rows."""
+        n_t = [len(f) for f in frames]
+        N = sum(n_t)
+        npad = _bucket(max(N, 1))
+        feats = np.concatenate([f.reid for f in frames], axis=0).astype(np.float32)
+        padded = np.zeros((1, npad, feats.shape[1]), np.float32)
+        padded[0, :N] = feats
+        valid = np.zeros((1, npad), bool)
+        valid[0, :N] = True
+        logits = np.asarray(self.associate_fn(padded, valid, short_term))[0, :N, :N]
+        return activate_asso(logits[N - n_t[-1] : N], n_t)
+
+    def _assign(
+        self,
+        asso_nonk: np.ndarray,  # (n_k, Np) activated scores vs window instances
+        ids: np.ndarray,  # (Np,) their track ids
+        k_boxes: np.ndarray,
+        nonk_boxes: np.ndarray,
+        norm_hw: tuple,
+        decay: Optional[np.ndarray] = None,
+        center_gate: bool = False,
+    ) -> np.ndarray:
+        """Trajectory scoring + Hungarian + threshold -> per-detection track id or -1
+        (gom_lstmatcher.py:429-463, :510-555). ``center_gate`` applies the
+        max_center_dist filter -- the reference only does this in
+        run_long_term_match (:536-550), never in the short-term pass."""
+        n_k = asso_nonk.shape[0]
+        track_ids = np.full((n_k,), -1, np.int64)
+        if n_k == 0:
+            return track_ids
+        unique_ids = np.unique(ids)
+        M = len(unique_ids)
+        if M == 0:
+            return track_ids
+        id_inds = (unique_ids[None, :] == ids[:, None]).astype(np.float32)  # Np x M
+
+        if decay is not None:
+            asso_nonk = asso_nonk * decay[None, :]
+        traj_score = asso_nonk @ id_inds  # n_k x M
+
+        if id_inds.size > 0:
+            last_inds = (id_inds * np.arange(len(ids))[:, None]).argmax(axis=0)
+            last_boxes = nonk_boxes[last_inds]
+            last_ious = pairwise_iou_np(k_boxes, last_boxes)
+        else:
+            last_ious = np.zeros_like(traj_score)
+        if self.with_iou:
+            traj_score = np.maximum(traj_score, last_ious)
+
+        if center_gate and self.max_center_dist > 0:
+            k_ct = (k_boxes[:, :2] + k_boxes[:, 2:]) / 2
+            k_s = ((k_boxes[:, 2:] - k_boxes[:, :2]) ** 2).sum(axis=1)
+            nonk_ct = (nonk_boxes[:, :2] + nonk_boxes[:, 2:]) / 2
+            dist = ((k_ct[:, None] - nonk_ct[None, :]) ** 2).sum(axis=2)
+            norm_dist = dist / (k_s[:, None] + 1e-8)
+            valid = norm_dist < self.max_center_dist
+            valid_assn = np.minimum(valid.astype(np.float32) @ id_inds, 1.0).astype(bool)
+            traj_score = np.where(valid_assn, traj_score, 0.0)
+
+        mi, mj = solve(-traj_score)
+        for i, j in zip(mi, mj):
+            thresh = (
+                self.overlap_thresh
+                if self.not_mult_thresh
+                else self.overlap_thresh * id_inds[:, j].sum()
+            )
+            if traj_score[i, j] > thresh:
+                track_ids[i] = unique_ids[j]
+        return track_ids
+
+    # ------------------------------------------------------------------
+    def precompute_short_asso(self, pairs: List[tuple]):
+        """Batch ALL adjacent-pair short-term matcher passes into ONE device call.
+
+        Short-term association logits depend only on the two frames' reid
+        features -- never on track ids -- so every (prev, cur) pair of a window
+        can run together. Returns a cache {id(cur): activated (n_cur, N) rows}
+        consumed by ``step``.
+        """
+        pairs = [(p, c) for p, c in pairs if len(p) + len(c) > 0 and len(c) > 0]
+        if not pairs:
+            return {}
+        npad = _bucket(max(len(p) + len(c) for p, c in pairs))
+        B = len(pairs)
+        feats = np.zeros((B, npad, pairs[0][1].reid.shape[1]), np.float32)
+        valid = np.zeros((B, npad), bool)
+        for i, (p, c) in enumerate(pairs):
+            f = np.concatenate([p.reid, c.reid], axis=0).astype(np.float32)
+            feats[i, : len(f)] = f
+            valid[i, : len(f)] = True
+        self.asso_stats["short_calls"] += 1
+        logits = np.asarray(self.associate_fn(feats, valid, True))
+        cache = {}
+        for i, (p, c) in enumerate(pairs):
+            n_t = [len(p), len(c)]
+            N = sum(n_t)
+            cache[id(c)] = activate_asso(logits[i, n_t[0] : N, :N], n_t)
+        return cache
+
+    def precompute_long_asso(self, dets: List[FrameDetections], short_cache: Dict):
+        """Speculatively batch the window re-match device calls for a block of
+        frames (run_long_term_match, gom_lstmatcher.py:467-564).
+
+        The long-term matcher input is the window subset not claimed by the
+        current frame. That subset depends on earlier assignments only through
+        track *revivals*, so the block is simulated assuming no revivals, every
+        matcher request is recorded and run in a few batched device calls, and
+        activations are cached keyed by the EXACT request (window frame objects +
+        keep masks). The simulation runs in ROUNDS: each round replays the block
+        consuming the cache filled so far (so cached re-matches produce their
+        REAL outcome, revivals included) and records the requests it still cannot
+        answer. The real pass consumes a cached result only on an exact key match
+        and falls back to a per-frame call otherwise, so track ids stay identical
+        to the sequential reference chain.
+
+        ``short_cache`` must come from ``precompute_short_asso`` over the same
+        block.
+        """
+        self._long_cache = {}
+        if not dets:
+            return
+        for _ in range(max(4, len(dets))):
+            requests = self._simulate_long_requests(dets, short_cache)
+            if not requests:
+                return
+            self.asso_stats["long_rounds"] += 1
+            self.asso_stats["long_reqs"] += len(requests)
+            self._batch_long_requests(requests)
+
+    def _simulate_long_requests(self, dets, short_cache):
+        """One simulation round: replay the block against the current cache;
+        return the long-term matcher requests not yet cached."""
+        sim_frames: List[FrameDetections] = list(self.frames)
+        origs: List[FrameDetections] = list(self.frames)
+        sim_id_count = self.id_count
+        requests = []  # (key, n_t, feats (N, F))
+        seen = set()
+        for det in dets:
+            sdet = FrameDetections(
+                boxes=det.boxes, scores=det.scores, ctrl_points=det.ctrl_points,
+                recs=det.recs, bd=det.bd, reid=det.reid, image_hw=det.image_hw,
+            )
+            cached = short_cache.get(id(det))
+            frame_id = len(sim_frames)
+            sim_frames.append(sdet)
+            origs.append(det)
+            if frame_id == 0:
+                sdet.track_ids = np.arange(1, len(sdet) + 1, dtype=np.int64)
+                sim_id_count = len(sdet) + 1
+                continue
+            self._short_term(sim_frames[frame_id - 1], sdet, cached)
+            if frame_id == 1:
+                for i in range(len(sdet)):
+                    if sdet.track_ids[i] < 0:
+                        sim_id_count += 1
+                        sdet.track_ids[i] = sim_id_count
+                continue
+            if not (sdet.track_ids == -1).any():
+                continue
+            win_st = max(0, frame_id + 1 - self.test_len)
+            window = sim_frames[win_st : frame_id + 1]
+            keeps = self._long_term_keeps(window)
+            reid_idx = keeps[-1]
+            if not reid_idx.any():
+                continue
+            key = self._long_key(origs[win_st : frame_id + 1], keeps)
+            asso = self._long_cache.get(key)
+            if asso is not None:
+                # replay the REAL outcome (revivals included) from the cache
+                sub_boxes = [f.boxes[kp] for f, kp in zip(window, keeps)]
+                sub_ids = [f.track_ids[kp] for f, kp in zip(window, keeps)]
+                n_t = [len(b) for b in sub_boxes]
+                k_start = sum(n_t[:-1])
+                ids = (np.concatenate(sub_ids[:-1]) if len(window) > 1
+                       else np.zeros(0, np.int64))
+                nonk_boxes = (np.concatenate(sub_boxes[:-1]) if len(window) > 1
+                              else np.zeros((0, 4), np.float32))
+                decay = self._decay(n_t) if k_start > 0 else None
+                new_ids = self._assign(
+                    asso[:, :k_start], ids, sub_boxes[-1], nonk_boxes,
+                    sdet.image_hw, decay=decay, center_gate=True,
+                )
+                for i in range(len(new_ids)):
+                    if new_ids[i] < 0:
+                        sim_id_count += 1
+                        new_ids[i] = sim_id_count
+                sdet.track_ids = sdet.track_ids.copy()
+                sdet.track_ids[reid_idx] = new_ids
+                continue
+            if key not in seen:
+                seen.add(key)
+                n_t = [int(k.sum()) for k in keeps]
+                feats = np.concatenate(
+                    [f.reid[kp] for f, kp in zip(window, keeps)], axis=0
+                ).astype(np.float32)
+                requests.append((key, n_t, feats))
+            # speculation for THIS round: no revival -- fresh ids
+            n_new = int(reid_idx.sum())
+            new_ids = np.arange(sim_id_count + 1, sim_id_count + 1 + n_new, dtype=np.int64)
+            sim_id_count += n_new
+            sdet.track_ids = sdet.track_ids.copy()
+            sdet.track_ids[reid_idx] = new_ids
+        return requests
+
+    def _batch_long_requests(self, requests):
+        npad = _bucket(max(sum(n_t) for _, n_t, _ in requests))
+        # chunk the batch to bound memory, chunk size padded to a power of two
+        chunk = 32
+        for s in range(0, len(requests), chunk):
+            reqs = requests[s : s + chunk]
+            Bc = 1
+            while Bc < len(reqs):
+                Bc *= 2
+            feats = np.zeros((Bc, npad, requests[0][2].shape[1]), np.float32)
+            valid = np.zeros((Bc, npad), bool)
+            valid[len(reqs) :, 0] = True  # keep padded entries' softmax finite
+            for i, (_, n_t, f) in enumerate(reqs):
+                feats[i, : len(f)] = f
+                valid[i, : len(f)] = True
+            logits = np.asarray(self.associate_fn(feats, valid, False))
+            for i, (key, n_t, _) in enumerate(reqs):
+                N = sum(n_t)
+                self._long_cache[key] = activate_asso(logits[i, N - n_t[-1] : N, :N], n_t)
+
+    def _decay(self, n_t: List[int]) -> Optional[np.ndarray]:
+        """decay_time ** (frames back from the query frame) per window instance."""
+        if self.decay_time <= 0:
+            return None
+        T = len(n_t)
+        dts = np.concatenate(
+            [np.full((n,), T - t - 2, np.float32) for t, n in enumerate(n_t[:-1])]
+        )
+        return self.decay_time**dts
+
+    def _short_term(self, prev: FrameDetections, cur: FrameDetections,
+                    cached_asso: Optional[np.ndarray] = None):
+        n_t = [len(prev), len(cur)]
+        if len(cur) == 0:
+            cur.track_ids = np.zeros((0,), np.int64)
+            return cur.track_ids
+        if cached_asso is not None:
+            asso = cached_asso
+        else:
+            asso = self._run_matcher([prev, cur], short_term=True)  # (n_cur, N)
+        cur.track_ids = self._assign(
+            asso[:, : n_t[0]], prev.track_ids, cur.boxes, prev.boxes, cur.image_hw
+        )
+        return cur.track_ids
+
+    @staticmethod
+    def _long_term_keeps(window: List[FrameDetections]) -> List[np.ndarray]:
+        """Window subset for the re-match: earlier frames keep tracks not claimed
+        by the current frame; the current frame keeps its unmatched (-1) rows."""
+        cur = window[-1]
+        cur_claimed = set(np.unique(cur.track_ids).tolist())
+        keeps = []
+        for idx, f in enumerate(window):
+            if idx != len(window) - 1:
+                keeps.append(np.array([tid not in cur_claimed for tid in f.track_ids], bool))
+            else:
+                keeps.append(f.track_ids == -1)
+        return keeps
+
+    @staticmethod
+    def _long_key(frames, keeps) -> tuple:
+        """Exact request identity: the window frame objects + their keep masks
+        fully determine the matcher input."""
+        return tuple((id(f), k.tobytes()) for f, k in zip(frames, keeps))
+
+    def _long_term(self, window: List[FrameDetections]):
+        """Re-match the last frame's unmatched (-1) detections against window tracks
+        not already claimed by the short-term pass."""
+        cur = window[-1]
+        keeps = self._long_term_keeps(window)
+        reid_idx = keeps[-1]
+        if not reid_idx.any():
+            return
+        sub = [
+            FrameDetections(
+                boxes=f.boxes[kp], scores=f.scores[kp], ctrl_points=f.ctrl_points[kp],
+                recs=f.recs[kp], bd=f.bd[kp], reid=None if f.reid is None else f.reid[kp],
+                track_ids=f.track_ids[kp], image_hw=f.image_hw,
+            )
+            for f, kp in zip(window, keeps)
+        ]
+        n_t = [len(f) for f in sub]
+        T = len(sub)
+        asso = self._long_cache.pop(self._long_key(window, keeps), None)
+        if asso is None:
+            self.asso_stats["long_miss"] += 1
+            asso = self._run_matcher(sub, short_term=False)  # (n_k, N)
+        k_start = sum(n_t[:-1])
+        ids = np.concatenate([f.track_ids for f in sub[:-1]]) if T > 1 else np.zeros(0, np.int64)
+        nonk_boxes = (
+            np.concatenate([f.boxes for f in sub[:-1]]) if T > 1 else np.zeros((0, 4), np.float32)
+        )
+        new_ids = self._assign(
+            asso[:, :k_start], ids, sub[-1].boxes, nonk_boxes, cur.image_hw,
+            decay=self._decay(n_t) if k_start > 0 else None, center_gate=True,
+        )
+        for i in range(len(new_ids)):
+            if new_ids[i] < 0:
+                self.id_count += 1
+                new_ids[i] = self.id_count
+        cur.track_ids[reid_idx] = new_ids
+
+    # ------------------------------------------------------------------
+    def step(self, det: FrameDetections, short_asso_cache: Optional[Dict] = None) -> FrameDetections:
+        """Consume one frame's detections; assigns det.track_ids in place.
+        ``short_asso_cache``: optional precomputed activations from
+        ``precompute_short_asso`` keyed by id(det)."""
+        cached = None if short_asso_cache is None else short_asso_cache.get(id(det))
+        frame_id = len(self.frames)
+        self.frames.append(det)
+        if frame_id == 0:
+            det.track_ids = np.arange(1, len(det) + 1, dtype=np.int64)
+            self.id_count = len(det) + 1
+        elif frame_id == 1:
+            t0 = time.time()
+            self._short_term(self.frames[0], det, cached)
+            self.time_cost["short_match"] += time.time() - t0
+            for i in range(len(det)):
+                if det.track_ids[i] < 0:
+                    self.id_count += 1
+                    det.track_ids[i] = self.id_count
+        else:
+            t0 = time.time()
+            self._short_term(self.frames[frame_id - 1], det, cached)
+            self.time_cost["short_match"] += time.time() - t0
+            if (det.track_ids == -1).any():
+                win_st = max(0, frame_id + 1 - self.test_len)
+                t0 = time.time()
+                self._long_term(self.frames[win_st : frame_id + 1])
+                self.time_cost["long_match"] += time.time() - t0
+        if len(np.unique(det.track_ids)) != len(det.track_ids):
+            raise RuntimeError(f"duplicate track ids in frame {frame_id}: {det.track_ids}")
+        # free reid memory outside the sliding window (gom_lstmatcher.py:401-402)
+        if frame_id - self.test_len >= 0:
+            self.frames[frame_id - self.test_len].reid = None
+        return det
+
+    def remove_short_tracks(self) -> List[FrameDetections]:
+        """Drop tracks shorter than min_track_len (gom_lstmatcher.py:566-577)."""
+        if self.min_track_len <= 0 or not self.frames:
+            return self.frames
+        all_ids = np.concatenate([f.track_ids for f in self.frames])
+        uniq, counts = np.unique(all_ids, return_counts=True)
+        bad = set(uniq[counts < self.min_track_len].tolist())
+        for f in self.frames:
+            kp = np.array([tid not in bad for tid in f.track_ids], bool)
+            f.boxes = f.boxes[kp]
+            f.scores = f.scores[kp]
+            f.ctrl_points = f.ctrl_points[kp]
+            f.recs = f.recs[kp]
+            f.bd = f.bd[kp]
+            f.track_ids = f.track_ids[kp]
+            if f.reid is not None:
+                f.reid = f.reid[kp]
+        return self.frames
