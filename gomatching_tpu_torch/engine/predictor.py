@@ -18,7 +18,6 @@ Stage wall-clock is tracked in the reference's ``time_cost`` buckets
 from __future__ import annotations
 
 import os
-import pickle
 import time
 from typing import Dict, List, Optional
 
@@ -31,6 +30,7 @@ from ..models.gomatching import build_model
 from ..tracking.tracker import FrameDetections, Tracker
 from ..utils.ctc import ctc_decode, load_char_table
 from ..weights import init_weights_, load_weights
+from .checkpoint import load_checkpoint
 
 
 class VideoPredictor:
@@ -87,14 +87,7 @@ class VideoPredictor:
                 f"MODEL.WEIGHTS {path!r} does not exist; pass MODEL.WEIGHTS '' to run on "
                 "seeded random weights"
             )
-        try:
-            ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        except (RuntimeError, pickle.UnpicklingError, EOFError) as e:
-            raise ValueError(f"MODEL.WEIGHTS {path!r} is not a torch checkpoint") from e
-        if not isinstance(ckpt, dict):
-            raise ValueError(f"MODEL.WEIGHTS {path!r} holds a {type(ckpt).__name__}, "
-                             "not a state_dict")
-        return ckpt.get("model", ckpt.get("state_dict", ckpt))
+        return load_checkpoint(path, "MODEL.WEIGHTS")
 
     @torch.no_grad()
     def associate(self, tokens: np.ndarray, valid: np.ndarray, short_term: bool) -> np.ndarray:

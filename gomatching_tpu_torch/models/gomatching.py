@@ -1,7 +1,9 @@
-"""GoMatching meta-architecture: frozen spotter + rescoring + tracker head.
+"""GoMatching meta-architecture: frozen spotter + rescoring + tracker head; and the
+spotter-pretraining meta-architecture.
 
 Port of ``gomatching_tpu/models/gomatching.py`` (reference ``GoMatching``,
-gomatching/modeling/meta_arch/gom_lstmatcher.py:113), ResNet backbone only.
+gomatching/modeling/meta_arch/gom_lstmatcher.py:113, and ``TransformerPureDetector``,
+third_party/adet/modeling/text_spotter.py:106), ResNet backbone only.
 
   spot_and_detect(images (B, H, W, 3) normalized, NHWC) ->
       per-frame arrays over the fixed query-slot axis + a validity mask
@@ -26,7 +28,7 @@ import torch.nn as nn
 from ..utils.boxes import nms_mask
 from .lst_matcher import LSTMatcherHead
 from .pos_encoding import position_encoding_2d
-from .resnet import ResNet
+from .resnet import FrozenBN, ResNet
 from .spotter import DeepSoloSpotter
 
 BACKBONE_CHANNELS = {"build_resnet_backbone": (512, 1024, 2048)}
@@ -39,6 +41,19 @@ class MaskedBackbone(nn.Module):
     def __init__(self, backbone: nn.Module):
         super().__init__()
         self.backbone = backbone
+
+
+def backbone_features(backbone: nn.Module, images: torch.Tensor, hidden_dim: int,
+                      temperature: float):
+    """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings)."""
+    feats = backbone[0].backbone(images.permute(0, 3, 1, 2).contiguous())
+    feats = [feats["res3"], feats["res4"], feats["res5"]]
+    pos = [
+        position_encoding_2d((f.shape[0], f.shape[2], f.shape[3]), hidden_dim // 2,
+                             temperature, None, device=f.device)
+        for f in feats
+    ]
+    return feats, pos
 
 
 class GoMatchingModel(nn.Module):
@@ -78,14 +93,7 @@ class GoMatchingModel(nn.Module):
 
     def features(self, images: torch.Tensor):
         """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings)."""
-        feats = self.backbone[0].backbone(images.permute(0, 3, 1, 2).contiguous())
-        feats = [feats["res3"], feats["res4"], feats["res5"]]
-        pos = [
-            position_encoding_2d((f.shape[0], f.shape[2], f.shape[3]), self.hidden_dim // 2,
-                                 self.temperature, None, device=f.device)
-            for f in feats
-        ]
-        return feats, pos
+        return backbone_features(self.backbone, images, self.hidden_dim, self.temperature)
 
     def spot(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Backbone + spotter (+ rescoring head) on un-padded NHWC frames."""
@@ -141,25 +149,80 @@ class GoMatchingModel(nn.Module):
         return self.roi_heads.associate(reid_tokens, valid, short_term)
 
 
-def build_model(cfg) -> GoMatchingModel:
-    """Construct the meta-arch from a reference-schema config (ResNet, 'lst' only)."""
+class SpotterPretrainModel(nn.Module):
+    """Image-spotter pretraining meta-arch (JAX ``SpotterPretrainModel``,
+    gomatching_tpu/models/gomatching.py:271): backbone + DeepSolo spotter emitting the
+    last-layer, aux-layer and encoder outputs ``SpotterCriterion`` reads; no tracker
+    head, and the whole model trains, FrozenBN tensors included as in JAX. Inputs are
+    square canvases with nothing padded, so there are no padding masks."""
+
+    def __init__(self, resnet_depth=50, hidden_dim=256, n_heads=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
+                 enc_n_points=4, dec_n_points=4, num_queries=100, num_points=25, voc_size=37,
+                 temperature=10000.0, boundary_head=True):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.temperature = float(temperature)
+        self.backbone = nn.Sequential(
+            MaskedBackbone(ResNet(resnet_depth, ("res3", "res4", "res5")))
+        )
+        for mod in self.backbone.modules():
+            if isinstance(mod, FrozenBN):
+                mod.make_trainable_()
+        self.detection_transformer = DeepSoloSpotter(
+            d_model=hidden_dim, n_heads=n_heads, num_encoder_layers=num_encoder_layers,
+            num_decoder_layers=num_decoder_layers, dim_feedforward=dim_feedforward,
+            num_feature_levels=num_feature_levels, enc_n_points=enc_n_points,
+            dec_n_points=dec_n_points, num_queries=num_queries, num_points=num_points,
+            voc_size=voc_size, temperature=temperature,
+            in_channels=BACKBONE_CHANNELS["build_resnet_backbone"], boundary_head=boundary_head,
+        )
+
+    def forward(self, images: torch.Tensor) -> Dict:
+        """NHWC normalized images (B, H, W, 3) -> the spotter's training outputs."""
+        feats, pos = backbone_features(self.backbone, images, self.hidden_dim, self.temperature)
+        return self.detection_transformer(feats, pos, None, train_outputs=True)
+
+
+def _check_ported(cfg) -> None:
     if cfg.MODEL.BACKBONE.NAME != "build_resnet_backbone":
-        raise NotImplementedError(f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported yet")
-    if cfg.MODEL.ROI_HEADS.NAME != "LSTMatcher":
-        raise NotImplementedError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME} is not ported yet")
-    if not cfg.MODEL.ASSO_HEAD.NO_POS_EMB:
-        raise NotImplementedError("the positional-embedding matcher is not ported yet")
+        raise NotImplementedError(f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported yet "
+                                  "(ROADMAP A10)")
     if cfg.MODEL.PRECISION != "float32":
         raise NotImplementedError(f"MODEL.PRECISION={cfg.MODEL.PRECISION} is not ported yet")
+
+
+def _spotter_kwargs(cfg) -> Dict:
     t = cfg.MODEL.TRANSFORMER
-    a = cfg.MODEL.ASSO_HEAD
-    return GoMatchingModel(
+    return dict(
         resnet_depth=cfg.MODEL.RESNETS.DEPTH, hidden_dim=t.HIDDEN_DIM, n_heads=t.NHEADS,
         num_encoder_layers=t.ENC_LAYERS, num_decoder_layers=t.DEC_LAYERS,
         dim_feedforward=t.DIM_FEEDFORWARD, num_feature_levels=t.NUM_FEATURE_LEVELS,
         enc_n_points=t.ENC_N_POINTS, dec_n_points=t.DEC_N_POINTS, num_queries=t.NUM_QUERIES,
         num_points=t.NUM_POINTS, voc_size=t.VOC_SIZE, temperature=float(t.TEMPERATURE),
-        boundary_head=t.BOUNDARY_HEAD, asso_feature_dim=a.FC_DIM, asso_num_fc=a.NUM_FC,
+        boundary_head=t.BOUNDARY_HEAD,
+    )
+
+
+def build_pretrain_model(cfg) -> SpotterPretrainModel:
+    """The spotter-pretraining model of a reference-schema config (ResNet only). The
+    sampler is always the exact one (B1/B2 forwards, B3/B4 backwards on CUDA), so
+    ``TPU.TRAIN_SAMPLING_IMPL`` is not read."""
+    _check_ported(cfg)
+    return SpotterPretrainModel(**_spotter_kwargs(cfg))
+
+
+def build_model(cfg) -> GoMatchingModel:
+    """Construct the meta-arch from a reference-schema config (ResNet, 'lst' only)."""
+    _check_ported(cfg)
+    if cfg.MODEL.ROI_HEADS.NAME != "LSTMatcher":
+        raise NotImplementedError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME} is not ported yet")
+    if not cfg.MODEL.ASSO_HEAD.NO_POS_EMB:
+        raise NotImplementedError("the positional-embedding matcher is not ported yet")
+    t = cfg.MODEL.TRANSFORMER
+    a = cfg.MODEL.ASSO_HEAD
+    return GoMatchingModel(
+        **_spotter_kwargs(cfg), asso_feature_dim=a.FC_DIM, asso_num_fc=a.NUM_FC,
         asso_num_heads=a.NUM_HEADS, asso_num_encoder_layers=a.NUM_ENCODER_LAYERS,
         asso_num_decoder_layers=a.NUM_DECODER_LAYERS,
         asso_num_weight_layers=a.NUM_WEIGHT_LAYERS, with_rescore=cfg.MODEL.ROI_HEADS.WITH_RESR,

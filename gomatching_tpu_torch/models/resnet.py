@@ -29,6 +29,14 @@ class FrozenBN(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def make_trainable_(self) -> "FrozenBN":
+        """Turn the four tensors into parameters. The JAX package keeps them as
+        parameters, so its spotter pretraining trains them (the reference's
+        FrozenBatchNorm2d holds buffers); the port's pretraining follows JAX."""
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            self.register_parameter(k, nn.Parameter(self._buffers.pop(k)))
+        return self
+
     def forward(self, x):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale

@@ -317,7 +317,8 @@ class DeepSoloSpotter(nn.Module):
     # ------------------------------------------------------------------
     def encode(self, features: List[torch.Tensor], pos_embeds: List[torch.Tensor],
                masks=None) -> Dict:
-        """input_proj + the deformable encoder -> the state ``propose``/``decode`` read."""
+        """input_proj + the deformable encoder -> the state the proposals and ``decode``
+        read."""
         src, pos, valid, shapes, level_masks = self._flatten_levels(features, pos_embeds, masks)
         valid_ratios = self._valid_ratios(level_masks, src.shape[0], src.device)
         token_valid = None if masks is None else valid
@@ -328,41 +329,30 @@ class DeepSoloSpotter(nn.Module):
         return {"memory": memory, "valid": valid, "shapes": shapes,
                 "valid_ratios": valid_ratios, "token_valid": token_valid}
 
-    def propose(self, enc: Dict) -> torch.Tensor:
-        """Two-stage top-k Bezier proposals -> (B, nq, npts, 2) reference points."""
+    def encoder_proposals(self, enc: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Per-token proposal class logits (B, S) and Bezier coords before the sigmoid
+        (B, S, 8): the two-stage heads on the encoder memory."""
         out_mem, out_props = self._gen_proposals(enc["memory"], enc["valid"], enc["shapes"])
-        enc_class = self.bezier_proposal_class(out_mem)[..., 0]  # (B, S)
-        enc_coords = self.bezier_proposal_coord(out_mem) + out_props  # (B, S, 8)
+        enc_class = self.bezier_proposal_class(out_mem)[..., 0]
+        enc_coords = self.bezier_proposal_coord(out_mem) + out_props
+        return enc_class, enc_coords
+
+    def select_proposals(self, enc_class: torch.Tensor, enc_coords: torch.Tensor) -> torch.Tensor:
+        """Top-k Bezier proposals -> (B, nq, npts, 2) reference points, which carry no
+        gradient (JAX stop_gradient, gomatching_tpu/models/spotter.py:554)."""
         # a stable descending sort breaks score ties by lower token index, as
         # jax.lax.top_k does (masked/out-of-range tokens share one score)
         topk_idx = torch.sort(enc_class, dim=1, descending=True, stable=True).indices
         topk_idx = topk_idx[:, : self.num_queries]
-        topk_coords = torch.gather(enc_coords, 1, topk_idx[..., None].expand(-1, -1, 8))
+        topk_coords = torch.gather(enc_coords, 1, topk_idx[..., None].expand(-1, -1, 8)).detach()
         bez = topk_coords.sigmoid().view(-1, self.num_queries, 4, 2)
         return torch.einsum("pk,bqkc->bqpc", self.bernstein, bez)
 
-    def decode(self, enc: Dict, reference_points: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Composite decoder with iterative point refinement, then the heads."""
-        memory, valid_ratios = enc["memory"], enc["valid_ratios"]
-        B = memory.shape[0]
-        tgt = self.point_embed.weight.view(self.num_queries, self.num_points, self.d_model)
-        tgt = tgt[None].expand(B, -1, -1, -1)
-        dec = self.transformer.decoder
-        ref = ref_in_last = reference_points
-        for li, layer in enumerate(dec.layers):
-            ref_input = ref[:, :, :, None, :] * valid_ratios[:, None, None, :, :]
-            qp = point_query_pos_embed(ref_input[:, :, :, 0, :], self.d_model, self.temperature)
-            query_pos = dec.ref_point_head(qp)
-            tgt = layer(tgt, query_pos, ref_input, memory, enc["shapes"], enc["token_valid"])
-            delta = self.ctrl_point_coord[li](tgt)
-            ref_in_last = ref
-            ref = (delta + inverse_sigmoid(ref)).sigmoid()
-        ref_unact = inverse_sigmoid(ref_in_last)
+    def _heads(self, tgt, ref_unact, pred_ctrl_points) -> Dict[str, torch.Tensor]:
         out = {
             "pred_logits": self.ctrl_point_class[-1](tgt),
             "pred_text_logits": self.ctrl_point_text[-1](tgt),
-            "pred_ctrl_points": (self.ctrl_point_coord[-1](tgt) + ref_unact).sigmoid(),
-            "query_features": tgt,
+            "pred_ctrl_points": pred_ctrl_points,
             "pred_bd_points": None,
         }
         if self.boundary_head:
@@ -371,6 +361,47 @@ class DeepSoloSpotter(nn.Module):
             ).sigmoid()
         return out
 
-    def forward(self, features: List[torch.Tensor], pos_embeds: List[torch.Tensor], masks=None):
+    def decode(self, enc: Dict, reference_points: torch.Tensor,
+               aux_outputs: bool = False) -> Dict[str, torch.Tensor]:
+        """Composite decoder with iterative point refinement, then the heads.
+        ``aux_outputs``: also the heads of every layer but the last, for the
+        pretraining losses (gomatching_tpu/models/spotter.py:575-586)."""
+        memory, valid_ratios = enc["memory"], enc["valid_ratios"]
+        B = memory.shape[0]
+        tgt = self.point_embed.weight.view(self.num_queries, self.num_points, self.d_model)
+        tgt = tgt[None].expand(B, -1, -1, -1)
+        dec = self.transformer.decoder
+        ref = ref_in_last = reference_points.detach()
+        aux = []
+        for li, layer in enumerate(dec.layers):
+            ref_input = ref[:, :, :, None, :] * valid_ratios[:, None, None, :, :]
+            qp = point_query_pos_embed(ref_input[:, :, :, 0, :], self.d_model, self.temperature)
+            query_pos = dec.ref_point_head(qp)
+            tgt = layer(tgt, query_pos, ref_input, memory, enc["shapes"], enc["token_valid"])
+            delta = self.ctrl_point_coord[li](tgt)
+            ref_in_last = ref
+            r = inverse_sigmoid(ref)
+            if aux_outputs and li < len(dec.layers) - 1:
+                aux.append(self._heads(tgt, r, (delta + r).sigmoid()))
+            # refined references carry no gradient (JAX stop_gradient, spotter.py:587)
+            ref = (delta + r).sigmoid().detach()
+        ref_unact = inverse_sigmoid(ref_in_last)
+        out = self._heads(tgt, ref_unact, (self.ctrl_point_coord[-1](tgt) + ref_unact).sigmoid())
+        out["query_features"] = tgt
+        if aux_outputs:
+            out["aux_outputs"] = aux
+        return out
+
+    def forward(self, features: List[torch.Tensor], pos_embeds: List[torch.Tensor], masks=None,
+                train_outputs: bool = False):
+        """``train_outputs``: also ``aux_outputs`` (every decoder layer but the last),
+        ``enc_logits`` (B, S, 1) and ``enc_beziers`` (B, S, 8) sigmoided, as the JAX
+        spotter emits them for pretraining (spotter.py:602-606)."""
         enc = self.encode(features, pos_embeds, masks)
-        return self.decode(enc, self.propose(enc))
+        enc_class, enc_coords = self.encoder_proposals(enc)
+        out = self.decode(enc, self.select_proposals(enc_class, enc_coords),
+                          aux_outputs=train_outputs)
+        if train_outputs:
+            out["enc_logits"] = enc_class[..., None]
+            out["enc_beziers"] = enc_coords.sigmoid()
+        return out

@@ -1,4 +1,4 @@
-"""Multi-scale deformable attention: the two forwards the inference path runs.
+"""Multi-scale deformable attention: the two forwards and their backwards.
 
 Numerical spec: the reference oracle ``ms_deform_attn_core_pytorch``
 (third_party/adet/layers/ms_deform_attn.py:40-60) -- for every (batch, query, head),
@@ -19,10 +19,21 @@ its inputs:
     ``ms_deform_attn_encoder_vmem_v2``). Exact over the whole level: the TPU kernel
     drops sampling mass beyond its ``TILED_HALO`` footprint, this one does not.
 
-On a CPU tensor a wrapper runs the plain version. On a CUDA tensor it launches the
-hand-written sm_90a kernel in ``csrc/ms_deform_attn.cu`` or raises; there is no
-fallback. Both kernels are bound by memory traffic on an H100 (see the source note in
-the .cu file for the design). Each launch adds one to ``launch_counts[name]``.
+On a CPU tensor a wrapper runs the plain version, which autograd differentiates. On a
+CUDA tensor it launches the hand-written sm_90a kernel in ``csrc/ms_deform_attn.cu`` or
+raises; there is no fallback. On CUDA each op is a ``torch.autograd.Function`` whose
+backward is a kernel too:
+
+``ms_deform_attn_queries_backward``  (B3) B1's VJP; replaces
+    ``gomatching_tpu/ops/deform_attn_dec_vmem.py:_bwd_kernel`` (via ``_op_bwd``).
+``ms_deform_attn_encoder_backward``  (B4) B2's VJP, through the softmax to the logits;
+    replaces ``gomatching_tpu/ops/deform_attn_vmem.py:_bwd_kernel_v2`` (via
+    ``_v2_bwd_impl``), exact over the whole level.
+
+The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through the plain
+forwards; the tests and ``chip_smoke.py`` hold the kernels against them. All four
+kernels are bound by memory traffic on an H100 (see the source note in the .cu file for
+the design). Each launch adds one to ``launch_counts[name]``.
 """
 
 from __future__ import annotations
@@ -37,9 +48,11 @@ Shapes = Sequence[Tuple[int, int]]
 
 QUERIES = "ms_deform_attn_queries"
 ENCODER = "ms_deform_attn_encoder"
+QUERIES_BWD = "ms_deform_attn_queries_bwd"
+ENCODER_BWD = "ms_deform_attn_encoder_bwd"
 
 # launches of each hand-written kernel in this process (plain CPU calls do not count)
-launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0}
+launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0, QUERIES_BWD: 0, ENCODER_BWD: 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,8 +61,13 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_encoder_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I),
                                    _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_queries_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
+                                   _I, _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_encoder_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
+                                   _I, _I, _I, _I, _I, _I, _P],
 }
 _MAX_LEVELS = 8
+_MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)
 
 
 def reset_launch_counts() -> None:
@@ -130,6 +148,28 @@ def ms_deform_attn_encoder_plain(
     return ms_deform_attn_queries_plain(value, spatial_shapes, loc, attn)
 
 
+def _plain_backward(forward, value, spatial_shapes, a, b, grad_out):
+    """VJP of ``forward(value, shapes, a, b)`` at ``grad_out`` by autograd."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(True) for t in (value, a, b)]
+        out = forward(inputs[0], spatial_shapes, inputs[1], inputs[2])
+        return torch.autograd.grad(out, inputs, grad_out)
+
+
+def ms_deform_attn_queries_plain_backward(value, spatial_shapes, sampling_locations,
+                                          attention_weights, grad_out):
+    """B3's plain version: (dValue, dLoc, dAttn) through ``grid_sample``."""
+    return _plain_backward(ms_deform_attn_queries_plain, value, spatial_shapes,
+                           sampling_locations, attention_weights, grad_out)
+
+
+def ms_deform_attn_encoder_plain_backward(value, spatial_shapes, offsets, attn_logits, grad_out):
+    """B4's plain version: (dValue, dOffsets, dLogits) through ``grid_sample`` and the
+    softmax."""
+    return _plain_backward(ms_deform_attn_encoder_plain, value, spatial_shapes, offsets,
+                           attn_logits, grad_out)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -145,11 +185,18 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    if _on_cpu(*tensors):
+        raise ValueError(f"{name}: the backward kernel takes CUDA tensors; on the CPU "
+                         f"autograd differentiates the plain forward")
+
+
 def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shapes: Shapes,
-            out_shape: Tuple[int, ...], dims: Tuple[int, ...]) -> torch.Tensor:
-    """Validate the inputs, allocate the output and launch ``c_fn`` on the current
-    stream; raise on a refused launch. ``inputs`` are passed in order, then the output,
-    the level shapes and ``dims``."""
+            outs: Sequence[Tuple[Tuple[int, ...], bool]],
+            dims: Tuple[int, ...]) -> List[torch.Tensor]:
+    """Validate the inputs, allocate the outputs ((shape, zeroed) each) and launch
+    ``c_fn`` on the current stream; raise on a refused launch. ``inputs`` are passed
+    in order, then the outputs, the level shapes and ``dims``."""
     S = next(iter(inputs.values())).shape[1]
     if sum(h * w for h, w in spatial_shapes) != S or not 1 <= len(spatial_shapes) <= _MAX_LEVELS:
         raise ValueError(f"{name}: spatial_shapes {spatial_shapes} do not match S={S} "
@@ -159,22 +206,123 @@ def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shape
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"{name}: the CUDA kernel has no backward yet")
     from ._build import load
 
     fn = getattr(load("ms_deform_attn.cu", _SIGNATURES), c_fn)
     device = next(iter(inputs.values())).device
-    out = torch.empty(out_shape, dtype=torch.float32, device=device)
+    results = [(torch.zeros if zeroed else torch.empty)(shape, dtype=torch.float32, device=device)
+               for shape, zeroed in outs]
     flat = [int(x) for hw in spatial_shapes for x in hw]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*(t.data_ptr() for t in inputs.values()), out.data_ptr(),
+        rc = fn(*(t.data_ptr() for t in inputs.values()), *(r.data_ptr() for r in results),
                 (_I * len(flat))(*flat), *dims, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     launch_counts[name] += 1
-    return out
+    return results
+
+
+def _queries_dims(value, spatial_shapes, sampling_locations, attention_weights, name=QUERIES):
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    if (sampling_locations.shape != (B, Lq, M, L, P, 2)
+            or attention_weights.shape != (B, Lq, M, L, P) or len(spatial_shapes) != L):
+        raise ValueError(f"{name}: shape mismatch {tuple(sampling_locations.shape)} / "
+                         f"{tuple(attention_weights.shape)} for value {tuple(value.shape)} "
+                         f"and {L} levels")
+    return B, S, Lq, M, D, L, P
+
+
+def _encoder_dims(value, spatial_shapes, offsets, attn_logits, name=ENCODER):
+    B, S, M, D = value.shape
+    L, P = offsets.shape[3], offsets.shape[4]
+    if (offsets.shape != (B, S, M, L, P, 2) or attn_logits.shape != (B, S, M, L * P)
+            or len(spatial_shapes) != L or L * P > _MAX_SAMPLES):
+        raise ValueError(f"{name}: shape mismatch {tuple(offsets.shape)} / "
+                         f"{tuple(attn_logits.shape)} for value {tuple(value.shape)} "
+                         f"and {L} levels (L*P <= {_MAX_SAMPLES})")
+    return B, S, M, D, L, P
+
+
+def _check_grad_out(name, grad_out, shape):
+    if tuple(grad_out.shape) != shape:
+        raise ValueError(f"{name}: grad_out has shape {tuple(grad_out.shape)}, expected {shape}")
+
+
+def ms_deform_attn_queries_backward(value, spatial_shapes, sampling_locations,
+                                    attention_weights, grad_out):
+    """B3: B1's VJP at ``grad_out`` (B, Lq, M*D) -> (dValue, dLoc, dAttn). CUDA
+    tensors only: on the CPU, autograd differentiates the plain forward."""
+    _require_cuda(QUERIES_BWD, value, sampling_locations, attention_weights, grad_out)
+    B, S, Lq, M, D, L, P = _queries_dims(value, spatial_shapes, sampling_locations,
+                                         attention_weights, QUERIES_BWD)
+    _check_grad_out(QUERIES_BWD, grad_out, (B, Lq, M * D))
+    return tuple(_launch(
+        QUERIES_BWD, "ms_deform_attn_queries_bwd",
+        {"value": value, "sampling_locations": sampling_locations,
+         "attention_weights": attention_weights, "grad_out": grad_out.contiguous()},
+        spatial_shapes, [((B, S, M, D), True), ((B, Lq, M, L, P, 2), False),
+                         ((B, Lq, M, L, P), False)],
+        (B, S, Lq, M, D, L, P)))
+
+
+def ms_deform_attn_encoder_backward(value, spatial_shapes, offsets, attn_logits, grad_out):
+    """B4: B2's VJP at ``grad_out`` (B, S, M*D) -> (dValue, dOffsets, dLogits). CUDA
+    tensors only: on the CPU, autograd differentiates the plain forward."""
+    _require_cuda(ENCODER_BWD, value, offsets, attn_logits, grad_out)
+    B, S, M, D, L, P = _encoder_dims(value, spatial_shapes, offsets, attn_logits, ENCODER_BWD)
+    _check_grad_out(ENCODER_BWD, grad_out, (B, S, M * D))
+    return tuple(_launch(
+        ENCODER_BWD, "ms_deform_attn_encoder_bwd",
+        {"value": value, "offsets": offsets, "attn_logits": attn_logits,
+         "grad_out": grad_out.contiguous()},
+        spatial_shapes, [((B, S, M, D), True), ((B, S, M, L, P, 2), False),
+                         ((B, S, M, L * P), False)],
+        (B, S, M, D, L, P)))
+
+
+class _QueriesFunction(torch.autograd.Function):
+    """B1 forward, B3 backward."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes):
+        dims = _queries_dims(value, spatial_shapes, sampling_locations, attention_weights)
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        B, S, Lq, M, D, L, P = dims
+        return _launch(QUERIES, "ms_deform_attn_queries_fwd",
+                       {"value": value, "sampling_locations": sampling_locations,
+                        "attention_weights": attention_weights},
+                       spatial_shapes, [((B, Lq, M * D), False)], dims)[0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*ms_deform_attn_queries_backward(ctx.saved_tensors[0], ctx.spatial_shapes,
+                                                 *ctx.saved_tensors[1:], grad_out), None)
+
+
+class _EncoderFunction(torch.autograd.Function):
+    """B2 forward, B4 backward."""
+
+    @staticmethod
+    def forward(ctx, value, offsets, attn_logits, spatial_shapes):
+        dims = _encoder_dims(value, spatial_shapes, offsets, attn_logits)
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, offsets, attn_logits)
+        B, S, M, D, L, P = dims
+        return _launch(ENCODER, "ms_deform_attn_encoder_fwd",
+                       {"value": value, "offsets": offsets, "attn_logits": attn_logits},
+                       spatial_shapes, [((B, S, M * D), False)], dims)[0]
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*ms_deform_attn_encoder_backward(ctx.saved_tensors[0], ctx.spatial_shapes,
+                                                 *ctx.saved_tensors[1:], grad_out), None)
+
+
+def _shape_key(spatial_shapes: Shapes) -> Tuple[Tuple[int, int], ...]:
+    return tuple((int(h), int(w)) for h, w in spatial_shapes)
 
 
 def ms_deform_attn_queries(
@@ -183,7 +331,7 @@ def ms_deform_attn_queries(
     sampling_locations: torch.Tensor,
     attention_weights: torch.Tensor,
 ) -> torch.Tensor:
-    """B1: deformable attention for arbitrary normalized locations.
+    """B1: deformable attention for arbitrary normalized locations (B3 its backward).
 
     value (B, S, M, D); sampling_locations (B, Lq, M, L, P, 2); attention_weights
     (B, Lq, M, L, P), softmaxed over (L, P) -> (B, Lq, M*D).
@@ -192,17 +340,8 @@ def ms_deform_attn_queries(
         return ms_deform_attn_queries_plain(
             value, spatial_shapes, sampling_locations, attention_weights
         )
-    B, S, M, D = value.shape
-    _, Lq, _, L, P, _ = sampling_locations.shape
-    if (sampling_locations.shape != (B, Lq, M, L, P, 2)
-            or attention_weights.shape != (B, Lq, M, L, P) or len(spatial_shapes) != L):
-        raise ValueError(f"{QUERIES}: shape mismatch {tuple(sampling_locations.shape)} / "
-                         f"{tuple(attention_weights.shape)} for value {tuple(value.shape)} "
-                         f"and {L} levels")
-    return _launch(QUERIES, "ms_deform_attn_queries_fwd",
-                   {"value": value, "sampling_locations": sampling_locations,
-                    "attention_weights": attention_weights},
-                   spatial_shapes, (B, Lq, M * D), (B, S, Lq, M, D, L, P))
+    return _QueriesFunction.apply(value, sampling_locations, attention_weights,
+                                  _shape_key(spatial_shapes))
 
 
 def ms_deform_attn_encoder(
@@ -211,7 +350,8 @@ def ms_deform_attn_encoder(
     offsets: torch.Tensor,
     attn_logits: torch.Tensor,
 ) -> torch.Tensor:
-    """B2: encoder self-attention over every token of every level (no padding).
+    """B2: encoder self-attention over every token of every level (no padding; B4 its
+    backward).
 
     value (B, S, M, D); offsets (B, S, M, L, P, 2) raw, in target-level cells
     (the ``sampling_offsets`` projection in its (m, l, p, xy) order); attn_logits
@@ -219,13 +359,4 @@ def ms_deform_attn_encoder(
     """
     if _on_cpu(value, offsets, attn_logits):
         return ms_deform_attn_encoder_plain(value, spatial_shapes, offsets, attn_logits)
-    B, S, M, D = value.shape
-    L, P = offsets.shape[3], offsets.shape[4]
-    if (offsets.shape != (B, S, M, L, P, 2) or attn_logits.shape != (B, S, M, L * P)
-            or len(spatial_shapes) != L):
-        raise ValueError(f"{ENCODER}: shape mismatch {tuple(offsets.shape)} / "
-                         f"{tuple(attn_logits.shape)} for value {tuple(value.shape)} "
-                         f"and {L} levels")
-    return _launch(ENCODER, "ms_deform_attn_encoder_fwd",
-                   {"value": value, "offsets": offsets, "attn_logits": attn_logits},
-                   spatial_shapes, (B, S, M * D), (B, S, M, D, L, P))
+    return _EncoderFunction.apply(value, offsets, attn_logits, _shape_key(spatial_shapes))

@@ -6,7 +6,9 @@ of the key map of ``tools/convert_torch_weights.py`` (``build_key_map``: torch k
 (transform, JAX params path)) and runs it backwards in ``params_from_jax``, which
 turns a JAX parameter tree (nested dict of arrays) into the port's state_dict -- the
 inverse of that tool's ``convert``. ``init_state_dict`` draws random weights from a
-``torch.Generator`` with the reference init scheme.
+``torch.Generator`` with the reference init scheme. ``pretrain=True`` selects the
+spotter-pretraining model (``SpotterPretrainModel``): the same keys without
+``roi_heads.*``.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .models.gomatching import build_model
+from .models.gomatching import build_model, build_pretrain_model
 from .models.layers import MultiHeadAttention
 from .models.spotter import DeepSoloSpotter, MSDeformAttn, offset_grid_bias
 
@@ -67,8 +69,9 @@ def _conv(out, prefix_t, node, name, bias=False):
         out[f"{prefix_t}.bias"] = ("copy", (node, name, "bias"))
 
 
-def build_key_map(cfg) -> Dict[str, tuple]:
-    """torch key -> (transform, (JAX node, JAX path...))."""
+def build_key_map(cfg, pretrain: bool = False) -> Dict[str, tuple]:
+    """torch key -> (transform, (JAX node, JAX path...)); ``pretrain``: the
+    pretraining model's keys (no ``roi_heads``)."""
     t = cfg.MODEL.TRANSFORMER
     m: Dict[str, tuple] = {}
 
@@ -130,6 +133,8 @@ def build_key_map(cfg) -> Dict[str, tuple]:
     if t.BOUNDARY_HEAD:
         _mlp(m, f"{dt}.boundary_offset.0", o, "boundary_offset", 3)
 
+    if pretrain:
+        return m
     # ---- roi_heads (tracker) ----
     r = "roi_heads"
     a = cfg.MODEL.ASSO_HEAD
@@ -169,14 +174,15 @@ def _get(tree: Mapping, node: str, path: str) -> np.ndarray:
     return np.asarray(cur)
 
 
-def params_from_jax(tree: Mapping, cfg) -> Dict[str, np.ndarray]:
+def params_from_jax(tree: Mapping, cfg, pretrain: bool = False) -> Dict[str, np.ndarray]:
     """JAX params ({'params': {...}} or the inner dict of numpy-convertible arrays)
-    -> {canonical torch key: array}. Inverse of tools/convert_torch_weights.convert."""
+    -> {canonical torch key: array}. Inverse of tools/convert_torch_weights.convert.
+    A tree of gradients converts the same way."""
     if "params" in tree:
         tree = tree["params"]
     t = cfg.MODEL.TRANSFORMER
     sd: Dict[str, np.ndarray] = {}
-    for tk, (kind, target) in build_key_map(cfg).items():
+    for tk, (kind, target) in build_key_map(cfg, pretrain).items():
         node, *path = target
         path = "/".join(path)
         if kind in ("mha_in_w", "mha_in_b"):
@@ -269,6 +275,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
-def init_state_dict(cfg, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+def init_state_dict(cfg, generator: torch.Generator,
+                    pretrain: bool = False) -> Dict[str, torch.Tensor]:
     """Seeded random weights for the model ``cfg`` describes (CPU tensors)."""
-    return init_weights_(build_model(cfg), generator).state_dict()
+    model = build_pretrain_model(cfg) if pretrain else build_model(cfg)
+    return init_weights_(model, generator).state_dict()

@@ -25,7 +25,10 @@ def _port_modules():
 
 def test_importing_the_port_pulls_in_no_jax():
     mods = _port_modules()
-    assert "gomatching_tpu_torch.engine.predictor" in mods
+    for m in ("engine.predictor", "engine.pretrain", "engine.spotter_losses", "engine.optim",
+              "engine.checkpoint", "data.bezier", "data.datasets", "data.image_augment",
+              "train_net"):
+        assert f"gomatching_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -90,6 +93,19 @@ def test_eval_cli_refuses_gpu_run_without_cuda(tmp_path):
     assert proc.returncode != 0 and "CUDA" in proc.stderr, proc.stderr[-2000:]
 
 
+def test_train_cli_refuses_gpu_run_without_cuda():
+    import torch
+
+    from gomatching_tpu_torch import train_net
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-GPU behaviour")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_net.main(["--config-file", os.path.join(ROOT, "configs", "GoMatching_ICDAR15.yaml"),
+                        "--task", "spotter", "--opts", "MODEL.TRANSFORMER.ENC_LAYERS", "1",
+                        "MODEL.TRANSFORMER.DEC_LAYERS", "1"])
+
+
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     """A wrapper runs the plain version only for CPU tensors; anything else launches
     the kernel or raises (here: the meta device)."""
@@ -105,3 +121,11 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         da.ms_deform_attn_encoder(value, [(2, 2)], torch.empty(1, 4, 2, 1, 2, 2, device="meta"),
                                   torch.empty(1, 4, 2, 2, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        da.ms_deform_attn_queries_backward(value, [(2, 2)], loc, attn,
+                                           torch.empty(1, 3, 16, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        da.ms_deform_attn_encoder_backward(value, [(2, 2)],
+                                           torch.empty(1, 4, 2, 1, 2, 2, device="meta"),
+                                           torch.empty(1, 4, 2, 2, device="meta"),
+                                           torch.empty(1, 4, 16, device="meta"))
