@@ -35,11 +35,25 @@ Phases (any failure exits non-zero and prints no result line):
      TRAIN_SIZE 1280 over a synthetic dataset of 720x1280 images with text boxes; finite
      losses, moved parameters, a checkpoint that loads back strictly, each of B1-B4
      launched 6 x steps times; ms/step, images/s and peak memory over the steps after
-     warm-up; host wall per stage; one step under torch.profiler.
-The line before the last is {"kernels": [...]}; the last is
+     warm-up; host wall per stage; one step under torch.profiler;
+  9. B5 (the corner-merged sampler of TPU.SAMPLING_IMPL 'pallas') against its plain
+     version and against the B1 kernel at the full-width encoder (Lq = S) and decoder
+     (Lq = 2500) shapes, locations partly outside the maps, at ATOL_KERNEL, and B5's
+     table-build kernel against its plain version (exactly); kernel, plain, library and
+     bound times, and the table's bytes;
+ 10. one frame through the full-depth spotter of configs/GoMatching_PP_ICDAR15.yaml
+     under 'pallas' (B5 and its table build launched, nothing else), against the plain
+     merged version and against the 'vmem' route (B1/B2) on the same weights, at
+     ATOL_PATH;
+ 11. the GoMatching++ path: ``VideoPredictor`` on that config with 'pallas' over the
+     same frames as phase 4; XML/JSON parsed back; B5 and its table build launched
+     12 x (spot batches) times each and B1-B4 never; frames/s; the same clip under 'vmem' and 'pallas' in turns
+     (frames/s of each); one profile with B5's and the table build's shares.
+The line before the last is {"kernels": [...]} (B1-B5 and B5's table build); the last is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -78,6 +92,7 @@ N_REPEATS = 5  # timed runs of the clip; the first is the checked, counted one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 CONFIG = "configs/GoMatching_ICDAR15.yaml"
+CONFIG_PP = "configs/GoMatching_PP_ICDAR15.yaml"  # GoMatching++ (shared matcher)
 
 
 def check(cond, msg):
@@ -198,43 +213,78 @@ def phase_kernels(torch, da):
     return records
 
 
-def phase_path(torch, predictor, da):
-    """One frame through the spotter with the kernels and with the plain versions."""
-    import gomatching_tpu_torch.models.spotter as spotter_mod
+@contextlib.contextmanager
+def patched(obj, **attrs):
+    """Set attributes of ``obj`` for the duration of the block."""
+    saved = {k: getattr(obj, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(obj, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(obj, k, v)
 
-    model = predictor.model
+
+@contextlib.contextmanager
+def sampling(model, impl):
+    """Run every deformable-attention layer of ``model`` with SAMPLING_IMPL ``impl``
+    for the duration of the block."""
+    from gomatching_tpu_torch.models.spotter import MSDeformAttn
+
+    attns = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
+    saved = [m.sampling_impl for m in attns]
+    for m in attns:
+        m.sampling_impl = impl
+    try:
+        yield
+    finally:
+        for m, v in zip(attns, saved):
+            m.sampling_impl = v
+
+
+def spotter_errors(torch, tag, model, routes):
+    """One seeded 1000x1778 frame through the full-depth spotter along each of
+    ``routes`` ({name: context manager factory}; the first is the one checked): the
+    encoder, then the decoder from the first route's proposals. Prints and checks max
+    |first - other| of the encoder memory and of every output at ATOL_PATH."""
     spotter = model.detection_transformer
     g = torch.Generator().manual_seed(1)
     img = (torch.rand(1, 1000, 1778, 3, generator=g) * 4 - 2).cuda()
 
-    def run(plain, enc=None, refs=None):
-        saved = spotter_mod.ms_deform_attn_encoder, spotter_mod.ms_deform_attn_queries
-        if plain:
-            spotter_mod.ms_deform_attn_encoder = da.ms_deform_attn_encoder_plain
-            spotter_mod.ms_deform_attn_queries = da.ms_deform_attn_queries_plain
-        try:
-            with torch.no_grad():
-                if enc is None:
-                    feats, pos = model.features(img)
-                    return spotter.encode(feats, pos, None)
-                return spotter.decode(enc, refs)
-        finally:
-            spotter_mod.ms_deform_attn_encoder, spotter_mod.ms_deform_attn_queries = saved
+    def run(route, enc=None, refs=None):
+        with routes[route](), torch.no_grad():
+            if enc is None:
+                feats, pos = model.features(img)
+                return spotter.encode(feats, pos, None)
+            return spotter.decode(enc, refs)
 
-    enc_k = run(False)
-    enc_p = run(True)
-    err_mem = (enc_k["memory"] - enc_p["memory"]).abs().max().item()
+    first, *others = routes
+    enc_k = run(first)
     with torch.no_grad():
         refs = spotter.select_proposals(*spotter.encoder_proposals(enc_k))
-    out_k = run(False, enc_k, refs)
-    out_p = run(True, enc_k, refs)
-    errs = {"encoder memory": err_mem}
+    out_k = run(first, enc_k, refs)
     for k, v in out_k.items():
         check(bool(torch.isfinite(v).all()), f"path: non-finite {k}")
-        errs[k] = (v - out_p[k]).abs().max().item()
-    for k, e in errs.items():
-        print(f"[3] spotter {k}: max|kernels-plain| {e:.3e} (atol {ATOL_PATH})")
-        check(math.isfinite(e) and e <= ATOL_PATH, f"path: {k} differs by {e}")
+    for other in others:
+        errs = {"encoder memory": (enc_k["memory"] - run(other)["memory"]).abs().max().item()}
+        out_o = run(other, enc_k, refs)
+        for k, v in out_k.items():
+            errs[k] = (v - out_o[k]).abs().max().item()
+        for k, e in errs.items():
+            print(f"{tag} spotter {k}: max|{first}-{other}| {e:.3e} (atol {ATOL_PATH})")
+            check(math.isfinite(e) and e <= ATOL_PATH, f"path: {k} differs by {e} ({other})")
+
+
+def phase_path(torch, predictor, da):
+    """One frame through the spotter with the kernels and with the plain versions."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+
+    spotter_errors(torch, "[3]", predictor.model, {
+        "kernels": contextlib.nullcontext,
+        "plain": lambda: patched(spotter_mod, ms_deform_attn_encoder=da.ms_deform_attn_encoder_plain,
+                                 ms_deform_attn_queries=da.ms_deform_attn_queries_plain),
+    })
 
 
 def synthetic_frames():
@@ -253,9 +303,10 @@ def device_rows(torch, prof):
                    and not getattr(e, "is_user_annotation", False)), reverse=True)
 
 
-def phase_profile(torch, predictor):
+def phase_profile(torch, predictor, tag="[5]", shares=()):
     """The main path once more under torch.profiler: device time by kernel and the
-    device's busy share of the wall time (kernels run on one stream)."""
+    device's busy share of the wall time (kernels run on one stream). ``shares``:
+    (label, kernel name prefix) whose share of the device time is printed."""
     from torch.profiler import ProfilerActivity, profile
 
     frames = synthetic_frames()
@@ -268,16 +319,22 @@ def phase_profile(torch, predictor):
     rows = device_rows(torch, prof)
     total_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
-        print("[5] profiler: no device time recorded (not measured)")
+        print(f"{tag} profiler: no device time recorded (not measured)")
         return
-    print(f"[5] profiled main path: wall {wall * 1e3:.1f} ms for {N_FRAMES} frames, device busy "
+    print(f"{tag} profiled main path: wall {wall * 1e3:.1f} ms for {N_FRAMES} frames, device busy "
           f"{total_ms:.1f} ms ({100 * total_ms / (wall * 1e3):.1f}% of wall; profiler on)")
     for t_us, n, key in rows[:15]:
-        print(f"[5]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / total_ms:5.1f}% x{n:<5d} {key[:90]}")
+        print(f"{tag}   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / total_ms:5.1f}% x{n:<5d} {key[:90]}")
+    for label, prefix in shares:
+        us = sum(t_us for t_us, _, key in rows if key.startswith(prefix))
+        n = sum(c for _, c, key in rows if key.startswith(prefix))
+        print(f"{tag} {label}: {us / 1e3:.3f} ms in {n} launches, "
+              f"{100 * us / 1e3 / total_ms:.1f}% of device time")
 
 
-def phase_main(torch, predictor, da):
-    """VideoPredictor over synthetic 720p frames; returns the launch counts."""
+def phase_main(torch, predictor, da, tag, expected):
+    """VideoPredictor over synthetic 720p frames; returns the launch counts, which
+    must equal ``expected`` ({kernel: launches per spot batch})."""
     import xml.etree.ElementTree as ET
 
     from gomatching_tpu_torch.eval import annotate
@@ -302,7 +359,6 @@ def phase_main(torch, predictor, da):
     fps = sorted(N_FRAMES / w for w in walls)
 
     n_batches = -(-N_FRAMES // predictor.spot_batch)
-    t = predictor.cfg.MODEL.TRANSFORMER
     check(len(tracked) == N_FRAMES, f"{len(tracked)} tracked frames")
     n_det = sum(len(f) for f in tracked)
     ids = set()
@@ -324,18 +380,144 @@ def phase_main(torch, predictor, da):
         n_obj = sum(len(fr) for fr in root)
         check(root.tag == "Frames" and len(js) == N_FRAMES, "XML/JSON structure")
         check(n_obj == sum(len(v) for v in js.values()), "XML and JSON disagree")
-    print(f"[4] main path: {N_FRAMES} frames 720x1280 -> 1000x1778, {N_REPEATS} runs: "
+    print(f"{tag} main path: {N_FRAMES} frames 720x1280 -> 1000x1778, {N_REPEATS} runs: "
           f"median {fps[len(fps) // 2]:.3f} frames/s (min {fps[0]:.3f}, max {fps[-1]:.3f}; "
           f"spot batch {predictor.spot_batch}); first run: "
           f"{n_det} detections after short-track removal, {len(ids)} tracks, "
           f"{n_obj} XML objects; matcher calls {stats}")
-    print("[4] host wall by stage (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tc.items()))
-    print(f"[4] kernels launched in the main path: {counts}")
-    for name, layers in ((da.ENCODER, t.ENC_LAYERS), (da.QUERIES, t.DEC_LAYERS),
-                         (da.ENCODER_BWD, 0), (da.QUERIES_BWD, 0)):
-        want = layers * n_batches
+    print(f"{tag} host wall by stage (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tc.items()))
+    print(f"{tag} kernels launched in the main path: {counts}")
+    for name in counts:
+        want = expected.get(name, 0) * n_batches
         check(counts[name] == want, f"{name}: {counts[name]} launches, expected {want}")
     return counts
+
+
+def phase_merged(torch, da, dam):
+    """B5's table build against its plain version (an exact copy), and B5 against its
+    plain version and against the B1 kernel at the full-width encoder (Lq = S) and
+    decoder (Lq = NQ * NPTS) shapes, locations partly outside the maps; returns the
+    kernels-line records of both (B5 at the encoder shape; sans launches)."""
+    S = sum(h * w for h, w in SHAPES)
+    g = torch.Generator().manual_seed(7)
+    dev = "cuda"
+    value = torch.randn(B, S, M, D, generator=g).to(dev)
+    wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32, device=dev)
+    off = torch.randn(B, S, M, L, P, 2, generator=g) * 4.0
+    far = torch.rand(B, S, M, L, P, 2, generator=g) < 0.01
+    off = torch.where(far, off * 100.0, off).to(dev)
+    cases = {
+        "encoder": (da.encoder_reference_points(SHAPES, dev)[None, :, None, None, None, :]
+                    + off / wh[None, None, None, :, None, :]),
+        "decoder": (torch.rand(B, NQ * NPTS, M, L, P, 2, generator=g) * 1.2 - 0.1).to(dev),
+    }
+    del off, far
+    table_bytes = B * M * S * 4 * D * 4
+    vbm = value.permute(0, 2, 1, 3)
+    table = dam.merged_table(value, SHAPES)
+    want = dam.merged_corner_table(vbm, SHAPES)
+    torch.cuda.synchronize()
+    t_err = (table - want).abs().max().item()
+    check(t_err == 0.0, f"{dam.MERGED_TABLE}: differs from the plain table by {t_err}")
+    rows = dam._corner_rows(SHAPES, dev).reshape(-1)
+    t_ms = cuda_time_ms(lambda: dam.merged_table(value, SHAPES))
+    t_plain_ms = cuda_time_ms(lambda: dam.merged_corner_table(vbm, SHAPES))
+    t_lib_ms = cuda_time_ms(lambda: vbm.index_select(2, rows))
+    # a copy: value read once, the table written once
+    t_bound, t_by = bound(nbytes(value) + table_bytes, 0)
+    print(f"[9] {dam.MERGED_TABLE}: identical to the plain table; kernel {t_ms:.4f} ms, plain "
+          f"{t_plain_ms:.4f} ms, index_select {t_lib_ms:.4f} ms, bound {t_bound:.4f} ms ({t_by}: "
+          f"{nbytes(value) / 1e6:.1f} MB read, {table_bytes / 1e6:.1f} MB written) at B={B}")
+    records = {dam.MERGED_TABLE: dict(
+        name=dam.MERGED_TABLE, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+        replaces="gomatching_tpu/ops/deform_attn_pallas.py:89", max_abs_err=t_err, ms=t_ms,
+        plain_ms=t_plain_ms, bound_ms=t_bound, bound_by=t_by, library_ms=t_lib_ms,
+    )}
+    del want, rows
+    for case, loc in cases.items():
+        Lq = loc.shape[1]
+        attn = torch.randn(B, Lq, M, L * P, generator=g).softmax(-1).view(B, Lq, M, L, P).to(dev)
+        got = dam.ms_deform_attn_merged(value, SHAPES, loc, attn)
+        want = dam.ms_deform_attn_merged_plain(value, SHAPES, loc, attn)
+        witness = da.ms_deform_attn_queries(value, SHAPES, loc, attn)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_b1 = (got - witness).abs().max().item()
+        check(math.isfinite(err) and err <= ATOL_KERNEL, f"{dam.MERGED} {case}: max err {err}")
+        check(math.isfinite(err_b1) and err_b1 <= ATOL_KERNEL,
+              f"{dam.MERGED} {case}: differs from B1 by {err_b1}")
+        del want, witness
+        ms = cuda_time_ms(lambda: dam.merged_sample(table, SHAPES, loc, attn))
+        both_ms = cuda_time_ms(lambda: dam.ms_deform_attn_merged(value, SHAPES, loc, attn))
+        plain_ms = cuda_time_ms(lambda: dam.ms_deform_attn_merged_plain(value, SHAPES, loc, attn),
+                                iters=3, warmup=1)
+        v_bytes, taps = value_reads(torch, loc, S, D)
+        samples = B * Lq * M * L * P
+        # the function's bound, as B1's: touched value rows, locations, attention, output
+        b_ms, b_by = bound(v_bytes + nbytes(loc, attn, got),
+                           samples * (20 + 2 * D) + taps * (2 * D + 1))
+        print(f"[9] {dam.MERGED} {case} (Lq={Lq}): max|kernel-plain| {err:.3e}, max|kernel-B1| "
+              f"{err_b1:.3e} (atol {ATOL_KERNEL}); kernel {ms:.4f} ms on the table, with the "
+              f"table build {both_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}: {v_bytes / 1e6:.1f} MB of value rows touched of "
+              f"{nbytes(value) / 1e6:.1f} MB; the table's {table_bytes / 1e6:.1f} MB written and "
+              f"read are not counted) at B={B}")
+        if case == "encoder":
+            records[dam.MERGED] = dict(
+                name=dam.MERGED, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+                replaces="gomatching_tpu/ops/deform_attn_pallas.py:49", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            )
+        del got, attn
+    return records
+
+
+def phase_merged_path(torch, predictor, da, dam):
+    """One frame through the full-depth spotter under SAMPLING_IMPL 'pallas': B5
+    against the plain merged version and against the 'vmem' route (B1/B2) on the same
+    weights; the B5 route launches B5 and its table build, nothing else."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+
+    attns = [m for m in predictor.model.modules() if isinstance(m, spotter_mod.MSDeformAttn)]
+    check(attns and all(m.sampling_impl == "pallas" for m in attns), "phase 10: not 'pallas'")
+    t = predictor.cfg.MODEL.TRANSFORMER
+
+    @contextlib.contextmanager
+    def counted():
+        # the encoder and the decoder run in separate blocks: 6 launches each
+        da.reset_launch_counts()
+        yield
+        got = {k: v for k, v in da.launch_counts.items() if v}
+        check(set(got) == {da.MERGED, da.MERGED_TABLE} and len(set(got.values())) == 1
+              and got[da.MERGED] in (t.ENC_LAYERS, t.DEC_LAYERS),
+              f"phase 10: the B5 route launched {got} (B5 and its table, once per layer)")
+
+    spotter_errors(torch, "[10]", predictor.model, {
+        "B5": counted,
+        "plain": lambda: patched(spotter_mod, ms_deform_attn_merged=dam.ms_deform_attn_merged_plain),
+        "vmem": lambda: sampling(predictor.model, "vmem"),
+    })
+
+
+def phase_sampler_ab(torch, predictor, n_pairs=10):
+    """The same clip on the same weights with SAMPLING_IMPL 'vmem' (B1/B2) and 'pallas'
+    (B5 and its table) in turns (vmem, pallas, pallas, vmem, ...): frames/s of each."""
+    frames = synthetic_frames()
+    fps = {"vmem": [], "pallas": []}
+    wins = 0
+    for i in range(n_pairs):
+        pair = {}
+        for impl in ("vmem", "pallas") if i % 2 == 0 else ("pallas", "vmem"):
+            with sampling(predictor.model, impl):
+                t0 = time.time()
+                predictor.process_video([f.copy() for f in frames])
+                torch.cuda.synchronize()
+                pair[impl] = N_FRAMES / (time.time() - t0)
+            fps[impl].append(pair[impl])
+        wins += pair["pallas"] > pair["vmem"]
+    print(f"[11] sampler A/B, GoMatching++, {n_pairs} alternating pairs: frames/s " + "; ".join(
+        f"{k} median {sorted(v)[len(v) // 2]:.3f} (runs {', '.join(f'{x:.3f}' for x in v)})"
+        for k, v in fps.items()) + f"; pallas ahead in {wins} of {n_pairs} pairs")
 
 
 def off_grid(torch, x, margin=1e-3):
@@ -559,7 +741,7 @@ def phase_train_step(torch, da):
     (lk, mk, gk), (lp, mp, gp), (l64, _, g64) = (results[t] for t in ("kernels", "plain", "f64"))
 
     t = cfg.MODEL.TRANSFORMER
-    check(counts == {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS,
+    check(counts == {**{k: 0 for k in counts}, da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS,
                      da.ENCODER_BWD: t.ENC_LAYERS, da.QUERIES_BWD: t.DEC_LAYERS},
           f"train step launches {counts}")
     for k in mk:
@@ -691,9 +873,10 @@ def phase_train(torch, da):
         t = cfg.MODEL.TRANSFORMER
         check(len(history) == N_TRAIN_STEPS, f"{len(history)} steps ran")
         check(all(math.isfinite(h["total_loss"]) for h in history), "non-finite loss")
-        for name, layers in ((da.ENCODER, t.ENC_LAYERS), (da.QUERIES, t.DEC_LAYERS),
-                             (da.ENCODER_BWD, t.ENC_LAYERS), (da.QUERIES_BWD, t.DEC_LAYERS)):
-            want = layers * N_TRAIN_STEPS
+        layers = {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS,
+                  da.ENCODER_BWD: t.ENC_LAYERS, da.QUERIES_BWD: t.DEC_LAYERS}
+        for name in counts:  # B5 and its table: never, whatever SAMPLING_IMPL says
+            want = layers.get(name, 0) * N_TRAIN_STEPS
             check(counts[name] == want, f"{name}: {counts[name]} launches, expected {want}")
         ckpt = os.path.join(out_dir, "checkpoints", f"spotter_{N_TRAIN_STEPS:07d}.pth")
         sd = load_checkpoint(ckpt)
@@ -765,6 +948,7 @@ def main():
     from gomatching_tpu_torch.engine.predictor import VideoPredictor
     from gomatching_tpu_torch.ops import _build
     from gomatching_tpu_torch.ops import deform_attn as da
+    from gomatching_tpu_torch.ops import deform_attn_merged as dam
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -785,17 +969,37 @@ def main():
     predictor = VideoPredictor(cfg)
     print(f"[1] VideoPredictor built with seeded random weights in {time.time() - t0:.1f} s")
     phase_path(torch, predictor, da)
-    counts = phase_main(torch, predictor, da)
+    t = cfg.MODEL.TRANSFORMER
+    counts = phase_main(torch, predictor, da, "[4]",
+                        {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS})
     phase_profile(torch, predictor)
     del predictor
     bwd_records = phase_backward(torch, da)
     phase_train_step(torch, da)
     train_counts = phase_train(torch, da)
 
+    # GoMatching++ on the corner-merged sampler (B5)
+    merged_records = phase_merged(torch, da, dam)
+    cfg_pp = setup_eval_cfg(CONFIG_PP, ["MODEL.WEIGHTS", "''", "TPU.SAMPLING_IMPL", "pallas",
+                                        "MODEL.TRANSFORMER.INFERENCE_TH_TEST", "0.05", "SEED", "0"])
+    predictor = VideoPredictor(cfg_pp)
+    check(predictor.model.roi_heads.variant == "shared", "GoMatching++ builds the shared matcher")
+    phase_merged_path(torch, predictor, da, dam)
+    t = cfg_pp.MODEL.TRANSFORMER
+    layers = t.ENC_LAYERS + t.DEC_LAYERS
+    pp_counts = phase_main(torch, predictor, da, "[11]", {da.MERGED: layers, da.MERGED_TABLE: layers})
+    phase_sampler_ab(torch, predictor)
+    phase_profile(torch, predictor, "[11]",
+                  shares=[("B5", "ms_deform_attn_merged_kernel("),
+                          ("B5's table build", "ms_deform_attn_merged_table_kernel(")])
+    del predictor
+
     kernels = []
-    for name, rec in [*records.items(), *bwd_records.items()]:
-        # the forwards' launches are the inference path's, the backwards' the pretraining's
-        rec = dict(rec, launches=(counts if name in records else train_counts)[name])
+    launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},
+                **{n: pp_counts[n] for n in merged_records}}
+    for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items()]:
+        # the forwards' launches are the inference paths', the backwards' the pretraining's
+        rec = dict(rec, launches=launches[name])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")})

@@ -10,7 +10,9 @@ raise, matching yacs' strictness.
 
 This is the PyTorch port's own copy of ``gomatching_tpu/config.py`` (the port imports
 nothing of the JAX package). Every key still parses, including the ``TPU.*`` runtime
-keys; of those the port reads only ``TPU.SPOT_BATCH`` (frames per spotter call).
+keys; of those the port reads ``TPU.SPOT_BATCH`` (frames per spotter call) and
+``TPU.SAMPLING_IMPL`` (the deformable-attention sampler of the inference model: 'pallas'
+takes the corner-merged kernel B5, the other values the exact B1/B2 route).
 """
 
 from __future__ import annotations

@@ -63,6 +63,40 @@
 // sample, gx and gy per channel), and the scattered corner atomics, mostly L2
 // hits, are what the simple form pays above the bound.
 //
+// A third forward samples the corner-merged table (SAMPLING_IMPL='pallas'):
+//
+//   ms_deform_attn_merged_fwd  -- replaces gomatching_tpu/ops/deform_attn_pallas.py:
+//       _sampling_kernel (entry ms_deform_attn_pallas). The table (B, M, S, 4D)
+//       holds in row s the four bilinear corners of token s side by side
+//       ((0,0), (0,+x), (+y,0), (+y,+x); an edge duplicate past the last row or
+//       column). Each sample is one clamped base row of the table and four
+//       slot weights, so at D == 32 one sample is ONE coalesced 512-byte row
+//       load: lane l takes the
+//       float4 of corner l/8, channels 4(l%8)..4(l%8)+3, and scales it by that
+//       corner's slot weight; shuffles by 8 and 16 sum the corners and lanes
+//       0-7 store the head's 32 channels as one 128-byte row.
+//
+// Design: one warp per (batch, head, query), queries fastest, so the warps of
+// one (batch, head) run together and share that head's table slice (S * 512 B,
+// 19 MB at 1000x1778 input) in L2. The TPU kernel reads a base index and four
+// slot weights per sample that an XLA prologue precomputed; here lane j
+// computes them for sample j in registers from the locations and attention
+// (the same floor, clamp to [0, max(W-2, 0)], equality rule and +1-slot mask
+// as _merged_indices_and_slot_weights) and the warp broadcasts them with
+// shuffles. That saves the index and weight round trip through device memory
+// (20 bytes per sample against the 12 of locations and attention). What
+// bounds it: bytes, as B1; the table itself is 4x the value tensor and its
+// build writes it once per call, which is a cost of this design and not of
+// the function.
+//
+//   ms_deform_attn_merged_table  -- builds that table from value (B, S, M, D),
+//       the counterpart of the dense XLA prologue the TPU kernel's caller runs
+//       (gomatching_tpu/ops/deform_attn.py:_merged_corner_table). A copy bound
+//       by bytes: value read once (four reads per row, three of them L2 hits)
+//       and the table written once, in 512-byte rows. A torch index_select
+//       computes the same table at 2.3x this byte bound on an H100 (the time
+//       chip_smoke.py phase 9 prints as its library_ms).
+//
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
@@ -340,6 +374,138 @@ __global__ void ms_deform_attn_encoder_bwd_kernel(
   for (int i = lane; i < LP; i += 32) dlg[i] = a[i] * (dlg[i] - dot);
 }
 
+// (h, w, start) of level l. The loop over constant indices keeps the parameter
+// struct out of local memory: indexing it with a runtime l makes every thread
+// copy all 96 bytes of it to its stack first, which costs more than the whole
+// work of a thread of the table build.
+__device__ __forceinline__ void level_dims(const LevelInfo& lv, int l, int& h, int& w,
+                                           int& start) {
+  h = lv.h[0];
+  w = lv.w[0];
+  start = lv.start[0];
+#pragma unroll
+  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) {
+    if (i == l) {
+      h = lv.h[i];
+      w = lv.w[i];
+      start = lv.start[i];
+    }
+  }
+}
+
+// Slot weights of one axis (_merged_indices_and_slot_weights :103-111): the true
+// corners c0 (weight 1 - f) and c0 + 1 (weight f) land on slot 0 or 1 of the
+// window anchored at ``base``; a corner off the map matches no slot, and slot 1
+// is dropped when it lies past the level's edge (size 1: it holds a duplicate).
+__device__ __forceinline__ void axis_slots(float c0, float f, float base, float size,
+                                           float& w_lo, float& w_hi) {
+  w_lo = (base == c0 ? 1.f - f : 0.f) + (base == c0 + 1.f ? f : 0.f);
+  w_hi = (base + 1.f == c0 ? 1.f - f : 0.f) + (base + 1.f == c0 + 1.f ? f : 0.f);
+  if (!(base + 1.f <= size - 1.f)) w_hi = 0.f;
+}
+
+// table (B, M, S, 4*32); loc (B, Lq, M, L, P, 2); attn (B, Lq, M, L, P);
+// out (B, Lq, M*32). Warp index == flattened (b, m, q). D == 32, L*P <= 64.
+__global__ void ms_deform_attn_merged_kernel(const float* __restrict__ table,
+                                             const float* __restrict__ loc,
+                                             const float* __restrict__ attn,
+                                             float* __restrict__ out, LevelInfo lv, int S,
+                                             int Lq, int M, int L, int P, int64_t n_warps) {
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_warps) return;
+  const int q = (int)(warp % Lq);
+  const int64_t bm = warp / Lq;
+  const int m = (int)(bm % M);
+  const int64_t b = bm / M;
+  const int LP = L * P;
+  const int64_t bqm = (b * Lq + q) * M + m;
+  const float* loc_w = loc + bqm * LP * 2;
+  const float* attn_w = attn + bqm * LP;
+  const float4* tab = reinterpret_cast<const float4*>(table + bm * (int64_t)S * 128) + lane;
+  const int corner = lane >> 3;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < LP; i0 += 32) {
+    // lane j: base row and slot weights of sample i0 + j
+    const int i = i0 + lane;
+    int idx = 0;
+    float w00 = 0.f, w01 = 0.f, w10 = 0.f, w11 = 0.f;
+    if (i < LP) {
+      int h, w, start;
+      level_dims(lv, i / P, h, w, start);
+      const float wf = (float)w;
+      const float hf = (float)h;
+      const float x = __ldg(loc_w + 2 * i) * wf - 0.5f;
+      const float y = __ldg(loc_w + 2 * i + 1) * hf - 0.5f;
+      const float x0 = floorf(x);
+      const float y0 = floorf(y);
+      const float bx = fminf(fmaxf(x0, 0.f), fmaxf(wf - 2.f, 0.f));
+      const float by = fminf(fmaxf(y0, 0.f), fmaxf(hf - 2.f, 0.f));
+      float wx0, wx1, wy0, wy1;
+      axis_slots(x0, x - x0, bx, wf, wx0, wx1);
+      axis_slots(y0, y - y0, by, hf, wy0, wy1);
+      const float a = __ldg(attn_w + i);
+      w00 = wy0 * wx0 * a;
+      w01 = wy0 * wx1 * a;
+      w10 = wy1 * wx0 * a;
+      w11 = wy1 * wx1 * a;
+      idx = start + (int)by * w + (int)bx;
+    }
+    const int n = min(32, LP - i0);
+    for (int s = 0; s < n; ++s) {
+      const int row = __shfl_sync(0xffffffffu, idx, s);
+      const float v00 = __shfl_sync(0xffffffffu, w00, s);
+      const float v01 = __shfl_sync(0xffffffffu, w01, s);
+      const float v10 = __shfl_sync(0xffffffffu, w10, s);
+      const float v11 = __shfl_sync(0xffffffffu, w11, s);
+      const float w = corner == 0 ? v00 : corner == 1 ? v01 : corner == 2 ? v10 : v11;
+      const float4 t = __ldg(tab + (int64_t)row * 32);
+      acc.x += w * t.x;
+      acc.y += w * t.y;
+      acc.z += w * t.z;
+      acc.w += w * t.w;
+    }
+  }
+  // sum the four corners: lanes l, l^8, l^16, l^24 hold the same channels
+  for (int k = 8; k <= 16; k <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, k);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, k);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, k);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, k);
+  }
+  if (lane < 8) reinterpret_cast<float4*>(out + bqm * 32)[lane] = acc;
+}
+
+// value (B, S, M, 32) -> table (B, M, S, 4*32): one warp per table row, lane j
+// on the float4 j of the row (corner j/8, channels 4(j%8)..+3), so the warp
+// writes one 512-byte row and reads four 128-byte value rows. blockIdx.y is the
+// (batch, head) pair and each block covers MSDA_WARPS_PER_BLOCK consecutive
+// tokens, so no lane divides 64-bit indices.
+__global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ value,
+                                                   float* __restrict__ table, LevelInfo lv,
+                                                   int S, int M, int L) {
+  const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  if (s >= S) return;
+  const int j = threadIdx.x & 31;
+  const int bm = blockIdx.y;
+  const int m = bm % M;
+  const int b = bm / M;
+  int l = 0;
+#pragma unroll
+  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) l += (i < L && s >= lv.start[i]);
+  int h, w, start;
+  level_dims(lv, l, h, w, start);
+  const int k = s - start;
+  const int y = k / w;
+  const int x = k - y * w;
+  const int corner = j >> 3;  // (0,0), (0,+x), (+y,0), (+y,+x); edge duplicates
+  const int yy = min(y + (corner >> 1), h - 1);
+  const int xx = min(x + (corner & 1), w - 1);
+  const int64_t tok = (int64_t)b * S + start + yy * w + xx;
+  const float4* src = reinterpret_cast<const float4*>(value + (tok * M + m) * 32);
+  reinterpret_cast<float4*>(table + ((int64_t)bm * S + s) * 128)[j] = __ldg(src + (j & 7));
+}
+
 static LevelInfo make_levels(const int* shapes, int L) {
   LevelInfo lv;
   int start = 0;
@@ -384,6 +550,31 @@ extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
   ms_deform_attn_encoder_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
                                   (cudaStream_t)stream>>>(
       value, off, logits, out, make_levels(shapes, L), S, M, D, L, P, n_warps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ms_deform_attn_merged_fwd(const float* table, const float* loc,
+                                         const float* attn, float* out, const int* shapes,
+                                         int B, int S, int Lq, int M, int D, int L, int P,
+                                         void* stream) {
+  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_warps = (int64_t)B * M * Lq;
+  if (n_warps == 0) return (int)cudaSuccess;
+  ms_deform_attn_merged_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
+                                 (cudaStream_t)stream>>>(
+      table, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P, n_warps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ms_deform_attn_merged_table(const float* value, float* table, const int* shapes,
+                                           int B, int S, int M, int D, int L, void* stream) {
+  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || B * M > 65535) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || S == 0) return (int)cudaSuccess;
+  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  ms_deform_attn_merged_table_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0,
+                                       (cudaStream_t)stream>>>(value, table,
+                                                               make_levels(shapes, L), S, M, L);
   return (int)cudaGetLastError();
 }
 

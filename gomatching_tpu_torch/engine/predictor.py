@@ -62,6 +62,9 @@ class VideoPredictor:
         )
         self.voc_size = cfg.MODEL.TRANSFORMER.VOC_SIZE
         v = cfg.VIDEO_TEST
+        # NO_POS_EMB False: the tracker passes each token's normalized box and frame
+        # time to ``associate`` (JAX predictor.py:142, :202-253)
+        use_pos = not cfg.MODEL.ASSO_HEAD.NO_POS_EMB
         self.tracker = Tracker(
             self.associate,
             test_len=cfg.INPUT.VIDEO.TEST_LEN,
@@ -71,6 +74,7 @@ class VideoPredictor:
             decay_time=v.DECAY_TIME,
             with_iou=v.WITH_IOU,
             not_mult_thresh=v.NOT_MULT_THRESH,
+            use_pos_emb=use_pos,
         )
         self._orig_hw = None
 
@@ -90,12 +94,18 @@ class VideoPredictor:
         return load_checkpoint(path, "MODEL.WEIGHTS")
 
     @torch.no_grad()
-    def associate(self, tokens: np.ndarray, valid: np.ndarray, short_term: bool) -> np.ndarray:
-        """The tracker's ``associate_fn``: (B, N, F) tokens + (B, N) validity ->
+    def associate(self, tokens: np.ndarray, valid: np.ndarray, short_term: bool,
+                  boxes: Optional[np.ndarray] = None,
+                  times: Optional[np.ndarray] = None) -> np.ndarray:
+        """The tracker's ``associate_fn``: (B, N, F) tokens + (B, N) validity (+ the
+        (B, N, 4) normalized boxes and (B, N) times of the pos-emb matcher) ->
         (B, N, N) affinity logits, computed on the device."""
-        t = torch.from_numpy(np.ascontiguousarray(tokens, np.float32)).to(self.device)
-        m = torch.from_numpy(np.ascontiguousarray(valid, bool)).to(self.device)
-        return self.model.associate(t, m, short_term).cpu().numpy()
+        def dev(a, dtype):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a, dtype)).to(self.device)
+
+        return self.model.associate(dev(tokens, np.float32), dev(valid, bool), short_term,
+                                    dev(boxes, np.float32), dev(times, np.float32)).cpu().numpy()
 
     @torch.no_grad()
     def spot_batch_packed(self, frames_u8: np.ndarray, target_hw) -> np.ndarray:

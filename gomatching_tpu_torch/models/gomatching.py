@@ -12,7 +12,8 @@ covering backbone -> 2D sine position encoding -> DeepSolo spotter -> rescoring 
 -> score fusion max(score, re_score) (gom_lstmatcher.py:595-599) -> threshold -> NMS
 keep-mask (:316-326) -> reid embedding (lstmatcher.py:280-290). The sequential
 association lives in ``tracking/tracker.py`` on the host; ``associate`` runs the
-matcher transformer on the device.
+matcher transformer on the device: GoMatching's long/short-term matchers or
+GoMatching++'s shared one (``ROI_HEADS.NAME`` SHA_FFN_CRSATTN).
 
 Submodule names follow the reference checkpoint: ``backbone.0.backbone`` (the
 Joiner/MaskedBackbone nesting), ``detection_transformer``, ``roi_heads``.
@@ -64,8 +65,9 @@ class GoMatchingModel(nn.Module):
                  enc_n_points=4, dec_n_points=4, num_queries=100, num_points=25, voc_size=37,
                  temperature=10000.0, boundary_head=True, asso_feature_dim=1024, asso_num_fc=2,
                  asso_num_heads=8, asso_num_encoder_layers=1, asso_num_decoder_layers=1,
-                 asso_num_weight_layers=0, with_rescore=True, test_score_threshold=0.3,
-                 nms_thresh=0.5):
+                 asso_num_weight_layers=0, asso_variant="lst", asso_no_pos_emb=True,
+                 asso_with_temp_emb=False, with_rescore=True, test_score_threshold=0.3,
+                 nms_thresh=0.5, sampling_impl="vmem"):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.temperature = float(temperature)
@@ -82,13 +84,16 @@ class GoMatchingModel(nn.Module):
             dec_n_points=dec_n_points, num_queries=num_queries, num_points=num_points,
             voc_size=voc_size, temperature=temperature,
             in_channels=BACKBONE_CHANNELS["build_resnet_backbone"], boundary_head=boundary_head,
+            sampling_impl=sampling_impl,
         )
         self.roi_heads = LSTMatcherHead(
             hidden_dim=hidden_dim, num_points=num_points, feature_dim=asso_feature_dim,
             num_fc=asso_num_fc, num_heads=asso_num_heads,
             num_encoder_layers=asso_num_encoder_layers,
             num_decoder_layers=asso_num_decoder_layers,
-            num_weight_layers=asso_num_weight_layers, with_rescore=with_rescore,
+            num_weight_layers=asso_num_weight_layers, variant=asso_variant,
+            with_rescore=with_rescore, no_pos_emb=asso_no_pos_emb,
+            with_temp_emb=asso_with_temp_emb,
         )
 
     def features(self, images: torch.Tensor):
@@ -144,9 +149,9 @@ class GoMatchingModel(nn.Module):
         hw = torch.tensor([[h, w]], dtype=torch.float32, device=images.device).expand(b, 2)
         return self.detect(out, hw, score_thresh)
 
-    def associate(self, reid_tokens, valid, short_term: bool):
+    def associate(self, reid_tokens, valid, short_term: bool, boxes=None, times=None):
         """Padded association transformer pass (LSTMatcherHead.associate)."""
-        return self.roi_heads.associate(reid_tokens, valid, short_term)
+        return self.roi_heads.associate(reid_tokens, valid, short_term, boxes, times)
 
 
 class SpotterPretrainModel(nn.Module):
@@ -200,31 +205,42 @@ def _spotter_kwargs(cfg) -> Dict:
         dim_feedforward=t.DIM_FEEDFORWARD, num_feature_levels=t.NUM_FEATURE_LEVELS,
         enc_n_points=t.ENC_N_POINTS, dec_n_points=t.DEC_N_POINTS, num_queries=t.NUM_QUERIES,
         num_points=t.NUM_POINTS, voc_size=t.VOC_SIZE, temperature=float(t.TEMPERATURE),
-        boundary_head=t.BOUNDARY_HEAD,
+        boundary_head=t.BOUNDARY_HEAD, sampling_impl=cfg.TPU.SAMPLING_IMPL,
     )
 
 
 def build_pretrain_model(cfg) -> SpotterPretrainModel:
     """The spotter-pretraining model of a reference-schema config (ResNet only). The
-    sampler is always the exact one (B1/B2 forwards, B3/B4 backwards on CUDA), so
-    ``TPU.TRAIN_SAMPLING_IMPL`` is not read."""
+    sampler is always the exact differentiable one (B1/B2 forwards, B3/B4 backwards on
+    CUDA), whatever ``TPU.SAMPLING_IMPL`` says: B5 ('pallas') has no backward, and JAX
+    too trains through another sampler when 'pallas' is asked for
+    (gomatching_tpu/config.py:417-425). ``TPU.TRAIN_SAMPLING_IMPL`` is not read."""
     _check_ported(cfg)
-    return SpotterPretrainModel(**_spotter_kwargs(cfg))
+    kwargs = _spotter_kwargs(cfg)
+    del kwargs["sampling_impl"]
+    return SpotterPretrainModel(**kwargs)
+
+
+MATCHER_VARIANTS = {"LSTMatcher": "lst", "SHA_FFN_CRSATTN": "shared"}
 
 
 def build_model(cfg) -> GoMatchingModel:
-    """Construct the meta-arch from a reference-schema config (ResNet, 'lst' only)."""
+    """Construct the meta-arch from a reference-schema config (ResNet backbone):
+    GoMatching (``ROI_HEADS.NAME`` LSTMatcher) or GoMatching++ (SHA_FFN_CRSATTN), with
+    or without the matcher's positional embeddings (JAX gomatching.py:400-441)."""
     _check_ported(cfg)
-    if cfg.MODEL.ROI_HEADS.NAME != "LSTMatcher":
-        raise NotImplementedError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME} is not ported yet")
-    if not cfg.MODEL.ASSO_HEAD.NO_POS_EMB:
-        raise NotImplementedError("the positional-embedding matcher is not ported yet")
+    if cfg.MODEL.ROI_HEADS.NAME not in MATCHER_VARIANTS:
+        raise ValueError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME}: expected one of "
+                         f"{sorted(MATCHER_VARIANTS)}")
     t = cfg.MODEL.TRANSFORMER
     a = cfg.MODEL.ASSO_HEAD
     return GoMatchingModel(
         **_spotter_kwargs(cfg), asso_feature_dim=a.FC_DIM, asso_num_fc=a.NUM_FC,
         asso_num_heads=a.NUM_HEADS, asso_num_encoder_layers=a.NUM_ENCODER_LAYERS,
         asso_num_decoder_layers=a.NUM_DECODER_LAYERS,
-        asso_num_weight_layers=a.NUM_WEIGHT_LAYERS, with_rescore=cfg.MODEL.ROI_HEADS.WITH_RESR,
+        asso_num_weight_layers=a.NUM_WEIGHT_LAYERS,
+        asso_variant=MATCHER_VARIANTS[cfg.MODEL.ROI_HEADS.NAME],
+        asso_no_pos_emb=a.NO_POS_EMB, asso_with_temp_emb=a.WITH_TEMP_EMB,
+        with_rescore=cfg.MODEL.ROI_HEADS.WITH_RESR,
         test_score_threshold=t.INFERENCE_TH_TEST, nms_thresh=cfg.VIDEO_TEST.NMS_THRESH,
     )

@@ -1,18 +1,21 @@
-"""LST-Matcher tracker head (port of gomatching_tpu/models/lst_matcher.py, variant 'lst').
+"""LST-Matcher tracker heads (port of gomatching_tpu/models/lst_matcher.py).
 
 Reference: ``LSTMatcher`` (gomatching/modeling/roi_heads/lstmatcher.py:59) -- a reid
 embedding (FCHead4Query), a Linear rescoring head, and long/short-term DETR-lite
 matcher transformers with identity affinity projections (NUM_WEIGHT_LAYERS=0 in every
-shipped config). Names follow the reference ``state_dict`` (``asso_head.fc1``,
-``long_term_matcher.encoder.layers.0.self_attn``, ``...decoder.layers.0.
-multihead_attn``...).
+shipped config) -- is variant 'lst'. GoMatching++ ``SHA_FFN_CRSATTN``
+(shared_ffn_crsattn.py:62) is variant 'shared': ONE matcher with no encoder layers and
+decoder layers without FFN serves both terms. With NO_POS_EMB False the keys of every
+attention also get the interpolated box embedding, averaged with the temporal one when
+WITH_TEMP_EMB (lstmatcher.py:498-532). Names follow the reference ``state_dict``
+(``asso_head.fc1``, ``long_term_matcher.encoder.layers.0.self_attn``,
+``shared_matcher.decoder.layers.0.multihead_attn``, ``pos_emb.weight``...).
 
 The association pass runs over a padded token axis with a validity mask and decodes
 all N rows (the decoder has no self-attention, so rows are independent); the host
 tracker slices out the query frame's rows. Every shipped config sets ASSO_HEAD.NORM
 False (norms are identity) and inference is deterministic, so neither norms nor
-dropout appear here. GoMatching++ (variant 'shared') and the interpolated
-positional embeddings are not ported yet.
+dropout appear here.
 """
 
 from __future__ import annotations
@@ -24,6 +27,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import MLP, MultiHeadAttention
+
+# interpolation bins of the box and temporal embedding tables: JAX's learn_pos_emb_num
+# and learn_temp_emb_num (lst_matcher.py:204-205), which no config key sets
+EMB_BINS = 16
 
 
 class ReidHead(nn.Module):
@@ -69,24 +76,34 @@ class MatcherEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d)
 
-    def forward(self, src, key_mask: Optional[torch.Tensor] = None):
-        src = src + self.self_attn(src, src, src, key_mask)
+    def forward(self, src, key_mask: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None):
+        qk = src if pos is None else src + pos  # with_pos_embed, transformer.py:196
+        src = src + self.self_attn(qk, qk, src, key_mask)
         return src + self.linear2(F.relu(self.linear1(src)))
 
 
 class MatcherDecoderLayer(nn.Module):
-    """Cross-attention + FFN, no self-attention (NO_DECODER_SELF_ATT=True;
-    roi_heads/transformer.py:264-287)."""
+    """Cross-attention (+ FFN unless ``with_ffn`` is False, as GoMatching++'s), no
+    self-attention (NO_DECODER_SELF_ATT=True; roi_heads/transformer.py:264-287)."""
 
-    def __init__(self, d: int, num_heads: int, dim_feedforward: int):
+    def __init__(self, d: int, num_heads: int, dim_feedforward: int, with_ffn: bool = True):
         super().__init__()
+        self.with_ffn = with_ffn
         self.multihead_attn = MultiHeadAttention(d, num_heads)
-        self.linear1 = nn.Linear(d, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d)
+        if with_ffn:
+            self.linear1 = nn.Linear(d, dim_feedforward)
+            self.linear2 = nn.Linear(dim_feedforward, d)
 
-    def forward(self, tgt, memory, key_mask: Optional[torch.Tensor] = None):
-        tgt = tgt + self.multihead_attn(tgt, memory, memory, key_mask)
-        return tgt + self.linear2(F.relu(self.linear1(tgt)))
+    def forward(self, tgt, memory, key_mask: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None):
+        # the queries carry no pos (query_pos is None in the matchers); the keys do
+        # (transformer.py:277-279)
+        keys = memory if pos is None else memory + pos
+        tgt = tgt + self.multihead_attn(tgt, keys, memory, key_mask)
+        if self.with_ffn:
+            tgt = tgt + self.linear2(F.relu(self.linear1(tgt)))
+        return tgt
 
 
 class _Layers(nn.Module):
@@ -98,40 +115,60 @@ class _Layers(nn.Module):
 class MatcherTransformer(nn.Module):
     """DETR-lite matcher trunk: (B, N, F) tokens -> (decoded tokens, memory)."""
 
-    def __init__(self, feature_dim=1024, num_heads=8, num_encoder_layers=1, num_decoder_layers=1):
+    def __init__(self, feature_dim=1024, num_heads=8, num_encoder_layers=1, num_decoder_layers=1,
+                 decoder_ffn=True):
         super().__init__()
         self.encoder = _Layers(MatcherEncoderLayer(feature_dim, num_heads, feature_dim)
                                for _ in range(num_encoder_layers))
-        self.decoder = _Layers(MatcherDecoderLayer(feature_dim, num_heads, feature_dim)
+        self.decoder = _Layers(MatcherDecoderLayer(feature_dim, num_heads, feature_dim, decoder_ffn)
                                for _ in range(num_decoder_layers))
 
-    def forward(self, tokens, valid: Optional[torch.Tensor] = None):
+    def forward(self, tokens, valid: Optional[torch.Tensor] = None,
+                pos: Optional[torch.Tensor] = None):
         key_mask = None if valid is None else ~valid
         memory = tokens
         for layer in self.encoder.layers:
-            memory = layer(memory, key_mask)
+            memory = layer(memory, key_mask, pos)
         # decoder targets are the RAW input rows (transformer.py:80-84)
         tgt = tokens
         for layer in self.decoder.layers:
-            tgt = layer(tgt, memory, key_mask)
+            tgt = layer(tgt, memory, key_mask, pos)
         return tgt, memory
 
 
 class LSTMatcherHead(nn.Module):
-    """The GoMatching tracker head: reid + rescore + long/short matchers."""
+    """The GoMatching tracker head: reid + rescore + the matchers.
+
+    variant "lst"    = GoMatching   (ROI_HEADS.NAME LSTMatcher): long/short matchers
+    variant "shared" = GoMatching++ (ROI_HEADS.NAME SHA_FFN_CRSATTN): one shared
+                       decoder-only matcher without FFN (JAX lst_matcher.py:230-240)
+    """
 
     def __init__(self, hidden_dim=256, num_points=25, feature_dim=1024, num_fc=2, num_heads=8,
                  num_encoder_layers=1, num_decoder_layers=1, num_weight_layers=0,
-                 with_rescore=True):
+                 variant="lst", with_rescore=True, no_pos_emb=True, with_temp_emb=False):
         super().__init__()
+        self.variant = variant
         self.with_rescore = with_rescore
+        self.no_pos_emb, self.with_temp_emb = no_pos_emb, with_temp_emb
         self.asso_head = ReidHead(hidden_dim * num_points, feature_dim, num_fc)
         if with_rescore:
             self.rescoring_head = nn.Linear(hidden_dim, 1)
-        self.long_term_matcher = MatcherTransformer(feature_dim, num_heads, num_encoder_layers,
-                                                    num_decoder_layers)
-        self.short_term_matcher = MatcherTransformer(feature_dim, num_heads, num_encoder_layers,
-                                                     num_decoder_layers)
+        if variant == "lst":
+            self.long_term_matcher = MatcherTransformer(feature_dim, num_heads,
+                                                        num_encoder_layers, num_decoder_layers)
+            self.short_term_matcher = MatcherTransformer(feature_dim, num_heads,
+                                                         num_encoder_layers, num_decoder_layers)
+        elif variant == "shared":
+            self.shared_matcher = MatcherTransformer(feature_dim, num_heads, 0,
+                                                     num_decoder_layers, decoder_ffn=False)
+        else:
+            raise ValueError(f"unknown matcher variant: {variant}")
+        if not no_pos_emb:
+            # EMB_BINS x (x, y, w, h) rows of feature_dim // 4 (JAX :243-254)
+            self.pos_emb = nn.Embedding(EMB_BINS * 4, feature_dim // 4)
+            if with_temp_emb:
+                self.temp_emb = nn.Embedding(EMB_BINS, feature_dim)
         self.asso_predictor = AffinityHead(feature_dim, num_weight_layers)
         self.local_asso_predictor = AffinityHead(feature_dim, num_weight_layers)
 
@@ -143,9 +180,44 @@ class LSTMatcherHead(nn.Module):
         """(.., npts, C) -> (.., feature_dim) reid embedding."""
         return self.asso_head(query_features)
 
-    def associate(self, reid_tokens, valid, short_term: bool):
-        """(B, N, F) padded reid tokens + (B, N) validity -> (B, N, N) affinity logits."""
-        matcher = self.short_term_matcher if short_term else self.long_term_matcher
-        tgt, memory = matcher(reid_tokens, valid)
+    def box_pe(self, boxes):
+        """Bilinearly interpolated learned box embedding (lstmatcher.py:498-518; JAX
+        lst_matcher.py:270). ``boxes`` (..., 4) xyxy normalized to [0, 1] -> (..., F)."""
+        T = EMB_BINS
+        xywh = torch.cat([(boxes[..., 2:] + boxes[..., :2]) / 2,
+                          boxes[..., 2:] - boxes[..., :2]], -1) * T
+        lo = xywh.floor().clamp(0, T - 1).long()
+        hi = (lo + 1).clamp(0, T - 1)
+        w_hi = xywh - lo.to(xywh.dtype)
+        table = self.pos_emb.weight.view(T, 4, -1)  # (T, 4, F//4)
+        four = torch.arange(4, device=boxes.device)
+        out = w_hi[..., None] * table[hi, four] + (1.0 - w_hi[..., None]) * table[lo, four]
+        return out.reshape(*boxes.shape[:-1], -1)
+
+    def temp_pe(self, times):
+        """Interpolated temporal embedding (lstmatcher.py:521-532; JAX :289). ``times``
+        (...,) in [0, 1] (frame index / window length) -> (..., F)."""
+        T = EMB_BINS
+        t = times * T
+        lo = t.floor().clamp(0, T - 1).long()
+        hi = (lo + 1).clamp(0, T - 1)
+        w_hi = (t - lo.to(t.dtype))[..., None]
+        return w_hi * self.temp_emb.weight[hi] + (1.0 - w_hi) * self.temp_emb.weight[lo]
+
+    def associate(self, reid_tokens, valid, short_term: bool, boxes=None, times=None):
+        """(B, N, F) padded reid tokens + (B, N) validity -> (B, N, N) affinity logits.
+        With NO_POS_EMB False, ``boxes`` (B, N, 4 normalized xyxy) and, with
+        WITH_TEMP_EMB, ``times`` (B, N in [0, 1]) feed the interpolated embeddings
+        (_forward_transformer, lstmatcher.py:338-346; JAX lst_matcher.py:299-319)."""
+        pos = None
+        if not self.no_pos_emb and boxes is not None:
+            pos = self.box_pe(boxes)
+            if self.with_temp_emb and times is not None:
+                pos = (pos + self.temp_pe(times)) / 2.0
+        if self.variant == "lst":
+            matcher = self.short_term_matcher if short_term else self.long_term_matcher
+        else:
+            matcher = self.shared_matcher
+        tgt, memory = matcher(reid_tokens, valid, pos)
         predictor = self.local_asso_predictor if short_term else self.asso_predictor
         return predictor(tgt, memory)

@@ -10,12 +10,21 @@ decoder / transformer re-register the shared heads (``transformer.decoder.
 ctrl_point_coord``, ``transformer.bezier_{class,coord}_embed``), so a reference
 checkpoint loads with ``load_state_dict(strict=True)``.
 
-Sampling: without padding masks, encoder self-attention calls the B2 kernel
-(``ms_deform_attn_encoder``) on the raw offsets and attention logits; with masks, and
-in the decoder, the layer builds normalized locations and calls the B1 kernel
-(``ms_deform_attn_queries``) -- the same routing as the JAX package's 'vmem' sampler,
-exact everywhere. Features are NCHW; token tensors are (B, S, C). Dropout is omitted:
-every shipped config sets MODEL.TRANSFORMER.DROPOUT = 0 and the spotter is frozen.
+Sampling follows ``TPU.SAMPLING_IMPL`` as JAX ``MSDeformAttn`` does (spotter.py:144-259),
+exact everywhere:
+  - 'vmem' (the default): without padding masks, encoder self-attention calls the B2
+    kernel (``ms_deform_attn_encoder``) on the raw offsets and attention logits; with
+    masks, and in the decoder, the layer builds normalized locations and calls the B1
+    kernel (``ms_deform_attn_queries``);
+  - 'pallas': every call builds normalized locations and softmaxed attention and calls
+    B5 (``ms_deform_attn_merged``, the corner-merged table), encoder, masked encoder
+    and decoder alike; it has no backward;
+  - 'xla' and 'tiled' take the 'vmem' route: in JAX they are XLA versions of the same
+    function (the exact gather core, and the halo-limited one-hot encoder), not Pallas
+    kernels;
+  - any other value raises.
+Features are NCHW; token tensors are (B, S, C). Dropout is omitted: every shipped
+config sets MODEL.TRANSFORMER.DROPOUT = 0 and the spotter is frozen.
 """
 
 from __future__ import annotations
@@ -28,11 +37,13 @@ import torch
 import torch.nn as nn
 
 from ..ops.deform_attn import ms_deform_attn_encoder, ms_deform_attn_queries
+from ..ops.deform_attn_merged import ms_deform_attn_merged
 from ..utils.misc import inverse_sigmoid
 from .layers import MLP, MultiHeadAttention, ffn
 from .pos_encoding import point_query_pos_embed, position_encoding_2d
 
 Shapes = Sequence[Tuple[int, int]]
+SAMPLING_IMPLS = ("vmem", "pallas", "xla", "tiled")
 
 
 def bernstein_matrix(num_points: int) -> np.ndarray:
@@ -58,9 +69,14 @@ def offset_grid_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 class MSDeformAttn(nn.Module):
     """Offset/weight projections around the sampler (ms_deform_attn.py:69-156)."""
 
-    def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8, n_points: int = 4):
+    def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
+                 sampling_impl: str = "vmem"):
         super().__init__()
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, n_points
+        if sampling_impl not in SAMPLING_IMPLS:
+            raise ValueError(f"TPU.SAMPLING_IMPL={sampling_impl!r}: expected one of "
+                             f"{SAMPLING_IMPLS}")
+        self.sampling_impl = sampling_impl
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
@@ -79,23 +95,25 @@ class MSDeformAttn(nn.Module):
         value = value.view(B, -1, M, C // M)
         offsets = self.sampling_offsets(query).view(B, Lq, M, L, P, 2)
         logits = self.attention_weights(query).view(B, Lq, M, L * P)
-        if is_encoder_self_attn and token_valid is None:
+        pallas = self.sampling_impl == "pallas"
+        if is_encoder_self_attn and token_valid is None and not pallas:
             out = ms_deform_attn_encoder(value, spatial_shapes, offsets, logits)
         else:
             attn = logits.softmax(-1).view(B, Lq, M, L, P)
             wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
                               device=query.device)
             loc = reference_points[:, :, None, :, None, :] + offsets / wh[None, None, None, :, None, :]
-            out = ms_deform_attn_queries(value, spatial_shapes, loc, attn)
+            sampler = ms_deform_attn_merged if pallas else ms_deform_attn_queries
+            out = sampler(value, spatial_shapes, loc, attn)
         return self.output_proj(out)
 
 
 class EncoderLayer(nn.Module):
     """Deformable self-attention + FFN (deformable_transformer.py:218-278)."""
 
-    def __init__(self, d_model, dim_feedforward, n_levels, n_heads, n_points):
+    def __init__(self, d_model, dim_feedforward, n_levels, n_heads, n_points, sampling_impl):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, sampling_impl)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
@@ -112,14 +130,14 @@ class DecoderLayer(nn.Module):
     """Intra-point MHA, inter-query MHA, deformable cross-attention, FFN
     (deformable_transformer.py:326-427)."""
 
-    def __init__(self, d_model, dim_feedforward, n_levels, n_heads, n_points):
+    def __init__(self, d_model, dim_feedforward, n_levels, n_heads, n_points, sampling_impl):
         super().__init__()
         self.n_levels = n_levels
         self.attn_intra = MultiHeadAttention(d_model, n_heads)
         self.norm_intra = nn.LayerNorm(d_model, eps=1e-5)
         self.attn_inter = MultiHeadAttention(d_model, n_heads)
         self.norm_inter = nn.LayerNorm(d_model, eps=1e-5)
-        self.attn_cross = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.attn_cross = MSDeformAttn(d_model, n_levels, n_heads, n_points, sampling_impl)
         self.norm_cross = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
@@ -160,10 +178,12 @@ class Decoder(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, d_model, dim_feedforward, n_levels, n_heads, enc_points, dec_points,
-                 n_enc, n_dec):
+                 n_enc, n_dec, sampling_impl):
         super().__init__()
-        self.encoder = Encoder(n_enc, d_model, dim_feedforward, n_levels, n_heads, enc_points)
-        self.decoder = Decoder(n_dec, d_model, dim_feedforward, n_levels, n_heads, dec_points)
+        self.encoder = Encoder(n_enc, d_model, dim_feedforward, n_levels, n_heads, enc_points,
+                               sampling_impl)
+        self.decoder = Decoder(n_dec, d_model, dim_feedforward, n_levels, n_heads, dec_points,
+                               sampling_impl)
         self.level_embed = nn.Parameter(torch.zeros(n_levels, d_model))
         self.enc_output = nn.Linear(d_model, d_model)
         self.enc_output_norm = nn.LayerNorm(d_model, eps=1e-5)
@@ -186,7 +206,7 @@ class DeepSoloSpotter(nn.Module):
     def __init__(self, d_model=256, n_heads=8, num_encoder_layers=6, num_decoder_layers=6,
                  dim_feedforward=1024, num_feature_levels=4, enc_n_points=4, dec_n_points=4,
                  num_queries=100, num_points=25, voc_size=37, temperature=10000.0,
-                 in_channels=(512, 1024, 2048), boundary_head=True):
+                 in_channels=(512, 1024, 2048), boundary_head=True, sampling_impl="vmem"):
         super().__init__()
         C = d_model
         self.d_model = d_model
@@ -204,7 +224,7 @@ class DeepSoloSpotter(nn.Module):
         self.input_proj = nn.ModuleList(projs)
         self.transformer = Transformer(C, dim_feedforward, num_feature_levels, n_heads,
                                        enc_n_points, dec_n_points, num_encoder_layers,
-                                       num_decoder_layers)
+                                       num_decoder_layers, sampling_impl)
         self.point_embed = nn.Embedding(num_queries * num_points, C)
         self.bezier_proposal_class = nn.Linear(C, 1)
         self.bezier_proposal_coord = MLP(C, C, 8, 3)

@@ -33,13 +33,16 @@ backward is a kernel too:
 The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through the plain
 forwards; the tests and ``chip_smoke.py`` hold the kernels against them. All four
 kernels are bound by memory traffic on an H100 (see the source note in the .cu file for
-the design). Each launch adds one to ``launch_counts[name]``.
+the design). Each launch adds one to ``launch_counts[name]``, which also counts the
+launches of B5 and of its table build (``ms_deform_attn_merged``,
+``ms_deform_attn_merged_table``; ``ops/deform_attn_merged.py``), whose kernels live in
+the same .cu file.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +53,12 @@ QUERIES = "ms_deform_attn_queries"
 ENCODER = "ms_deform_attn_encoder"
 QUERIES_BWD = "ms_deform_attn_queries_bwd"
 ENCODER_BWD = "ms_deform_attn_encoder_bwd"
+MERGED = "ms_deform_attn_merged"
+MERGED_TABLE = "ms_deform_attn_merged_table"
 
 # launches of each hand-written kernel in this process (plain CPU calls do not count)
-launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0, QUERIES_BWD: 0, ENCODER_BWD: 0}
+launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0, QUERIES_BWD: 0, ENCODER_BWD: 0,
+                                 MERGED: 0, MERGED_TABLE: 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -65,6 +71,9 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_encoder_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
                                    _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_merged_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I),
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_merged_table": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
 }
 _MAX_LEVELS = 8
 _MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)
@@ -193,11 +202,12 @@ def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shapes: Shapes,
             outs: Sequence[Tuple[Tuple[int, ...], bool]],
-            dims: Tuple[int, ...]) -> List[torch.Tensor]:
+            dims: Tuple[int, ...], S: Optional[int] = None) -> List[torch.Tensor]:
     """Validate the inputs, allocate the outputs ((shape, zeroed) each) and launch
     ``c_fn`` on the current stream; raise on a refused launch. ``inputs`` are passed
-    in order, then the outputs, the level shapes and ``dims``."""
-    S = next(iter(inputs.values())).shape[1]
+    in order, then the outputs, the level shapes and ``dims``. ``S`` (tokens) defaults
+    to the first input's dimension 1."""
+    S = next(iter(inputs.values())).shape[1] if S is None else S
     if sum(h * w for h, w in spatial_shapes) != S or not 1 <= len(spatial_shapes) <= _MAX_LEVELS:
         raise ValueError(f"{name}: spatial_shapes {spatial_shapes} do not match S={S} "
                          f"(1..{_MAX_LEVELS} levels)")

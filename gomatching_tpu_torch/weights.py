@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from .models.gomatching import build_model, build_pretrain_model
 from .models.layers import MultiHeadAttention
+from .models.lst_matcher import LSTMatcherHead
 from .models.spotter import DeepSoloSpotter, MSDeformAttn, offset_grid_bias
 
 PRIOR_PROB = 0.01
@@ -142,14 +143,17 @@ def build_key_map(cfg, pretrain: bool = False) -> Dict[str, tuple]:
         _linear(m, f"{r}.asso_head.fc{i + 1}", r, f"asso_head/fc{i + 1}")
     if cfg.MODEL.ROI_HEADS.WITH_RESR:
         _linear(m, f"{r}.rescoring_head", r, "rescoring_head")
+    if not a.NO_POS_EMB:
+        m[f"{r}.pos_emb.weight"] = ("copy", (r, "pos_emb"))
+        if a.WITH_TEMP_EMB:
+            m[f"{r}.temp_emb.weight"] = ("copy", (r, "temp_emb"))
     if a.NUM_WEIGHT_LAYERS > 0:
         for pred in ("asso_predictor", "local_asso_predictor"):
             _mlp(m, f"{r}.{pred}.q_proj", r, f"{pred}/q_proj", a.NUM_WEIGHT_LAYERS)
             _mlp(m, f"{r}.{pred}.k_proj", r, f"{pred}/k_proj", a.NUM_WEIGHT_LAYERS)
-    if cfg.MODEL.ROI_HEADS.NAME != "LSTMatcher":
-        raise NotImplementedError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME} is not ported yet")
-    for name in ("long_term_matcher", "short_term_matcher"):
-        for i in range(a.NUM_ENCODER_LAYERS):
+
+    def matcher_keys(name, n_enc, dec_ffn):
+        for i in range(n_enc):
             te, oe = f"{r}.{name}.encoder.layers.{i}", f"{name}/enc_{i}"
             _mha(m, f"{te}.self_attn", r, f"{oe}/self_attn")
             _linear(m, f"{te}.linear1", r, f"{oe}/linear1")
@@ -157,8 +161,15 @@ def build_key_map(cfg, pretrain: bool = False) -> Dict[str, tuple]:
         for i in range(a.NUM_DECODER_LAYERS):
             td, od = f"{r}.{name}.decoder.layers.{i}", f"{name}/dec_{i}"
             _mha(m, f"{td}.multihead_attn", r, f"{od}/cross_attn")
-            _linear(m, f"{td}.linear1", r, f"{od}/linear1")
-            _linear(m, f"{td}.linear2", r, f"{od}/linear2")
+            if dec_ffn:
+                _linear(m, f"{td}.linear1", r, f"{od}/linear1")
+                _linear(m, f"{td}.linear2", r, f"{od}/linear2")
+
+    if cfg.MODEL.ROI_HEADS.NAME == "SHA_FFN_CRSATTN":  # GoMatching++
+        matcher_keys("shared_matcher", 0, dec_ffn=False)
+    else:
+        for name in ("long_term_matcher", "short_term_matcher"):
+            matcher_keys(name, a.NUM_ENCODER_LAYERS, dec_ffn=True)
     return m
 
 
@@ -246,7 +257,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     N(0, 1/fan_in) with zero biases, norms at identity, the sampling-offset grid
     bias and zero offset/attention kernels (spotter.py:54, ms_deform_attn.py:101-109),
     N(0, 1) level/point embeddings, and the prior-probability class bias
-    (spotter.py:427)."""
+    (spotter.py:427), and N(0, 1) tables of the matcher's positional embeddings."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5, generator=generator)
@@ -272,6 +283,11 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             for head in (mod.bezier_proposal_class, mod.ctrl_point_class[0],
                          mod.ctrl_point_text[0]):
                 head.bias.fill_(bias_prior)
+        elif isinstance(mod, LSTMatcherHead):
+            # the matcher's box / temporal embedding tables (JAX lst_matcher.py:243-254)
+            for name in ("pos_emb", "temp_emb"):
+                if hasattr(mod, name):
+                    getattr(mod, name).weight.normal_(0.0, 1.0, generator=generator)
     return model
 
 

@@ -9,6 +9,11 @@ The XML's quadrilaterals come from cv2.minAreaRect of each boundary polygon, whi
 can jump to another orientation under 1e-4 px noise when a random-weight polygon is
 near-degenerate (about 1 object in 50 at other seeds); the weight seed (1) and frame
 seed (0) here have no such polygon.
+
+The GoMatching++ case (configs/GoMatching_PP_ICDAR15.yaml, the shared matcher) runs the
+port with TPU.SAMPLING_IMPL 'pallas' (B5's op; its plain version here) against JAX's
+'xla': the JAX spotter calls its Pallas kernel without interpret, so 'pallas' cannot
+run there on the CPU, and 'xla' is the same function.
 """
 
 import os
@@ -23,6 +28,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 CONFIG = os.path.join(ROOT, "configs", "GoMatching_ICDAR15.yaml")
+CONFIG_PP = os.path.join(ROOT, "configs", "GoMatching_PP_ICDAR15.yaml")
 
 # the tiny-config recipe of tests/test_inference_e2e.py
 TINY_OPTS = [
@@ -49,8 +55,9 @@ def _frames(n=7, seed=0):
     return [np.roll(base, 3 * t, axis=1) for t in range(n)]
 
 
-@pytest.fixture(scope="module")
-def predictors():
+def _predictors(config, port_sampling="xla"):
+    """The JAX predictor (SAMPLING_IMPL xla) and the port's (``port_sampling``) on the
+    same seeded weights."""
     from convert_torch_weights import convert
 
     from gomatching_tpu.config import setup_eval_cfg as jax_cfg
@@ -59,12 +66,17 @@ def predictors():
     from gomatching_tpu_torch.engine.predictor import VideoPredictor
     from gomatching_tpu_torch.weights import init_state_dict
 
-    tcfg = setup_eval_cfg(CONFIG, list(TINY_OPTS))
+    tcfg = setup_eval_cfg(config, list(TINY_OPTS) + ["TPU.SAMPLING_IMPL", port_sampling])
     sd = init_state_dict(tcfg, torch.Generator().manual_seed(1))
-    jcfg = jax_cfg(CONFIG, list(TINY_OPTS))
+    jcfg = jax_cfg(config, list(TINY_OPTS))
     params, missing, _ = convert({k: v.numpy() for k, v in sd.items()}, jcfg)
     assert not missing
     return JaxPredictor(jcfg, params=params), VideoPredictor(tcfg, state_dict=sd, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def predictors():
+    return _predictors(CONFIG)
 
 
 def _xml(predictor, tracked, annotate_fn, write_fn, path):
@@ -74,11 +86,29 @@ def _xml(predictor, tracked, annotate_fn, write_fn, path):
 
 
 def test_clip_matches_jax(predictors, tmp_path):
+    _check_clip(*predictors, tmp_path)
+
+
+def test_gomatching_pp_clip_matches_jax(tmp_path, monkeypatch):
+    """GoMatching++ with the port on the 'pallas' sampler: every deformable-attention
+    call goes to B5's op, and ids and XML equal JAX's."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+
+    jp, tp = _predictors(CONFIG_PP, port_sampling="pallas")
+    assert tp.model.roi_heads.variant == "shared" and jp.model.roi_head_variant == "shared"
+    calls = []
+    merged = spotter_mod.ms_deform_attn_merged
+    monkeypatch.setattr(spotter_mod, "ms_deform_attn_merged",
+                        lambda *a: calls.append(1) or merged(*a))
+    _check_clip(jp, tp, tmp_path)
+    assert calls and len(calls) % 2 == 0  # one encoder and one decoder call per spot batch
+
+
+def _check_clip(jp, tp, tmp_path):
     from gomatching_tpu.evaluation.writer import write_video_results as jax_write
     from gomatching_tpu_torch.eval import annotate
     from gomatching_tpu_torch.evaluation.writer import write_video_results
 
-    jp, tp = predictors
     frames = _frames()
     # per-frame detections before tracking: identical validity, close values
     jd, td = jp.spot_frames([f.copy() for f in frames]), tp.spot_frames([f.copy() for f in frames])

@@ -27,7 +27,7 @@ def test_importing_the_port_pulls_in_no_jax():
     mods = _port_modules()
     for m in ("engine.predictor", "engine.pretrain", "engine.spotter_losses", "engine.optim",
               "engine.checkpoint", "data.bezier", "data.datasets", "data.image_augment",
-              "train_net"):
+              "train_net", "ops.deform_attn_merged"):
         assert f"gomatching_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -112,6 +112,7 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     import torch
 
     from gomatching_tpu_torch.ops import deform_attn as da
+    from gomatching_tpu_torch.ops import deform_attn_merged as dam
 
     value = torch.empty(1, 4, 2, 8, device="meta")
     loc = torch.empty(1, 3, 2, 1, 2, 2, device="meta")
@@ -121,6 +122,8 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         da.ms_deform_attn_encoder(value, [(2, 2)], torch.empty(1, 4, 2, 1, 2, 2, device="meta"),
                                   torch.empty(1, 4, 2, 2, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        dam.ms_deform_attn_merged(value, [(2, 2)], loc, attn)
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         da.ms_deform_attn_queries_backward(value, [(2, 2)], loc, attn,
                                            torch.empty(1, 3, 16, device="meta"))

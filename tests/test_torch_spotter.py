@@ -168,3 +168,74 @@ def test_spotter_matches_jax_xla_sampler(shared_models, padded):
     for k in OUT_KEYS:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=2e-4,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("case", ["sq", "pad"])
+def test_spotter_pallas_sampler_matches_jax(golden, case, monkeypatch):
+    """SAMPLING_IMPL='pallas' sends every deformable-attention call of the port's
+    spotter (encoder, masked encoder, decoder) to B5's op, whose plain version runs
+    here, and nothing to B1/B2. It is held against the JAX spotter on the same
+    spotter_tiny.npz weights through the production converter, at the tolerance of
+    the golden test (rtol 1e-4, atol 2e-4), and against the golden outputs. The JAX
+    side runs 'xla': its spotter calls ms_deform_attn_pallas without interpret
+    (gomatching_tpu/models/spotter.py:229), so 'pallas' cannot run there on the CPU;
+    'xla' is the same function, and tests/test_deform_attn_pallas.py holds the two
+    equal."""
+    import sys
+
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+    from gomatching_tpu_torch.models.spotter import DeepSoloSpotter
+
+    sys.path.insert(0, os.path.join(os.path.dirname(ROOT), "tools"))
+    sys.path.insert(0, os.path.join(ROOT, "golden"))
+    from convert_torch_weights import convert
+    from ref_loader import tiny_cfg
+
+    from gomatching_tpu.models.pos_encoding import position_encoding_2d as jax_pos
+    from gomatching_tpu.models.spotter import DeepSoloSpotter as JaxSpotter
+
+    calls = []
+    merged = spotter_mod.ms_deform_attn_merged
+
+    def counted(*args):
+        calls.append(args[2].shape[1])
+        return merged(*args)
+
+    def refused(*args):
+        raise AssertionError("the 'pallas' route reached B1/B2")
+
+    monkeypatch.setattr(spotter_mod, "ms_deform_attn_merged", counted)
+    monkeypatch.setattr(spotter_mod, "ms_deform_attn_queries", refused)
+    monkeypatch.setattr(spotter_mod, "ms_deform_attn_encoder", refused)
+    spotter = DeepSoloSpotter(d_model=64, n_heads=4, num_encoder_layers=2, num_decoder_layers=2,
+                              dim_feedforward=64, num_queries=8, num_points=5, voc_size=10,
+                              sampling_impl="pallas")
+    prefix = "sd.detection_transformer."
+    sd = {k[len(prefix):]: torch.from_numpy(golden[k]) for k in golden.files
+          if k.startswith(prefix)}
+    spotter.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        got = spotter(*_golden_inputs(golden, case))
+    assert len(calls) == 4  # 2 encoder + 2 decoder layers
+
+    cfg = tiny_cfg()
+    tree, _, _ = convert({k[len("sd."):]: golden[k] for k in golden.files if k.startswith("sd.")},
+                         cfg)
+    t = cfg.MODEL.TRANSFORMER
+    jspot = JaxSpotter(d_model=t.HIDDEN_DIM, n_heads=t.NHEADS, num_encoder_layers=t.ENC_LAYERS,
+                       num_decoder_layers=t.DEC_LAYERS, dim_feedforward=t.DIM_FEEDFORWARD,
+                       num_queries=t.NUM_QUERIES, num_points=t.NUM_POINTS, voc_size=t.VOC_SIZE,
+                       in_channels=(512, 1024, 2048), boundary_head=t.BOUNDARY_HEAD,
+                       sampling_impl="xla")
+    feats = [jnp.asarray(golden[f"{case}.feat{l}"].transpose(0, 2, 3, 1)) for l in range(3)]
+    masks = [jnp.asarray(golden[f"{case}.mask{l}"]) for l in range(3)]
+    masks = masks if any(bool(m.any()) for m in masks) else None
+    pos = [jax_pos((f.shape[0], f.shape[1], f.shape[2]), 32, 10000.0,
+                   None if masks is None else masks[i]) for i, f in enumerate(feats)]
+    want = jax.jit(lambda p, f, q, k: jspot.apply(p, f, q, k))(
+        {"params": tree["params"]["detection_transformer"]}, feats, pos, masks)
+    for k in OUT_KEYS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-4, atol=2e-4,
+                                   err_msg=f"{case}.{k} vs JAX")
+        np.testing.assert_allclose(got[k].numpy(), golden[f"{case}.out.{k}"], rtol=1e-4,
+                                   atol=2e-4, err_msg=f"{case}.{k} vs golden")

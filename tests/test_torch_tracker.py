@@ -4,8 +4,10 @@
 The reference roi_heads state_dict loads straight into the port's LSTMatcherHead;
 the port's Tracker + associate must reproduce the reference's track ids EXACTLY
 (short-term matching, long-term window re-matching with decay, centre gating and
-IoU fusion, id bookkeeping, short-track removal), and GoMatchingModel.detect the
-reference's score fusion / threshold / scaling / rec argmax.
+IoU fusion, id bookkeeping, short-track removal) for the three heads of the goldens:
+GoMatching ('lst'), GoMatching++ ('shared') and the positional-embedding matcher
+('lstpe', box and temporal embeddings), and GoMatchingModel.detect the reference's
+score fusion / threshold / scaling / rec argmax.
 """
 
 import os
@@ -27,11 +29,14 @@ def golden():
     return np.load(GOLDEN)
 
 
-def _head(golden):
+def _head(golden, variant="lst"):
     from gomatching_tpu_torch.models.lst_matcher import LSTMatcherHead
 
-    head = LSTMatcherHead(hidden_dim=64, num_points=NPTS, feature_dim=64, num_fc=2, num_heads=4)
-    pre = "trk.lst.sd.roi_heads."
+    pe = variant == "lstpe"
+    head = LSTMatcherHead(hidden_dim=64, num_points=NPTS, feature_dim=64, num_fc=2, num_heads=4,
+                          variant="shared" if variant == "shared" else "lst", no_pos_emb=not pe,
+                          with_temp_emb=pe)
+    pre = f"trk.{variant}.sd.roi_heads."
     head.load_state_dict(
         {k[len(pre):]: torch.from_numpy(golden[k]) for k in golden.files if k.startswith(pre)},
         strict=True,
@@ -39,18 +44,22 @@ def _head(golden):
     return head.eval()
 
 
-def test_tracking_matches_reference(golden):
+@pytest.mark.parametrize("variant", ["lst", "shared", "lstpe"])
+def test_tracking_matches_reference(golden, variant):
     from gomatching_tpu_torch.tracking.tracker import FrameDetections, Tracker
 
-    head = _head(golden)
+    head = _head(golden, variant)
+    pe = variant == "lstpe"
 
     @torch.no_grad()
-    def associate_fn(tokens, valid, short_term):
-        return head.associate(torch.from_numpy(tokens), torch.from_numpy(valid),
-                              short_term).numpy()
+    def associate_fn(tokens, valid, short_term, boxes=None, times=None):
+        def t(a):
+            return None if a is None else torch.from_numpy(a)
 
-    tracker = Tracker(associate_fn, **TRACK_KW)
-    p = "trk.lst"
+        return head.associate(t(tokens), t(valid), short_term, t(boxes), t(times)).numpy()
+
+    tracker = Tracker(associate_fn, use_pos_emb=pe, **TRACK_KW)
+    p = f"trk.{variant}"
     n_frames = len([k for k in golden.files if k.startswith(f"{p}.in.qf")])
     for fi in range(n_frames):
         qf = golden[f"{p}.in.qf{fi}"]
@@ -73,21 +82,23 @@ def test_tracking_matches_reference(golden):
             np.testing.assert_allclose(f.reid, golden[f"{p}.out.reid{fi}"], rtol=1e-4, atol=1e-5)
 
 
-def test_batched_precompute_gives_the_sequential_ids(golden):
-    """precompute_short_asso / precompute_long_asso (one batched matcher call per
-    pass) must leave the ids of the per-frame chain unchanged."""
+def _check_batched_precompute(golden, variant):
     from gomatching_tpu_torch.tracking.tracker import FrameDetections, Tracker
 
-    head = _head(golden)
+    head = _head(golden, variant)
+    pe = variant == "lstpe"
     calls = []
 
     @torch.no_grad()
-    def associate_fn(tokens, valid, short_term):
+    def associate_fn(tokens, valid, short_term, boxes=None, times=None):
         calls.append(tokens.shape[0])
-        return head.associate(torch.from_numpy(tokens), torch.from_numpy(valid),
-                              short_term).numpy()
 
-    p = "trk.lst"
+        def t(a):
+            return None if a is None else torch.from_numpy(a)
+
+        return head.associate(t(tokens), t(valid), short_term, t(boxes), t(times)).numpy()
+
+    p = f"trk.{variant}"
     n_frames = len([k for k in golden.files if k.startswith(f"{p}.in.qf")])
     dets = []
     for fi in range(n_frames):
@@ -100,15 +111,28 @@ def test_batched_precompute_gives_the_sequential_ids(golden):
             ctrl_points=np.zeros((n, NPTS * 2), np.float32), recs=np.zeros((n, NPTS), np.int64),
             bd=np.zeros((n, NPTS, 4), np.float32), reid=reid, image_hw=(H, W),
         ))
-    tracker = Tracker(associate_fn, **TRACK_KW)
+    tracker = Tracker(associate_fn, use_pos_emb=pe, **TRACK_KW)
     cache = tracker.precompute_short_asso(list(zip(dets[:-1], dets[1:])))
     tracker.precompute_long_asso(dets, cache)
     for fi, det in enumerate(dets):
         tracker.step(det, short_asso_cache=cache)
         np.testing.assert_array_equal(det.track_ids, golden[f"{p}.out.ids{fi}"],
-                                      err_msg=f"frame {fi}")
+                                      err_msg=f"{variant} frame {fi}")
     assert tracker.asso_stats["long_miss"] == 0
     assert len(calls) == 1 + tracker.asso_stats["long_rounds"]
+
+
+def test_batched_precompute_gives_the_sequential_ids(golden):
+    """precompute_short_asso / precompute_long_asso (one batched matcher call per
+    pass) must leave the ids of the per-frame chain unchanged."""
+    _check_batched_precompute(golden, "lst")
+
+
+@pytest.mark.parametrize("variant", ["shared", "lstpe"])
+def test_batched_precompute_of_the_other_heads(golden, variant):
+    """The same for GoMatching++ and for the positional-embedding matcher, whose
+    batched calls carry each request's own boxes and frame times."""
+    _check_batched_precompute(golden, variant)
 
 
 def test_detection_matches_reference(golden):

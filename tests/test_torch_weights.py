@@ -57,6 +57,53 @@ def test_params_from_jax_roundtrips_through_convert(cfgs):
         np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
 
 
+@pytest.mark.parametrize("variant", ["shared", "pos_emb"])
+def test_matcher_variant_keys_roundtrip(variant):
+    """GoMatching++ (configs/GoMatching_PP_ICDAR15.yaml: the shared decoder-only matcher
+    without FFN) and the positional-embedding matcher (pos_emb / temp_emb tables):
+    params_from_jax inverts convert, the converted weights load strictly into the
+    port's model, and the port's names are the key map's. The JAX params are seeded
+    numbers in the shapes of ``jax.eval_shape`` of the model's init."""
+    from convert_torch_weights import convert
+
+    from gomatching_tpu.config import setup_eval_cfg as jax_cfg
+    from gomatching_tpu.models.gomatching import build_model as jax_build
+    from gomatching_tpu_torch.config import setup_eval_cfg as port_cfg
+    from gomatching_tpu_torch.models.gomatching import build_model
+    from gomatching_tpu_torch.weights import (
+        build_key_map,
+        canonical_key,
+        init_state_dict,
+        load_weights,
+        params_from_jax,
+    )
+
+    config, opts = CONFIG, list(TINY_OPTS)
+    if variant == "shared":
+        config = os.path.join(ROOT, "configs", "GoMatching_PP_ICDAR15.yaml")
+    else:
+        opts += ["MODEL.ASSO_HEAD.NO_POS_EMB", "False", "MODEL.ASSO_HEAD.WITH_TEMP_EMB", "True"]
+    jcfg, tcfg = jax_cfg(config, list(opts)), port_cfg(config, list(opts))
+    shapes = jax.eval_shape(jax_build(jcfg).init, jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    rng = np.random.RandomState(0)
+    params = jax.tree.map(lambda x: rng.randn(*x.shape).astype(x.dtype), shapes)
+    sd = params_from_jax(params, tcfg)
+    want_keys = {"shared": "roi_heads.shared_matcher.decoder.layers.0.multihead_attn.in_proj_weight",
+                 "pos_emb": "roi_heads.temp_emb.weight"}[variant]
+    assert want_keys in sd
+    assert any("long_term_matcher" in k for k in sd) == (variant != "shared")
+    back, missing, unused = convert(sd, jcfg)
+    assert not missing and not unused
+    want = jax.tree_util.tree_leaves_with_path(params)
+    got = jax.tree_util.tree_leaves_with_path(back)
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(path))
+    load_weights(build_model(tcfg), sd)
+    port = init_state_dict(tcfg, torch.Generator().manual_seed(0))
+    assert {canonical_key(k) for k in port} == set(build_key_map(tcfg))
+
+
 def test_port_names_are_the_reference_key_map(cfgs):
     """Every port state_dict key is a key-map key or an alias of a shared head that
     holds the same tensor, and the key map names nothing the port lacks."""
@@ -139,3 +186,18 @@ def test_predictor_refuses_weights_it_cannot_load(tmp_path, kind):
     err = FileNotFoundError if kind == "missing" else ValueError
     with pytest.raises(err, match="MODEL.WEIGHTS"):
         VideoPredictor(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["ICDAR15", "DSText", "BOVText", "ArTVideo"])
+def test_gomatching_pp_configs_build_the_shared_matcher(name):
+    """Every configs/GoMatching_PP_*.yaml parses in the port and builds GoMatching++."""
+    from gomatching_tpu_torch.config import setup_eval_cfg
+    from gomatching_tpu_torch.models.gomatching import build_model
+
+    cfg = setup_eval_cfg(os.path.join(ROOT, "configs", f"GoMatching_PP_{name}.yaml"),
+                         list(TINY_OPTS) + ["TPU.SAMPLING_IMPL", "pallas"])
+    assert cfg.MODEL.ROI_HEADS.NAME == "SHA_FFN_CRSATTN"
+    model = build_model(cfg)
+    assert model.roi_heads.variant == "shared" and not hasattr(model.roi_heads,
+                                                               "long_term_matcher")
+    assert {m.sampling_impl for m in model.modules() if hasattr(m, "sampling_impl")} == {"pallas"}
