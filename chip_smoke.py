@@ -48,9 +48,21 @@ Phases (any failure exits non-zero and prints no result line):
  11. the GoMatching++ path: ``VideoPredictor`` on that config with 'pallas' over the
      same frames as phase 4; XML/JSON parsed back; B5 and its table build launched
      12 x (spot batches) times each and B1-B4 never; frames/s; the same clip under 'vmem' and 'pallas' in turns
-     (frames/s of each); one profile with B5's and the table build's shares.
-The line before the last is {"kernels": [...]} (B1-B5 and B5's table build); the last is
-{"ok": true, "device": {...}}.
+     (frames/s of each); one profile with B5's and the table build's shares;
+ 12. the footprint entries B6a-c (``ms_deform_attn_encoder_vmem``, ``_vmem_tm``, ``_vmem_v3``,
+     ``ms_deform_attn_encoder_fused``; one kernel) at the full-width encoder shapes with
+     TILED_HALO 5 and the default tiles, offsets beyond the halo for >= 5% of samples and
+     beyond the maps for some: each against its plain version and against the B1 kernel
+     on the same locations at ATOL_KERNEL; its launch counted; a (source, target) pair
+     over the shared-memory budget on the direct route; a raise under autograd; kernel,
+     plain and bound times beside B1's and B2's on the same function, and the share of
+     corner taps read from shared memory;
+ 13. the path of this slice: the sampler benchmark ``gomatching_tpu_torch.tools.
+     bench_deform_attn.main`` at B=3 over every sampler (B1, B2, B5, B6a natural and
+     tile-major, B6b, B6c) and two tilesets; each within ATOL_KERNEL of the exact gather,
+     each of the four B6 entries launched.
+The line before the last is {"kernels": [...]} (B1-B5, B5's table build and the four B6
+entries); the last is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -91,6 +103,8 @@ N_FRAMES = 8
 N_REPEATS = 5  # timed runs of the clip; the first is the checked, counted one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
+TILED_HALO = 5  # TPU.TILED_HALO of the configs: the footprints' margin in target cells
+TILESETS = "8x16,8x16,8x16,8x16;16x16,16x16,16x16,16x16"  # phase 13's tile sweep
 CONFIG = "configs/GoMatching_ICDAR15.yaml"
 CONFIG_PP = "configs/GoMatching_PP_ICDAR15.yaml"  # GoMatching++ (shared matcher)
 
@@ -518,6 +532,139 @@ def phase_sampler_ab(torch, predictor, n_pairs=10):
     print(f"[11] sampler A/B, GoMatching++, {n_pairs} alternating pairs: frames/s " + "; ".join(
         f"{k} median {sorted(v)[len(v) // 2]:.3f} (runs {', '.join(f'{x:.3f}' for x in v)})"
         for k, v in fps.items()) + f"; pallas ahead in {wins} of {n_pairs} pairs")
+
+
+def phase_footprint(torch, da, dav, daf):
+    """B6a-c at the full-width encoder shapes: each entry against its plain version and
+    the B1 kernel, its launch, its direct route and its refusal under autograd; returns
+    the kernels-line records (sans launches)."""
+    S = sum(h * w for h, w in SHAPES)
+    g = torch.Generator().manual_seed(11)
+    dev = "cuda"
+    value = torch.randn(B, S, M, D, generator=g).to(dev)
+    wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32, device=dev)
+    # offsets of a few cells (beyond the halo for ~1 sample in 6), 1% of them 100x
+    off = torch.randn(B, S, M, L, P, 2, generator=g) * 3.0
+    far = torch.rand(B, S, M, L, P, 2, generator=g) < 0.01
+    off = torch.where(far, off * 100.0, off).to(dev)
+    del far
+    logits = torch.randn(B, S, M, L * P, generator=g).to(dev)
+    attn = logits.softmax(-1).view(B, S, M, L, P)
+    loc = (da.encoder_reference_points(SHAPES, dev)[None, :, None, None, None, :]
+           + off / wh[None, None, None, :, None, :])
+    beyond = (off.abs() > TILED_HALO).any(-1).float().mean().item()
+    outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+    check(beyond >= 0.05 and outside > 0, f"phase 12 inputs: {beyond} beyond the halo, "
+          f"{outside} outside the maps")
+    perm = torch.from_numpy(dav.tile_major_perm(SHAPES)[0].astype(np.int64)).to(dev)
+    S_tm = perm.numel()
+    locT = loc[:, perm].permute(0, 2, 3, 4, 5, 1).contiguous()
+    attnT = attn[:, perm].permute(0, 2, 3, 4, 1).contiguous()
+    offT = off[:, perm].permute(0, 3, 5, 2, 4, 1).reshape(B, 2 * L * M * P, S_tm).contiguous()
+    attnT3 = attn[:, perm].permute(0, 3, 2, 4, 1).reshape(B, L * M * P, S_tm).contiguous()
+    loc3, attn3 = (t.contiguous() for t in dav.v3_locations(SHAPES, offT, attnT3, M))
+    h = TILED_HALO
+
+    b1_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn))
+    b2_ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits))
+    # (name, the entry as a function of value, its plain version, the locations and
+    # attention B1 takes for the same function, the footprints, the locations in the
+    # kernel's query order, the TPU kernel, the entry's inputs)
+    cases = [
+        (da.VMEM, lambda v: dav.ms_deform_attn_encoder_vmem(v, SHAPES, loc, attn, h),
+         lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn),
+         (loc, attn), dav.vmem_footprints(da.VMEM, SHAPES, P, h), loc,
+         "gomatching_tpu/ops/deform_attn_vmem.py:896", (loc, attn)),
+        (da.VMEM_TM, lambda v: dav.ms_deform_attn_encoder_vmem_tm(v, SHAPES, locT, attnT, h),
+         lambda: dav.ms_deform_attn_encoder_vmem_tm_plain(value, SHAPES, locT, attnT),
+         (loc, attn), dav.vmem_footprints(da.VMEM_TM, SHAPES, P, h, S_tm=S_tm), loc[:, perm],
+         "gomatching_tpu/ops/deform_attn_vmem.py:896", (locT, attnT)),
+        (da.VMEM_V3, lambda v: dav.ms_deform_attn_encoder_vmem_v3(v, SHAPES, offT, attnT3, h),
+         lambda: dav.ms_deform_attn_encoder_vmem_v3_plain(value, SHAPES, offT, attnT3),
+         (loc3, attn3), dav.vmem_footprints(da.VMEM_V3, SHAPES, P, h, S_tm=S_tm), loc3,
+         "gomatching_tpu/ops/deform_attn_vmem.py:724", (offT, attnT3)),
+        (da.FUSED, lambda v: daf.ms_deform_attn_encoder_fused(v, SHAPES, loc, attn, h),
+         lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn),
+         (loc, attn), daf.fused_footprints(SHAPES, P, h), loc,
+         "gomatching_tpu/ops/deform_attn_fused.py:54", (loc, attn)),
+    ]
+    records = {}
+    for name, entry, plain, (w_loc, w_attn), fp, fp_loc, replaces, inputs in cases:
+        def call():
+            return entry(value)
+
+        before = da.launch_counts[name]
+        got = call()
+        check(da.launch_counts[name] == before + 1, f"{name}: the kernel did not launch")
+        want = plain()
+        witness = da.ms_deform_attn_queries(value, SHAPES, w_loc, w_attn)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_b1 = (got - witness).abs().max().item()
+        check(math.isfinite(err) and err <= ATOL_KERNEL, f"{name}: max err {err}")
+        check(math.isfinite(err_b1) and err_b1 <= ATOL_KERNEL, f"{name}: differs from B1 by {err_b1}")
+        del want, witness
+        share = dav.staged_share(fp, SHAPES, fp_loc)
+        direct = [pair for pair, (n_smem, n_taps) in share.items()
+                  if not fp.pairs[pair[0]][pair[1]][4] and n_taps > 0]
+        check(direct and all(share[p][0] == 0 for p in direct),
+              f"{name}: no (source, target) pair over the budget on the direct route")
+        try:
+            entry(value.detach().requires_grad_(True))
+            raised = False
+        except RuntimeError as e:
+            raised = "no backward" in str(e)
+        check(raised, f"{name}: did not raise under autograd")
+        # the same kernel with every pair on the direct route (no footprint staged, a
+        # quarter of the shared memory), in turns with the staged one
+        runs = {"staged": [], "direct": []}
+        for route in ("staged", "direct", "direct", "staged"):
+            with patched(dav, SMEM_BLOCK_BYTES=0 if route == "direct" else dav.SMEM_BLOCK_BYTES):
+                dav.footprints.cache_clear()
+                runs[route].append(cuda_time_ms(call))
+        dav.footprints.cache_clear()
+        ms = sum(runs["staged"]) / len(runs["staged"])
+        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+        v_bytes, taps = value_reads(torch, w_loc, S, D)
+        samples = w_loc.shape[1] * B * M * L * P
+        b_ms, b_by = bound(v_bytes + nbytes(*inputs, got), samples * (20 + 2 * D) + taps * (2 * D + 1))
+        smem, n_taps = (sum(v[k] for v in share.values()) for k in (0, 1))
+        records[name] = dict(
+            name=name, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None,
+        )
+        print(f"[12] {name} (Lq={w_loc.shape[1]}): max|kernel-plain| {err:.3e}, max|kernel-B1| "
+              f"{err_b1:.3e} (atol {ATOL_KERNEL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}); every pair direct "
+              f"{', '.join(f'{t:.4f}' for t in runs['direct'])} ms against staged "
+              f"{', '.join(f'{t:.4f}' for t in runs['staged'])} ms in turns; on the same "
+              f"function B1 {b1_ms:.4f} ms, B2 "
+              f"{b2_ms:.4f} ms; staged {100 * smem / n_taps:.1f}% of {n_taps} in-map corner taps, "
+              f"direct pairs {direct}; raises under autograd; at B={B}, halo {TILED_HALO}, "
+              f"{100 * beyond:.1f}% of samples beyond the halo, {100 * outside:.2f}% outside the maps")
+        del got
+    return records
+
+
+def phase_bench(torch, da):
+    """This slice's path: the sampler benchmark's ``main`` over every sampler and two
+    tilesets; returns the launch counts of that run."""
+    from gomatching_tpu_torch.tools import bench_deform_attn as bench
+
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    res = bench.main(["--batch", str(B), "--halo", str(TILED_HALO), "--tilesets", TILESETS])
+    torch.cuda.synchronize()
+    counts = dict(da.launch_counts)
+    for r in res["results"]:
+        check(math.isfinite(r["max_abs_err"]) and r["max_abs_err"] <= ATOL_KERNEL,
+              f"phase 13: {r['impl']} {r['tiles']} differs from the exact gather by {r['max_abs_err']}")
+    for name in (da.VMEM, da.VMEM_TM, da.VMEM_V3, da.FUSED):
+        check(counts[name] > 0, f"phase 13: {name} never launched")
+    print(f"[13] sampler benchmark: {len(res['results'])} runs within {ATOL_KERNEL} of the exact "
+          f"gather; launches {counts}")
+    return counts
 
 
 def off_grid(torch, x, margin=1e-3):
@@ -948,7 +1095,9 @@ def main():
     from gomatching_tpu_torch.engine.predictor import VideoPredictor
     from gomatching_tpu_torch.ops import _build
     from gomatching_tpu_torch.ops import deform_attn as da
+    from gomatching_tpu_torch.ops import deform_attn_fused as daf
     from gomatching_tpu_torch.ops import deform_attn_merged as dam
+    from gomatching_tpu_torch.ops import deform_attn_vmem as dav
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -994,11 +1143,18 @@ def main():
                           ("B5's table build", "ms_deform_attn_merged_table_kernel(")])
     del predictor
 
+    # the sampler benchmark on the footprint entries (B6a-c)
+    fp_records = phase_footprint(torch, da, dav, daf)
+    bench_counts = phase_bench(torch, da)
+
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},
-                **{n: pp_counts[n] for n in merged_records}}
-    for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items()]:
-        # the forwards' launches are the inference paths', the backwards' the pretraining's
+                **{n: pp_counts[n] for n in merged_records},
+                **{n: bench_counts[n] for n in fp_records}}
+    for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items(),
+                      *fp_records.items()]:
+        # each kernel's launches are those of the path that runs it: inference, the
+        # pretraining's for the backwards, the sampler benchmark's for B6a-c
         rec = dict(rec, launches=launches[name])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -97,6 +97,12 @@
 //       computes the same table at 2.3x this byte bound on an H100 (the time
 //       chip_smoke.py phase 9 prints as its library_ms).
 //
+// A fourth forward serves the encoder variants that stage tile footprints
+// (B6a-c: ms_deform_attn_encoder_vmem, _vmem_tm, _vmem_v3 and _fused):
+//
+//   ms_deform_attn_footprint_fwd  -- one kernel, three input layouts; see its
+//       source note below.
+//
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
@@ -506,6 +512,250 @@ __global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ val
   reinterpret_cast<float4*>(table + ((int64_t)bm * S + s) * 128)[j] = __ldg(src + (j & 7));
 }
 
+// ---------------------------------------------------------------------------
+// Encoder sampling through tile footprints in shared memory (B6a, B6b, B6c).
+//
+//   ms_deform_attn_footprint_fwd -- replaces gomatching_tpu/ops/deform_attn_vmem.py:
+//       _kernel (:896, entries ms_deform_attn_encoder_vmem and
+//       ms_deform_attn_encoder_vmem_tm), _kernel_v3 (:724, entry
+//       ms_deform_attn_encoder_vmem_v3) and gomatching_tpu/ops/deform_attn_fused.py:
+//       _kernel (:54, entry ms_deform_attn_encoder_fused).
+//
+// Encoder self-attention (every token is a query). Each TPU kernel stages, for a tile
+// of queries, a footprint of every target level (the tile's reference region plus a
+// halo) in VMEM, contracts a one-hot G against it on the MXU and drops the samples
+// beyond it. Here the footprint is a cache: a corner inside the staged footprint is
+// read from shared memory, any other corner from device memory, so the result is
+// exact (grid_sample semantics, the bilinear_tap rule) whatever the halo.
+//
+// Design. One block (8 warps) per (query chunk, batch, head): blockIdx.x runs over
+// the chunks of up to FP_QCHUNK queries of the query tiles of all source levels,
+// fastest, so that the blocks of one (batch, head) run together and share that
+// head's value rows in L2. A host-built table (the counterpart of the TPU's
+// scalar-prefetched origin table) gives each block its source level, tile origin and
+// width, chunk, first slot, and per target level the footprint origin and extent,
+// or zeros when the footprint is over the shared-memory budget (the direct route:
+// every corner from device memory, as in B1). The block first writes its queries'
+// geometry into shared memory -- x and y in target-level pixels and the attention
+// per (level, point) -- from coalesced rows of the tile-major layouts or, in the
+// natural layout, with lane l on word l of a query's locations. Then per target
+// level it copies the staged footprint (Fh * Fw rows of 32 floats, one float4 per
+// thread, zeros off the map) into shared memory, and each warp takes its queries
+// one at a time with lanes on the channels, accumulating in registers in B1's order
+// (level, point, corner). The table is read with runtime indices from device memory
+// and the level dims from it, so no parameter struct is copied to the stack.
+//
+// What bounds it: the function is bound by bytes, as B2's (the value rows the corners
+// touch, locations, attention and output once: 0.119 ms for a 1000x1778 frame batch of
+// 3 on an H100). This kernel is bound by the latency of each warp's chain of samples:
+// shared memory and registers hold 16 warps per SM, each taking 16 queries in series.
+// Staging shortens that chain (on an H100 at halo 5 it is 1.2-1.5x faster than the
+// same kernel with every pair direct), but a warp per query at full occupancy (B1)
+// is faster still. Simple first: no cp.async, no TMA, one footprint staged at a time.
+
+#define FP_QCHUNK 128                      // queries of one block
+#define FP_GEO_STRIDE (FP_QCHUNK + 1)      // +1: one query's rows fall in distinct banks
+#define FP_QPW (FP_QCHUNK / MSDA_WARPS_PER_BLOCK)
+#define FP_REC_HEAD 8
+
+// Input layouts: loc (B,S,M,L,P,2) + attn (B,S,M,L,P); locT (B,M,L,P,2,Sq) + attnT
+// (B,M,L,P,Sq); offT (B,2LMP,Sq) rows (l,xy,m,p) in target cells + attnT (B,LMP,Sq)
+// rows (l,m,p), reference point from the slot's tile row and column.
+enum FootprintGeometry { NATURAL_LOC = 0, TM_LOC = 1, TM_OFF_CELLS = 2 };
+
+// The value of one corner for this lane's channel: from the staged footprint ``fp``
+// (cells of 32 floats, row-major over (Fh, Fw)) when (fy, fx) lies inside it, else
+// from device memory. ``fh == 0`` (the direct route) always reads device memory.
+__device__ __forceinline__ float fp_corner(const float* __restrict__ fp,
+                                           const float* __restrict__ v, int w,
+                                           int64_t tok_stride, int fh, int fw, int y, int x,
+                                           int fy, int fx) {
+  if ((unsigned)fy < (unsigned)fh && (unsigned)fx < (unsigned)fw) return fp[(fy * fw + fx) * 32];
+  return __ldg(v + ((int64_t)y * w + x) * tok_stride);
+}
+
+// bilinear_tap with the footprint cache: (oy, ox) is the footprint's origin.
+__device__ __forceinline__ float fp_tap(const float* __restrict__ fp, const float* __restrict__ v,
+                                        int h, int w, int64_t tok_stride, int oy, int ox,
+                                        int fh, int fw, float x, float y) {
+  if (!(x > -1.f && y > -1.f && x < (float)w && y < (float)h)) return 0.f;
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const int x0 = (int)x0f;
+  const int y0 = (int)y0f;
+  const float dx = x - x0f;
+  const float dy = y - y0f;
+  const float hx = 1.f - dx;
+  const float hy = 1.f - dy;
+  const int fx = x0 - ox;
+  const int fy = y0 - oy;
+  float acc = 0.f;
+  if (y0 >= 0) {
+    if (x0 >= 0) acc += hy * hx * fp_corner(fp, v, w, tok_stride, fh, fw, y0, x0, fy, fx);
+    if (x0 + 1 < w) acc += hy * dx * fp_corner(fp, v, w, tok_stride, fh, fw, y0, x0 + 1, fy, fx + 1);
+  }
+  if (y0 + 1 < h) {
+    if (x0 >= 0) acc += dy * hx * fp_corner(fp, v, w, tok_stride, fh, fw, y0 + 1, x0, fy + 1, fx);
+    if (x0 + 1 < w)
+      acc += dy * dx * fp_corner(fp, v, w, tok_stride, fh, fw, y0 + 1, x0 + 1, fy + 1, fx + 1);
+  }
+  return acc;
+}
+
+// The grid cell (r, c) of in-tile query qt of a tile at (ty0, tx0) of width tx;
+// false for the padding slots past the level's edge.
+__device__ __forceinline__ bool tile_cell(int qt, int ty0, int tx0, int tx, int H1, int W1,
+                                          int& r, int& c) {
+  const int row = qt / tx;
+  r = ty0 + row;
+  c = tx0 + qt - row * tx;
+  return r < H1 && c < W1;
+}
+
+// value (B,S,M,32); a/b the layout's locations (or offsets) and attention; table as
+// Footprints (ops/deform_attn_vmem.py); out (B,S,M*32) natural or, for TM_OFF_CELLS,
+// (B,Sq,M*32) tile-major. Dynamic shared memory: the geometry (3*L*P rows of
+// FP_GEO_STRIDE floats, rounded up to float4s), then the largest staged footprint.
+template <int GEOM>
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK)
+ms_deform_attn_footprint_kernel(const float* __restrict__ value, const float* __restrict__ a,
+                                const float* __restrict__ bt, const int* __restrict__ table,
+                                float* __restrict__ out, int S, int M, int L, int P, int Sq) {
+  extern __shared__ float4 smem4[];
+  float* geo = reinterpret_cast<float*>(smem4);
+  const int LP = L * P;
+  float* fp = geo + ((3 * LP * FP_GEO_STRIDE + 3) & ~3);
+  const int b = blockIdx.y;
+  const int m = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int* rec = table + 4 * L + (int64_t)blockIdx.x * (FP_REC_HEAD + 4 * L);
+  const int l1 = __ldg(rec);
+  const int ty0 = __ldg(rec + 1);
+  const int tx0 = __ldg(rec + 2);
+  const int tx = __ldg(rec + 3);
+  const int q0 = __ldg(rec + 4);
+  const int nq = __ldg(rec + 5);
+  const int slot0 = __ldg(rec + 6) + q0;  // slot of the chunk's first query
+  const int H1 = __ldg(table + 4 * l1);
+  const int W1 = __ldg(table + 4 * l1 + 1);
+  const int start1 = __ldg(table + 4 * l1 + 2);
+  const int64_t tok_stride = (int64_t)M * 32;
+
+  // 1. the chunk's geometry: row (l2*P + p)*3 + {x, y, attention}, queries minor
+  if (GEOM == NATURAL_LOC) {
+    for (int q = warp; q < nq; q += MSDA_WARPS_PER_BLOCK) {
+      int r, c;
+      if (!tile_cell(q0 + q, ty0, tx0, tx, H1, W1, r, c)) continue;
+      const int64_t bsm = ((int64_t)b * S + start1 + r * W1 + c) * M + m;
+      for (int w = lane; w < 2 * LP; w += 32) {
+        const int i = w >> 1;
+        const int xy = w & 1;
+        const float size = (float)__ldg(table + 4 * (i / P) + 1 - xy);  // W for x, H for y
+        geo[(i * 3 + xy) * FP_GEO_STRIDE + q] = __ldg(a + bsm * 2 * LP + w) * size - 0.5f;
+      }
+      for (int i = lane; i < LP; i += 32)
+        geo[(i * 3 + 2) * FP_GEO_STRIDE + q] = __ldg(bt + bsm * LP + i);
+    }
+  } else {
+    const int64_t bm = (int64_t)b * M + m;
+    for (int k = tid; k < 2 * LP * nq; k += blockDim.x) {
+      const int w = k / nq;  // (l2, p, xy)
+      const int q = k - w * nq;
+      const int i = w >> 1;
+      const int xy = w & 1;
+      const int l2 = i / P;
+      const float size = (float)__ldg(table + 4 * l2 + 1 - xy);
+      float g;
+      if (GEOM == TM_LOC) {
+        g = __ldg(a + (bm * 2 * LP + w) * Sq + slot0 + q) * size - 0.5f;
+      } else {
+        // the reference point in target pixels, as _kernel_v3 :763-764, plus the offset
+        const int p = i - l2 * P;
+        const int qt = q0 + q;
+        const int row = qt / tx;
+        const float s = size / (float)(xy ? H1 : W1);
+        const float ref = ((float)(xy ? ty0 : tx0) + 0.5f) * s - 0.5f + (float)(xy ? row : qt - row * tx) * s;
+        const int64_t orow = (int64_t)b * 2 * LP * M + ((l2 * 2 + xy) * M + m) * P + p;
+        g = ref + __ldg(a + orow * Sq + slot0 + q);
+      }
+      geo[(i * 3 + xy) * FP_GEO_STRIDE + q] = g;
+    }
+    for (int k = tid; k < LP * nq; k += blockDim.x) {
+      const int i = k / nq;  // (l2, p)
+      const int q = k - i * nq;
+      int64_t arow;
+      if (GEOM == TM_LOC) {
+        arow = bm * LP + i;
+      } else {
+        const int l2 = i / P;
+        arow = (int64_t)b * LP * M + (l2 * M + m) * P + (i - l2 * P);
+      }
+      geo[(i * 3 + 2) * FP_GEO_STRIDE + q] = __ldg(bt + arow * Sq + slot0 + q);
+    }
+  }
+  __syncthreads();
+
+  // 2. per target level: stage the footprint if it has one, then sample
+  float acc[FP_QPW];
+#pragma unroll
+  for (int j = 0; j < FP_QPW; ++j) acc[j] = 0.f;
+  for (int l2 = 0; l2 < L; ++l2) {
+    const int h = __ldg(table + 4 * l2);
+    const int w = __ldg(table + 4 * l2 + 1);
+    const int start = __ldg(table + 4 * l2 + 2);
+    const int* f = rec + FP_REC_HEAD + 4 * l2;
+    const int oy = __ldg(f);
+    const int ox = __ldg(f + 1);
+    const int fh = __ldg(f + 2);
+    const int fw = __ldg(f + 3);
+    const float* vb = value + (((int64_t)b * S + start) * M + m) * 32;
+    if (fh > 0) {
+      __syncthreads();  // every warp is done with the previous footprint
+      for (int k = tid; k < fh * fw * 8; k += blockDim.x) {
+        const int cell = k >> 3;
+        const int fy = cell / fw;
+        const int y = oy + fy;
+        const int x = ox + cell - fy * fw;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (y < h && x < w)
+          v = __ldg(reinterpret_cast<const float4*>(vb + ((int64_t)y * w + x) * tok_stride) + (k & 7));
+        reinterpret_cast<float4*>(fp)[k] = v;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < FP_QPW; ++j) {
+      const int q = j * MSDA_WARPS_PER_BLOCK + warp;
+      int r, c;
+      if (q < nq && (GEOM == TM_OFF_CELLS || tile_cell(q0 + q, ty0, tx0, tx, H1, W1, r, c))) {
+        for (int p = 0; p < P; ++p) {
+          const float* g = geo + (l2 * P + p) * 3 * FP_GEO_STRIDE + q;
+          acc[j] += g[2 * FP_GEO_STRIDE] * fp_tap(fp + lane, vb + lane, h, w, tok_stride, oy, ox,
+                                                  fh, fw, g[0], g[FP_GEO_STRIDE]);
+        }
+      }
+    }
+  }
+
+  // 3. one 128-byte row per query: natural token, or the slot (TM_OFF_CELLS)
+#pragma unroll
+  for (int j = 0; j < FP_QPW; ++j) {
+    const int q = j * MSDA_WARPS_PER_BLOCK + warp;
+    if (q >= nq) continue;
+    int64_t row;
+    if (GEOM == TM_OFF_CELLS) {
+      row = (int64_t)b * Sq + slot0 + q;
+    } else {
+      int r, c;
+      if (!tile_cell(q0 + q, ty0, tx0, tx, H1, W1, r, c)) continue;
+      row = (int64_t)b * S + start1 + r * W1 + c;
+    }
+    out[row * tok_stride + m * 32 + lane] = acc[j];
+  }
+}
+
 static LevelInfo make_levels(const int* shapes, int L) {
   LevelInfo lv;
   int start = 0;
@@ -606,4 +856,46 @@ extern "C" int ms_deform_attn_encoder_bwd(const float* value, const float* off,
       value, off, logits, dout, dvalue, doff, dlogits, make_levels(shapes, L), S, M, D, L, P,
       n_warps);
   return (int)cudaGetLastError();
+}
+
+template <int GEOM>
+static int launch_footprint(const float* value, const float* a, const float* b, const int* table,
+                            float* out, dim3 grid, int S, int M, int L, int P, int Sq,
+                            int smem_bytes, cudaStream_t stream) {
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(ms_deform_attn_footprint_kernel<GEOM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  ms_deform_attn_footprint_kernel<GEOM><<<grid, 32 * MSDA_WARPS_PER_BLOCK, smem_bytes, stream>>>(
+      value, a, b, table, out, S, M, L, P, Sq);
+  return (int)cudaGetLastError();
+}
+
+// geometry: a FootprintGeometry; table (device int32) and smem_bytes from the wrapper's
+// Footprints; n_items blocks per (batch, head); Sq the token axis of a and b.
+extern "C" int ms_deform_attn_footprint_fwd(int geometry, const float* value, const float* a,
+                                            const float* b, const int* table, float* out, int B,
+                                            int S, int M, int D, int L, int P, int n_items,
+                                            int Sq, int smem_bytes, void* stream) {
+  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES || B > 65535 ||
+      M > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (n_items == 0 || B == 0 || M == 0) return (int)cudaSuccess;
+  const dim3 grid(n_items, B, M);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (geometry) {
+    case NATURAL_LOC:
+      return launch_footprint<NATURAL_LOC>(value, a, b, table, out, grid, S, M, L, P, Sq,
+                                           smem_bytes, st);
+    case TM_LOC:
+      return launch_footprint<TM_LOC>(value, a, b, table, out, grid, S, M, L, P, Sq, smem_bytes,
+                                      st);
+    case TM_OFF_CELLS:
+      return launch_footprint<TM_OFF_CELLS>(value, a, b, table, out, grid, S, M, L, P, Sq,
+                                            smem_bytes, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -35,8 +35,10 @@ forwards; the tests and ``chip_smoke.py`` hold the kernels against them. All fou
 kernels are bound by memory traffic on an H100 (see the source note in the .cu file for
 the design). Each launch adds one to ``launch_counts[name]``, which also counts the
 launches of B5 and of its table build (``ms_deform_attn_merged``,
-``ms_deform_attn_merged_table``; ``ops/deform_attn_merged.py``), whose kernels live in
-the same .cu file.
+``ms_deform_attn_merged_table``; ``ops/deform_attn_merged.py``) and of the four
+footprint entries (``ms_deform_attn_encoder_vmem``, ``..._vmem_tm``, ``..._vmem_v3``,
+``ops/deform_attn_vmem.py``; ``ms_deform_attn_encoder_fused``,
+``ops/deform_attn_fused.py``), whose kernels live in the same .cu file.
 """
 
 from __future__ import annotations
@@ -55,10 +57,15 @@ QUERIES_BWD = "ms_deform_attn_queries_bwd"
 ENCODER_BWD = "ms_deform_attn_encoder_bwd"
 MERGED = "ms_deform_attn_merged"
 MERGED_TABLE = "ms_deform_attn_merged_table"
+VMEM = "ms_deform_attn_encoder_vmem"
+VMEM_TM = "ms_deform_attn_encoder_vmem_tm"
+VMEM_V3 = "ms_deform_attn_encoder_vmem_v3"
+FUSED = "ms_deform_attn_encoder_fused"
 
 # launches of each hand-written kernel in this process (plain CPU calls do not count)
 launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0, QUERIES_BWD: 0, ENCODER_BWD: 0,
-                                 MERGED: 0, MERGED_TABLE: 0}
+                                 MERGED: 0, MERGED_TABLE: 0, VMEM: 0, VMEM_TM: 0, VMEM_V3: 0,
+                                 FUSED: 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,6 +81,8 @@ _SIGNATURES = {
     "ms_deform_attn_merged_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I),
                                   _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_merged_table": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_footprint_fwd": [_I, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _MAX_LEVELS = 8
 _MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)

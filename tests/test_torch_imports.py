@@ -27,7 +27,8 @@ def test_importing_the_port_pulls_in_no_jax():
     mods = _port_modules()
     for m in ("engine.predictor", "engine.pretrain", "engine.spotter_losses", "engine.optim",
               "engine.checkpoint", "data.bezier", "data.datasets", "data.image_augment",
-              "train_net", "ops.deform_attn_merged"):
+              "train_net", "ops.deform_attn_merged", "ops.deform_attn_vmem",
+              "ops.deform_attn_fused", "tools.bench_deform_attn"):
         assert f"gomatching_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -112,7 +113,9 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     import torch
 
     from gomatching_tpu_torch.ops import deform_attn as da
+    from gomatching_tpu_torch.ops import deform_attn_fused as daf
     from gomatching_tpu_torch.ops import deform_attn_merged as dam
+    from gomatching_tpu_torch.ops import deform_attn_vmem as dav
 
     value = torch.empty(1, 4, 2, 8, device="meta")
     loc = torch.empty(1, 3, 2, 1, 2, 2, device="meta")
@@ -124,6 +127,18 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
                                   torch.empty(1, 4, 2, 2, device="meta"))
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         dam.ms_deform_attn_merged(value, [(2, 2)], loc, attn)
+    enc_loc = torch.empty(1, 4, 2, 1, 2, 2, device="meta")
+    enc_attn = torch.empty(1, 4, 2, 1, 2, device="meta")
+    for entry in (dav.ms_deform_attn_encoder_vmem, daf.ms_deform_attn_encoder_fused):
+        with pytest.raises(ValueError, match="CPU or on one CUDA"):
+            entry(value, [(2, 2)], enc_loc, enc_attn)
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):  # 128 tile-major slots
+        dav.ms_deform_attn_encoder_vmem_tm(value, [(2, 2)],
+                                           torch.empty(1, 2, 1, 2, 2, 128, device="meta"),
+                                           torch.empty(1, 2, 1, 2, 128, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        dav.ms_deform_attn_encoder_vmem_v3(value, [(2, 2)], torch.empty(1, 8, 128, device="meta"),
+                                           torch.empty(1, 4, 128, device="meta"))
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         da.ms_deform_attn_queries_backward(value, [(2, 2)], loc, attn,
                                            torch.empty(1, 3, 16, device="meta"))
