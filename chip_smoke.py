@@ -60,9 +60,17 @@ Phases (any failure exits non-zero and prints no result line):
  13. the path of this slice: the sampler benchmark ``gomatching_tpu_torch.tools.
      bench_deform_attn.main`` at B=3 over every sampler (B1, B2, B5, B6a natural and
      tile-major, B6b, B6c) and two tilesets; each within ATOL_KERNEL of the exact gather,
-     each of the four B6 entries launched.
-The line before the last is {"kernels": [...]} (B1-B5, B5's table build and the four B6
-entries); the last is {"ok": true, "device": {...}}.
+     each of the four B6 entries launched;
+ 14. the probe kernels (``csrc/probes.cu``): T1 ``gather_rows_sum`` in the four cases of
+     the gather rate probe, on an integer-valued table (kernel, plain version and the
+     float64 sum exactly equal) and on a randn table (within RTOL_GATHER of the sum of
+     |terms|); T2 ``onehot_g`` in its three variants on coordinates in (-2, F + 1) (f32
+     within ATOL_G, the bf16-output variants bit for bit or within one bf16 ulp, the
+     count printed); kernel (CUDA events and the profiler's device time), plain, library
+     and bound times; then the path of this slice, both probe tools' ``main``
+     (``gomatching_tpu_torch.tools.bench_gather``, ``.probe_bf16_g``), each kernel launched.
+The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
+entries, T1 and T2); the last is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -73,6 +81,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -105,6 +114,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, outside the tensor cores
 TILED_HALO = 5  # TPU.TILED_HALO of the configs: the footprints' margin in target cells
 TILESETS = "8x16,8x16,8x16,8x16;16x16,16x16,16x16,16x16"  # phase 13's tile sweep
+# T1 on a randn table, kernel vs plain: |k - p| <= RTOL_GATHER * sum |terms|. Each f32
+# addition rounds by at most 2**-24 of its result, so a sum in which no term passes
+# through more than h additions is within h * 2**-24 * sum |terms| of the exact one. The
+# kernel's deepest chain at the probe's shapes is 276 additions (at (32768, 32, 64): 256
+# rows a lane in series, 5 shuffle and 3 block levels, 12 in the final pass); torch's
+# reduction is taken to be no deeper, so the two differ by at most 2 * 276 * 2**-24.
+RTOL_GATHER = 2 * 276 * 2.0 ** -24
+ATOL_G = 1e-6  # T2 in f32: the kernel does _g_kernel's ops in its order, without FMAs
 CONFIG = "configs/GoMatching_ICDAR15.yaml"
 CONFIG_PP = "configs/GoMatching_PP_ICDAR15.yaml"  # GoMatching++ (shared matcher)
 
@@ -667,6 +684,145 @@ def phase_bench(torch, da):
     return counts
 
 
+def device_us(torch, fn, marker, n=20):
+    """Device time per call of ``fn`` (us) summed over the kernels whose name contains
+    ``marker``, from torch.profiler over ``n`` calls: what the card spends, without the
+    host's launch cost; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(t for t, _, key in device_rows(torch, prof) if marker in key)
+    return us / n if us > 0 else None
+
+
+def phase_probes(torch, gp, og):
+    """T1 and T2 against their plain versions at the probe tools' shapes; returns the
+    kernels-line records (sans launches): T1 at (32768, 32, 64) f32, T2 in f32."""
+    from gomatching_tpu_torch.tools import bench_gather, probe_bf16_g
+
+    def fmt(us):
+        return "not measured" if us is None else f"{us:.2f} us"
+
+    dev = "cuda"
+    rng = np.random.RandomState(5)
+    records = {}
+    for R, C, n, dtype in bench_gather.CASES:
+        idx = torch.from_numpy(rng.randint(0, R, (n, R)).astype(np.int32)).to(dev)
+        flat = idx.flatten()
+        # integer entries in -3..3 (exact in bf16): every partial sum is an integer far
+        # below 2**24, so the kernel, the plain version and the f64 sum agree exactly
+        v = torch.from_numpy(rng.randint(-3, 4, (R, C)).astype(np.float32)).to(dtype).to(dev)
+        got, want = gp.gather_rows_sum(v, idx).item(), gp.gather_rows_sum_plain(v, idx).item()
+        exact = torch.index_select(v.double(), 0, flat).sum().item()
+        check(got == want == exact, f"{gp.GATHER} {R}x{C} x{n} {dtype} on integers: kernel "
+              f"{got}, plain {want}, exact {exact}")
+        v = torch.from_numpy(rng.randn(R, C).astype(np.float32)).to(dtype).to(dev)
+        before = gp.launch_counts[gp.GATHER]
+        got = gp.gather_rows_sum(v, idx)
+        check(gp.launch_counts[gp.GATHER] == before + 1, f"{gp.GATHER}: the kernel did not launch")
+        want = gp.gather_rows_sum_plain(v, idx)
+        again = gp.gather_rows_sum(v, idx)
+        exact = torch.index_select(v.double(), 0, flat).sum().item()
+        scale = torch.index_select(v.double().abs(), 0, flat).sum().item()
+        err = abs(got.item() - want.item())
+        check(math.isfinite(err) and err <= RTOL_GATHER * scale,
+              f"{gp.GATHER} {R}x{C} x{n} {dtype}: |kernel - plain| {err} > {RTOL_GATHER} * {scale}")
+        check(torch.equal(got, again), f"{gp.GATHER}: two runs differ")
+        ms = cuda_time_ms(lambda: gp.gather_rows_sum(v, idx))
+        us = device_us(torch, lambda: gp.gather_rows_sum(v, idx), "gather_rows_sum")
+        plain_ms = cuda_time_ms(lambda: gp.gather_rows_sum_plain(v, idx))
+        lib_ms = cuda_time_ms(lambda: bench_gather.library_sum(v, idx))
+        select_ms = cuda_time_ms(lambda: torch.index_select(v, 0, flat))  # its first half
+        # the table and the indices read once, one float written; the adds in f32
+        b_ms, b_by = bound(nbytes(v, idx) + 4, n * R * C)
+        rows, gathered = n * R, n * R * C * v.element_size()
+        print(f"[14] {gp.GATHER} R={R} C={C} x{n} {str(dtype)[6:]}: exact on integers; randn "
+              f"|kernel-plain| {err:.3e} = {err / scale:.2e} of sum|terms| (rtol {RTOL_GATHER:.2e}), "
+              f"kernel-exact {abs(got.item() - exact) / scale:.2e}, plain-exact "
+              f"{abs(want.item() - exact) / scale:.2e}, same bits twice; kernel {ms:.4f} ms "
+              f"(device {fmt(us)}) -> {rows / ms / 1e3:.0f}M rows/s, {gathered / ms / 1e6:.1f} GB/s "
+              f"gathered; plain {plain_ms:.4f} ms, index_select+sum {lib_ms:.4f} ms "
+              f"({rows / lib_ms / 1e3:.0f}M rows/s; index_select alone {select_ms:.4f} ms); "
+              f"bound {b_ms:.4f} ms ({b_by}: "
+              f"{nbytes(v, idx) / 1e6:.2f} MB)")
+        if (R, C, n, dtype) == (32768, 32, 64, torch.float32):
+            records[gp.GATHER] = dict(
+                name=gp.GATHER, route="cuda", source="gomatching_tpu_torch/csrc/probes.cu",
+                replaces="tools/bench_pallas_gather.py:49", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            )
+        del v, idx, flat, got, want, again
+
+    P, FH, FW, Q = probe_bf16_g.P, probe_bf16_g.FH, probe_bf16_g.FW, probe_bf16_g.Q
+    x = torch.from_numpy(rng.uniform(-2, FW + 1, (P, Q)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.uniform(-2, FH + 1, (P, Q)).astype(np.float32)).to(dev)
+    a = torch.from_numpy(rng.uniform(0, 1, (P, Q)).astype(np.float32)).to(dev)
+    for dtype, out_dtype in og.VARIANTS:
+        def call():
+            return og.onehot_g(x, y, a, FH, FW, dtype, out_dtype)
+
+        before = og.launch_counts[og.ONEHOT]
+        got = call()
+        check(og.launch_counts[og.ONEHOT] == before + 1, f"{og.ONEHOT}: the kernel did not launch")
+        want = og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype)
+        err = (got.float() - want.float()).abs().max().item()
+        tag = f"{og.ONEHOT} {str(dtype)[6:]} arithmetic, {str(out_dtype)[6:]} out"
+        if out_dtype == torch.float32:
+            check(math.isfinite(err) and err <= ATOL_G, f"{tag}: max err {err}")
+            how = f"max|kernel-plain| {err:.3e} (atol {ATOL_G})"
+        else:
+            differ = int((got != want).sum().item())
+            # G >= 0 here, so adjacent bf16 values have adjacent bit patterns
+            ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
+            check(ulps <= 1, f"{tag}: {differ} elements differ, by up to {ulps} bf16 ulps")
+            how = ("bit for bit" if differ == 0 else
+                   f"{differ} of {got.numel()} elements differ by 1 bf16 ulp (max {err:.3e})")
+        ms = cuda_time_ms(call)
+        us = device_us(torch, call, "onehot_g_kernel")
+        plain_ms = cuda_time_ms(lambda: og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype))
+        # G written once, x, y, a read once; 2 P flops per element
+        b_ms, b_by = bound(nbytes(got, x, y, a), 2 * P * FH * FW * Q)
+        print(f"[14] {tag} (P={P}, {FH}x{FW}x{Q}): {how}; kernel {ms:.4f} ms per call "
+              f"(device {fmt(us)}), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
+              f"no single PyTorch call computes it")
+        if out_dtype == torch.float32:
+            records[og.ONEHOT] = dict(
+                name=og.ONEHOT, route="cuda", source="gomatching_tpu_torch/csrc/probes.cu",
+                replaces="tools/probe_bf16_g.py:35", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            )
+    return records
+
+
+def phase_probe_tools(torch, gp, og):
+    """This slice's path: both probe tools' ``main`` on the card; returns the launch
+    counts of that run."""
+    from gomatching_tpu_torch.tools import bench_gather, probe_bf16_g
+
+    torch.cuda.synchronize()
+    gp.reset_launch_counts()
+    og.reset_launch_counts()
+    gather = bench_gather.main([])
+    probe = probe_bf16_g.main([])
+    torch.cuda.synchronize()
+    counts = {**gp.launch_counts, **og.launch_counts}
+    for r in gather["results"]:
+        check(all(math.isfinite(r[k]) for k in ("value", "library_value", "kernel_ms")),
+              f"phase 14: bench_gather {r}")
+    check(0 < probe["bf16_max_abs_err"] < 0.2 and 0 < probe["mixed_max_abs_err"] <= 2 ** -8,
+          f"phase 14: probe_bf16_g errors {probe}")
+    for name, c in counts.items():
+        check(c > 0, f"phase 14: {name} never launched")
+    print(f"[14] probe tools: {len(gather['results'])} gather cases, "
+          f"{len(probe['ms'])} G variants; launches {counts}")
+    return counts
+
+
 def off_grid(torch, x, margin=1e-3):
     """Move pixel coordinates that lie within ``margin`` of a grid line off it: the
     bilinear derivative jumps there, and two right versions that round x differently
@@ -1098,6 +1254,8 @@ def main():
     from gomatching_tpu_torch.ops import deform_attn_fused as daf
     from gomatching_tpu_torch.ops import deform_attn_merged as dam
     from gomatching_tpu_torch.ops import deform_attn_vmem as dav
+    from gomatching_tpu_torch.ops import gather_probe as gp
+    from gomatching_tpu_torch.ops import onehot_g as og
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1108,8 +1266,10 @@ def main():
     print(card)  # as nvidia-smi gives it: name, power limit
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
-    _build.build("ms_deform_attn.cu")
-    print(f"[1] kernels built in {time.time() - t0:.1f} s")
+    sources = ("ms_deform_attn.cu", "probes.cu")
+    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
+        list(pool.map(_build.build, sources))
+    print(f"[1] kernels built in {time.time() - t0:.1f} s ({', '.join(sources)} in parallel)")
 
     records = phase_kernels(torch, da)
     cfg = setup_eval_cfg(CONFIG, ["MODEL.WEIGHTS", "''",
@@ -1147,14 +1307,20 @@ def main():
     fp_records = phase_footprint(torch, da, dav, daf)
     bench_counts = phase_bench(torch, da)
 
+    # the probe kernels (T1, T2) behind the port's probe tools
+    probe_records = phase_probes(torch, gp, og)
+    probe_counts = phase_probe_tools(torch, gp, og)
+
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},
                 **{n: pp_counts[n] for n in merged_records},
-                **{n: bench_counts[n] for n in fp_records}}
+                **{n: bench_counts[n] for n in fp_records},
+                **{n: probe_counts[n] for n in probe_records}}
     for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items(),
-                      *fp_records.items()]:
+                      *fp_records.items(), *probe_records.items()]:
         # each kernel's launches are those of the path that runs it: inference, the
-        # pretraining's for the backwards, the sampler benchmark's for B6a-c
+        # pretraining's for the backwards, the sampler benchmark's for B6a-c, the probe
+        # tools' for T1 and T2
         rec = dict(rec, launches=launches[name])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",

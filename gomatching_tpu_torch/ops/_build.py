@@ -76,14 +76,15 @@ def build(source, compiler: Optional[str] = None,
 
 def load(source: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<source>``; ``signatures`` maps each C
-    function to its ctypes ``argtypes`` (every function returns a C ``int``)."""
+    function to its ctypes ``argtypes`` (every function returns a C ``int``). Modules
+    that share a source each name their own functions."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
-            for name, argtypes in signatures.items():
-                fn = getattr(lib, name)
+            lib = _libs[source] = ctypes.CDLL(str(build(source)))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            if fn.argtypes is None:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _libs[source] = lib
         return lib

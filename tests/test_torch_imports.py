@@ -28,7 +28,8 @@ def test_importing_the_port_pulls_in_no_jax():
     for m in ("engine.predictor", "engine.pretrain", "engine.spotter_losses", "engine.optim",
               "engine.checkpoint", "data.bezier", "data.datasets", "data.image_augment",
               "train_net", "ops.deform_attn_merged", "ops.deform_attn_vmem",
-              "ops.deform_attn_fused", "tools.bench_deform_attn"):
+              "ops.deform_attn_fused", "tools.bench_deform_attn", "ops.gather_probe",
+              "ops.onehot_g", "tools.bench_gather", "tools.probe_bf16_g"):
         assert f"gomatching_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -116,6 +117,8 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     from gomatching_tpu_torch.ops import deform_attn_fused as daf
     from gomatching_tpu_torch.ops import deform_attn_merged as dam
     from gomatching_tpu_torch.ops import deform_attn_vmem as dav
+    from gomatching_tpu_torch.ops import gather_probe as gp
+    from gomatching_tpu_torch.ops import onehot_g as og
 
     value = torch.empty(1, 4, 2, 8, device="meta")
     loc = torch.empty(1, 3, 2, 1, 2, 2, device="meta")
@@ -147,3 +150,8 @@ def test_wrappers_refuse_tensors_off_cpu_and_cuda():
                                            torch.empty(1, 4, 2, 1, 2, 2, device="meta"),
                                            torch.empty(1, 4, 2, 2, device="meta"),
                                            torch.empty(1, 4, 16, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        gp.gather_rows_sum(torch.empty(4, 32, device="meta"),
+                           torch.empty(2, 4, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CPU or on one CUDA"):
+        og.onehot_g(*(torch.empty(2, 8, device="meta") for _ in range(3)), 4, 4)
