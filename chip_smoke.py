@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. device check and kernel build (nvcc, from the sources in this checkout);
+  1. device check and kernel build (nvcc, from the sources in this checkout); ptxas's
+     registers, stack and spills of B2 and B5 and their resident warps per SM;
   2. each hand-written kernel against its plain PyTorch version at the full-width
      ICDAR15 shapes (1000x1778 input: levels (125,223) (63,112) (32,56) (16,28),
      S=37171 tokens, M=8 heads, D=32, L=4, P=4, 100x25 decoder queries), with
      locations and offsets outside the maps; max |kernel - plain| against
-     ATOL_KERNEL, and the kernel's / plain version's time beside the roofline bound;
+     ATOL_KERNEL, the same bits on a second call, and the kernel's / plain version's
+     time beside the roofline bound and its rate in corner rows per second;
   3. one frame through the full-depth spotter with the kernels and with the plain
      versions (same seeded weights, TF32 off): encoder memory, then the decoder from
      the same proposals, compared at ATOL_PATH;
@@ -17,7 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
      width with seeded random weights and a lowered detection threshold, over
      N_FRAMES synthetic 720x1280 frames; XML/JSON written and parsed back; each
      kernel must have launched 6 x (spot batches) times in that run;
-  5. the same frames once more under torch.profiler: device time by kernel;
+  5. the same frames once more under torch.profiler: device time by kernel, B1's and
+     B2's shares;
   6. each backward kernel (B3: B1's VJP, B4: B2's VJP) against its plain version
      (autograd through grid_sample) at the pretraining shapes (1280x1280 square input:
      levels (160,160) (80,80) (40,40) (20,20), S=34000, B=1, 100x25 decoder queries),
@@ -38,9 +41,9 @@ Phases (any failure exits non-zero and prints no result line):
      warm-up; host wall per stage; one step under torch.profiler;
   9. B5 (the corner-merged sampler of TPU.SAMPLING_IMPL 'pallas') against its plain
      version and against the B1 kernel at the full-width encoder (Lq = S) and decoder
-     (Lq = 2500) shapes, locations partly outside the maps, at ATOL_KERNEL, and B5's
-     table-build kernel against its plain version (exactly); kernel, plain, library and
-     bound times, and the table's bytes;
+     (Lq = 2500) shapes, locations partly outside the maps, at ATOL_KERNEL, the same
+     bits on a second call, and B5's table-build kernel against its plain version
+     (exactly); kernel, plain, library and bound times, and the table's bytes;
  10. one frame through the full-depth spotter of configs/GoMatching_PP_ICDAR15.yaml
      under 'pallas' (B5 and its table build launched, nothing else), against the plain
      merged version and against the 'vmem' route (B1/B2) on the same weights, at
@@ -68,7 +71,10 @@ Phases (any failure exits non-zero and prints no result line):
      within ATOL_G, the bf16-output variants bit for bit or within one bf16 ulp, the
      count printed); kernel (CUDA events and the profiler's device time), plain, library
      and bound times; then the path of this slice, both probe tools' ``main``
-     (``gomatching_tpu_torch.tools.bench_gather``, ``.probe_bf16_g``), each kernel launched.
+     (``gomatching_tpu_torch.tools.bench_gather``, ``.probe_bf16_g``), each kernel launched;
+ 15. B2 and B5 from a measurement build of ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0:
+     every gathered row is row 0 of its base, an L1 hit) against the real build on the
+     same inputs, in turns: how much of each kernel's time the memory system adds.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1 and T2); the last is {"ok": true, "device": {...}}.
 """
@@ -122,6 +128,7 @@ TILESETS = "8x16,8x16,8x16,8x16;16x16,16x16,16x16,16x16"  # phase 13's tile swee
 # reduction is taken to be no deeper, so the two differ by at most 2 * 276 * 2**-24.
 RTOL_GATHER = 2 * 276 * 2.0 ** -24
 ATOL_G = 1e-6  # T2 in f32: the kernel does _g_kernel's ops in its order, without FMAs
+ROW0_FLAGS = ("-DMSDA_GATHER_ROW0",)  # phase 15's measurement build
 CONFIG = "configs/GoMatching_ICDAR15.yaml"
 CONFIG_PP = "configs/GoMatching_PP_ICDAR15.yaml"  # GoMatching++ (shared matcher)
 
@@ -181,6 +188,33 @@ def value_reads(torch, loc, S, D, shapes=SHAPES):
     return int(touched.sum().item()) * D * 4, taps
 
 
+def phase_resources(da, _build):
+    """What ptxas and the runtime made of the two redesigned forwards (B2, B5):
+    registers, stack and spills from nvcc's report kept beside the library, and
+    registers, local memory and resident warps per SM from the CUDA runtime."""
+    names = {da.ENCODER: "ms_deform_attn_encoder_kernel", da.MERGED: "ms_deform_attn_merged_kernel"}
+    report = {name: [] for name in names}
+    cur = None
+    for line in _build.build_log("ms_deform_attn.cu").read_text().splitlines():
+        if "Compiling entry function" in line:
+            cur = next((n for n, k in names.items() if k in line), None)
+        elif cur and ("Used" in line or "spill" in line):
+            report[cur].append(" ".join(line.replace("ptxas info    :", "").split()))
+    info = da.forward_kernel_info()
+    for name in names:
+        check(report[name], f"{name}: no ptxas report for {names[name]}")
+        print(f"[1] {name} ({names[name]}): ptxas: {'; '.join(report[name])}; runtime: "
+              f"{info[name]['registers']} registers, {info[name]['local_bytes']} bytes of local "
+              f"memory a thread, {info[name]['warps_per_sm']} resident warps per SM")
+
+
+def same_bits(torch, name, fn, got):
+    """A second call of a kernel gives the same bits."""
+    again = fn()
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{name}: a second call gives other bits")
+
+
 def phase_kernels(torch, da):
     """Kernel vs plain at full width; returns the kernels-line records (sans launches)."""
     S = sum(h * w for h, w in SHAPES)
@@ -198,6 +232,7 @@ def phase_kernels(torch, da):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(math.isfinite(err) and err <= ATOL_KERNEL, f"{da.QUERIES}: max err {err}")
+    same_bits(torch, da.QUERIES, lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn), got)
     ms = cuda_time_ms(lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn))
     plain_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn))
     v_bytes, taps = value_reads(torch, loc, S, D)
@@ -208,6 +243,7 @@ def phase_kernels(torch, da):
         name=da.QUERIES, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
         replaces="gomatching_tpu/ops/deform_attn_dec_vmem.py:54", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, value_mb=v_bytes / 1e6,
+        taps=taps, corners=4 * samples,
     )
 
     # B2: raw offsets of a few cells, some far beyond the map, and logits
@@ -220,6 +256,7 @@ def phase_kernels(torch, da):
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     check(math.isfinite(err) and err <= ATOL_KERNEL, f"{da.ENCODER}: max err {err}")
+    same_bits(torch, da.ENCODER, lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits), got)
     ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits))
     plain_ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder_plain(value, SHAPES, off, logits),
                             iters=5, warmup=1)
@@ -235,12 +272,15 @@ def phase_kernels(torch, da):
         name=da.ENCODER, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
         replaces="gomatching_tpu/ops/deform_attn_vmem.py:246", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, value_mb=v_bytes / 1e6,
+        taps=taps, corners=4 * samples,
     )
     for r in records.values():
-        print(f"[2] {r['name']}: max|kernel-plain| {r['max_abs_err']:.3e} (atol {ATOL_KERNEL}); "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}: {r['value_mb']:.1f} MB of value rows touched of "
-              f"{nbytes(value) / 1e6:.1f} MB) at B={B}")
+        print(f"[2] {r['name']}: max|kernel-plain| {r['max_abs_err']:.3e} (atol {ATOL_KERNEL}), "
+              f"same bits twice; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['value_mb']:.1f} MB of value rows "
+              f"touched of {nbytes(value) / 1e6:.1f} MB) at B={B}; {r['corners'] / 1e6:.2f}M "
+              f"corner rows ({r['taps'] / 1e6:.2f}M in the maps): "
+              f"{r['corners'] / r['ms'] / 1e6:.1f} G corner rows/s")
     return records
 
 
@@ -477,6 +517,8 @@ def phase_merged(torch, da, dam):
         check(math.isfinite(err) and err <= ATOL_KERNEL, f"{dam.MERGED} {case}: max err {err}")
         check(math.isfinite(err_b1) and err_b1 <= ATOL_KERNEL,
               f"{dam.MERGED} {case}: differs from B1 by {err_b1}")
+        same_bits(torch, dam.MERGED, lambda: dam.ms_deform_attn_merged(value, SHAPES, loc, attn),
+                  got)
         del want, witness
         ms = cuda_time_ms(lambda: dam.merged_sample(table, SHAPES, loc, attn))
         both_ms = cuda_time_ms(lambda: dam.ms_deform_attn_merged(value, SHAPES, loc, attn))
@@ -488,7 +530,8 @@ def phase_merged(torch, da, dam):
         b_ms, b_by = bound(v_bytes + nbytes(loc, attn, got),
                            samples * (20 + 2 * D) + taps * (2 * D + 1))
         print(f"[9] {dam.MERGED} {case} (Lq={Lq}): max|kernel-plain| {err:.3e}, max|kernel-B1| "
-              f"{err_b1:.3e} (atol {ATOL_KERNEL}); kernel {ms:.4f} ms on the table, with the "
+              f"{err_b1:.3e} (atol {ATOL_KERNEL}), same bits twice; kernel {ms:.4f} ms on the "
+              f"table ({4 * samples / ms / 1e6:.1f} G corner rows/s), with the "
               f"table build {both_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}: {v_bytes / 1e6:.1f} MB of value rows touched of "
               f"{nbytes(value) / 1e6:.1f} MB; the table's {table_bytes / 1e6:.1f} MB written and "
@@ -821,6 +864,54 @@ def phase_probe_tools(torch, gp, og):
     print(f"[14] probe tools: {len(gather['results'])} gather cases, "
           f"{len(probe['ms'])} G variants; launches {counts}")
     return counts
+
+
+def phase_gather_floor(torch, da, dam, _build):
+    """B2 and B5 from the measurement build in which every gathered row is row 0 of its
+    base (an L1 hit) against the real build, on the same inputs and in turns (real, row
+    0, row 0, real): what the memory system adds to each kernel's time."""
+    import ctypes
+
+    S = sum(h * w for h, w in SHAPES)
+    g = torch.Generator().manual_seed(0)
+    dev = "cuda"
+    value = torch.randn(B, S, M, D, generator=g).to(dev)
+    off = (torch.randn(B, S, M, L, P, 2, generator=g) * 4.0).to(dev)
+    logits = torch.randn(B, S, M, L * P, generator=g).to(dev)
+    wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32, device=dev)
+    loc = (da.encoder_reference_points(SHAPES, dev)[None, :, None, None, None, :]
+           + off / wh[None, None, None, :, None, :]).contiguous()
+    attn = logits.softmax(-1).view(B, S, M, L, P).contiguous()
+    table = dam.merged_table(value, SHAPES)
+    out = torch.empty(B, S, M * D, device=dev)
+    flat = (ctypes.c_int * (2 * L))(*[x for hw in SHAPES for x in hw])
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = ("ms_deform_attn_encoder_fwd", "ms_deform_attn_merged_fwd")
+    libs = {}
+    for build, flags in (("real", _build.NVCC_FLAGS), ("row 0", _build.NVCC_FLAGS + ROW0_FLAGS)):
+        libs[build] = ctypes.CDLL(str(_build.build("ms_deform_attn.cu", flags=flags)))
+        for fn in fns:
+            getattr(libs[build], fn).argtypes = da._SIGNATURES[fn]
+            getattr(libs[build], fn).restype = ctypes.c_int
+    calls = {
+        da.ENCODER: lambda lib: lib.ms_deform_attn_encoder_fwd(
+            value.data_ptr(), off.data_ptr(), logits.data_ptr(), out.data_ptr(), flat,
+            B, S, M, D, L, P, stream),
+        da.MERGED: lambda lib: lib.ms_deform_attn_merged_fwd(
+            table.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), flat,
+            B, S, S, M, D, L, P, stream),
+    }
+    for name, call in calls.items():
+        times = {"real": [], "row 0": []}
+        for build in ("real", "row 0", "row 0", "real"):
+            check(call(libs[build]) == 0, f"{name}: the {build} build refused the launch")
+            times[build].append(cuda_time_ms(lambda: call(libs[build])))
+        real, row0 = (sum(times[k]) / len(times[k]) for k in ("real", "row 0"))
+        print(f"[15] {name} at B={B}, Lq={S}: real build {real:.4f} ms, every gathered row an "
+              f"L1 hit {row0:.4f} ms (in turns: " + ", ".join(
+                  f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
+              + f"): the memory system adds {real - row0:.4f} ms, "
+              f"{100 * (real - row0) / real:.1f}% of the real time")
 
 
 def off_grid(torch, x, margin=1e-3):
@@ -1266,10 +1357,12 @@ def main():
     print(card)  # as nvidia-smi gives it: name, power limit
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
-    sources = ("ms_deform_attn.cu", "probes.cu")
-    with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, all at once
-        list(pool.map(_build.build, sources))
-    print(f"[1] kernels built in {time.time() - t0:.1f} s ({', '.join(sources)} in parallel)")
+    builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS))
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
+        list(pool.map(lambda sf: _build.build(sf[0], flags=_build.NVCC_FLAGS + sf[1]), builds))
+    print(f"[1] kernels built in {time.time() - t0:.1f} s ("
+          + ", ".join(" ".join((src, *flags)) for src, flags in builds) + " in parallel)")
+    phase_resources(da, _build)
 
     records = phase_kernels(torch, da)
     cfg = setup_eval_cfg(CONFIG, ["MODEL.WEIGHTS", "''",
@@ -1281,7 +1374,8 @@ def main():
     t = cfg.MODEL.TRANSFORMER
     counts = phase_main(torch, predictor, da, "[4]",
                         {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS})
-    phase_profile(torch, predictor)
+    phase_profile(torch, predictor, shares=[("B2", "ms_deform_attn_encoder_kernel("),
+                                            ("B1", "ms_deform_attn_queries_kernel(")])
     del predictor
     bwd_records = phase_backward(torch, da)
     phase_train_step(torch, da)
@@ -1310,6 +1404,7 @@ def main():
     # the probe kernels (T1, T2) behind the port's probe tools
     probe_records = phase_probes(torch, gp, og)
     probe_counts = phase_probe_tools(torch, gp, og)
+    phase_gather_floor(torch, da, dam, _build)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},

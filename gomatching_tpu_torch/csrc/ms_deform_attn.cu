@@ -1,33 +1,65 @@
 // Multi-scale deformable attention forwards and backwards for Hopper (sm_90a).
 //
-// Two forward kernels share one exact bilinear tap routine (grid_sample
+// Two forwards take arbitrary locations or the encoder's own grid (grid_sample
 // semantics: align_corners=False, zero padding):
 //
 //   ms_deform_attn_queries_fwd  -- arbitrary normalized sampling locations and
 //       softmaxed attention (decoder cross-attention). Replaces the TPU kernel
 //       gomatching_tpu/ops/deform_attn_dec_vmem.py:_kernel (entry
-//       ms_deform_attn_queries_vmem).
-//   ms_deform_attn_encoder_fwd  -- encoder self-attention: the queries are the
+//       ms_deform_attn_queries_vmem). The gather form of the reference CUDA im2col
+//       forward (ms_deform_im2col_cuda.cuh:238), not the TPU's one-hot matrix
+//       contraction: one warp per (batch, query, head), lanes on the channels, so
+//       each bilinear corner is one coalesced 128-byte load at D == 32 (D > 32 loops
+//       over channel groups), through bilinear_tap. Accumulation is f32.
+//   ms_deform_attn_encoder_fwd  -- encoder self-attention (B2): the queries are the
 //       grid tokens themselves, so each token's level, (row, col) and reference
 //       point ((col+0.5)/W, (row+0.5)/H) come from its index; inputs are the raw
 //       sampling offsets (target-level cells, reference (m, l, p, xy) order) and
-//       the attention LOGITS, softmaxed over L*P in registers. Exact over the
-//       whole level (the TPU kernel gomatching_tpu/ops/deform_attn_vmem.py:
-//       _kernel_v2 is exact only within its halo).
+//       the attention LOGITS, softmaxed over L*P on the lanes. Replaces
+//       gomatching_tpu/ops/deform_attn_vmem.py:_kernel_v2 (entry
+//       ms_deform_attn_encoder_vmem_v2); exact over the whole level, where the TPU
+//       kernel is exact only within its halo. D == 32, L*P <= 64.
 //
-// Design: the gather form of the reference CUDA im2col forward
-// (ms_deform_im2col_cuda.cuh:238), not the TPU's one-hot matrix contraction.
-// One warp owns one (batch, query, head) triple and its 32 lanes own the
-// channels of that head, so each bilinear corner is one coalesced 128-byte load
-// when D == 32 (D > 32 loops over channel groups). Accumulation is f32.
+// What bounds both on an H100: memory. Per sample a head does 4 FMAs per channel
+// against 4 scattered corner rows, ~0.5 flop per byte of corner traffic; the least
+// time is the bytes of the touched value rows + locations + attention + output over
+// 3.35 TB/s (0.119 ms for B2 at 3 frames of 1000x1778). But every sample reads four
+// 128-byte rows (57M rows, 7.3 GB for that call), almost all from L2 and L1, so what
+// the kernels reach is a rate of gathered rows, not the byte bound.
 //
-// What bounds it on an H100: memory. Per sample it does 4 FMAs per channel
-// against 4 scattered corner rows, so arithmetic intensity is ~0.5 flop/byte of
-// corner traffic; the least time is the bytes of value + locations + attention
-// + output over 3.35 TB/s. The corners of neighbouring queries overlap, so most
-// corner loads hit L2 (the value tensor of one frame is 38 MB, inside the 50 MB
-// L2). Keeping value tiles in shared memory, and loading the per-sample
-// locations once per warp with shuffles, is later work.
+// B2, redesigned. Its first form (one warp per (batch, token, head), lanes on the
+// channels, 16 samples in series through bilinear_tap) took 3.70 ms on an NVIDIA H100
+// 80GB HBM3 at 700 W, 15.4 G corner rows/s: every lane reloaded the 16 logits three
+// times and called expf per lane and sample; the runtime-indexed LevelInfo parameter
+// was copied to each thread's stack; and each sample's four branch-guarded corner
+// loads depended on that sample's offset load, so a warp had about one load in flight.
+// The design now, on B5's lane layout straight from value (B, S, M, 32):
+//   - a 2D grid: blockIdx.y is the (batch, head) pair and the 8 warps of a block take 8
+//     neighbouring tokens, so warps run in (batch, head, token) order and share that
+//     head's L1 and L2 lines, and no lane divides a 64-bit index (an intermediate
+//     form with a 1D grid, 64-bit divisions and level_dims per sample took 0.93 ms);
+//   - lane j loads sample j's offset pair and logit (one coalesced load for the
+//     warp); the softmax max and sum are shuffles, one expf per sample;
+//   - the level dims come from a table on the lanes (lane_level / level_of), filled
+//     from LevelInfo with constant indices: no runtime index into the parameter;
+//   - lane l owns corner l/8 and channels 4(l%8)..+3. For a batch of 8 samples, lane
+//     8c + k computes sample k's clamped token row of corner c and that corner's
+//     weight with the softmaxed attention folded in (0, with a valid row, for a
+//     corner off the map: loads need no branch). gather8 hands each lane its own
+//     corner's row and weight with one shuffle each and issues the batch's 8 float4
+//     loads (8 x 4 128-byte lines) before the first is used, while the next batch's
+//     geometry is computed; shuffles by 8 and 16 then sum the corners and lanes 0-7
+//     store the head's 128 bytes. The sums run in a fixed order, without atomics, so
+//     a call gives the same bits every time.
+// ptxas: 63 registers, no stack, no spills (the kernel asks for 4 blocks of 256
+// threads a SM); the runtime holds 32 warps per SM. On an NVIDIA H100 80GB HBM3 at
+// 700 W: 0.794 ms against a bound of 0.119 ms, 71.9 G corner rows/s, 4.7x faster than
+// the first form. What bounds it now is its own work, not memory: with every gathered
+// row an L1 hit (the -DMSDA_GATHER_ROW0 build) it still takes 0.733 ms of its 0.785.
+// Not used, and why: tensor cores (the function does ~0.5 flop per byte; the one-hot
+// operand of a matmul form alone costs 4-10 us a block to build, the probe T2);
+// shared-memory value tiles (measured in B6: 3.8-4.4 ms); TMA (it copies tiles, not
+// 16-byte gathers).
 //
 // Their backwards (the VJPs the training path needs) recompute the taps:
 //
@@ -42,8 +74,8 @@
 //
 // Design: the gather/scatter form of the reference CUDA col2im backward
 // (ms_deform_im2col_cuda.cuh:302, :407, :514), not the TPU's transposed one-hot
-// contraction. Same warp layout as the forwards: one warp per (batch, query,
-// head), lanes on the channels. Per (level, point) the warp recomputes x, y and
+// contraction. B1's warp layout: one warp per (batch, query, head), lanes on
+// the channels. Per (level, point) the warp recomputes x, y and
 // the four corner weights, then
 //   dValue[corner] += attn * w_corner * dOut       (f32 atomicAdd: one coalesced
 //                                                   128-byte reduction per corner
@@ -65,29 +97,38 @@
 //
 // A third forward samples the corner-merged table (SAMPLING_IMPL='pallas'):
 //
-//   ms_deform_attn_merged_fwd  -- replaces gomatching_tpu/ops/deform_attn_pallas.py:
+//   ms_deform_attn_merged_fwd  -- B5; replaces gomatching_tpu/ops/deform_attn_pallas.py:
 //       _sampling_kernel (entry ms_deform_attn_pallas). The table (B, M, S, 4D)
 //       holds in row s the four bilinear corners of token s side by side
 //       ((0,0), (0,+x), (+y,0), (+y,+x); an edge duplicate past the last row or
 //       column). Each sample is one clamped base row of the table and four
 //       slot weights, so at D == 32 one sample is ONE coalesced 512-byte row
-//       load: lane l takes the
-//       float4 of corner l/8, channels 4(l%8)..4(l%8)+3, and scales it by that
-//       corner's slot weight; shuffles by 8 and 16 sum the corners and lanes
-//       0-7 store the head's 32 channels as one 128-byte row.
+//       load: lane l takes the float4 of corner l/8, channels 4(l%8)..4(l%8)+3, and
+//       scales it by that corner's slot weight; shuffles by 8 and 16 sum the corners
+//       and lanes 0-7 store the head's 32 channels as one 128-byte row.
 //
 // Design: one warp per (batch, head, query), queries fastest, so the warps of
 // one (batch, head) run together and share that head's table slice (S * 512 B,
 // 19 MB at 1000x1778 input) in L2. The TPU kernel reads a base index and four
-// slot weights per sample that an XLA prologue precomputed; here lane j
-// computes them for sample j in registers from the locations and attention
-// (the same floor, clamp to [0, max(W-2, 0)], equality rule and +1-slot mask
-// as _merged_indices_and_slot_weights) and the warp broadcasts them with
-// shuffles. That saves the index and weight round trip through device memory
-// (20 bytes per sample against the 12 of locations and attention). What
-// bounds it: bytes, as B1; the table itself is 4x the value tensor and its
-// build writes it once per call, which is a cost of this design and not of
-// the function.
+// slot weights per sample that an XLA prologue precomputed; here the lanes compute
+// them in registers from the locations and attention (the same floor, clamp to
+// [0, max(W-2, 0)], equality rule and +1-slot mask as
+// _merged_indices_and_slot_weights), which saves the index and weight round trip
+// through device memory (20 bytes per sample against the 12 of locations and
+// attention). Redesigned with B2: its first form shuffled all four slot weights and
+// selected one for each sample, and its sample loop ran to a runtime bound, one
+// 512-byte load consumed right after it was issued. Now lane 8c + k computes sample k
+// of a batch of 8 and keeps corner c's slot weight, gather8 issues the batch's 8 row
+// loads before using any, and the grid and level table are B2's. ptxas: 64 registers,
+// no stack, no spills; 32 warps per SM. On an NVIDIA H100 80GB HBM3 at 700 W it takes
+// 0.817 ms, as its first form did (0.812): with 8 loads in flight per warp instead of
+// 1, nothing moved. It is bound by the rate of gathered table rows: with every row an L1 hit it
+// takes 0.633 ms of its 0.812. A 512-byte table row serves one cell, so two samples in
+// neighbouring cells share no line, where B2's 128-byte value rows are shared; B2
+// reaches the same function from value faster than B5 from its table (0.79 against
+// 0.81 ms, plus 0.22 ms for the table). The table is 4x the value tensor, and its build
+// writes it once
+// per call, which is a cost of this design and not of the function.
 //
 //   ms_deform_attn_merged_table  -- builds that table from value (B, S, M, D),
 //       the counterpart of the dense XLA prologue the TPU kernel's caller runs
@@ -112,12 +153,34 @@
 #define MSDA_MAX_LEVELS 8
 #define MSDA_MAX_SAMPLES 64  // L * P per head, kept in registers by the encoder backward
 #define MSDA_WARPS_PER_BLOCK 8
+// resident blocks per SM the two redesigned forwards (B2, B5) ask of the compiler: at
+// most 64 registers a thread, so that 32 warps fit on an SM
+#define MSDA_FWD_MIN_BLOCKS 4
 
 struct LevelInfo {
   int h[MSDA_MAX_LEVELS];
   int w[MSDA_MAX_LEVELS];
   int start[MSDA_MAX_LEVELS];
 };
+
+// (h, w, start) of level l. The loop over constant indices keeps the parameter
+// struct out of local memory: indexing it with a runtime l makes every thread
+// copy all 96 bytes of it to its stack first, which costs more than the whole
+// work of a thread of the table build.
+__device__ __forceinline__ void level_dims(const LevelInfo& lv, int l, int& h, int& w,
+                                           int& start) {
+  h = lv.h[0];
+  w = lv.w[0];
+  start = lv.start[0];
+#pragma unroll
+  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) {
+    if (i == l) {
+      h = lv.h[i];
+      w = lv.w[i];
+      start = lv.start[i];
+    }
+  }
+}
 
 // Bilinear sample of one channel. ``v`` points at (level start token, head,
 // this lane's channel); consecutive tokens are ``tok_stride`` floats apart.
@@ -182,55 +245,174 @@ __global__ void ms_deform_attn_queries_kernel(const float* __restrict__ value,
   }
 }
 
-// value (B, S, M, D); off (B, S, M, L, P, 2) raw target-level cells;
-// logits (B, S, M, L*P); out (B, S, M*D). Warp index == flattened (b, s, m).
-__global__ void ms_deform_attn_encoder_kernel(const float* __restrict__ value,
-                                              const float* __restrict__ off,
-                                              const float* __restrict__ logits,
-                                              float* __restrict__ out, LevelInfo lv, int S,
-                                              int M, int D, int L, int P, int64_t n_warps) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// The gather of the two redesigned forwards (B2, B5), D == 32. Lane l owns corner
+// l >> 3 and channels 4(l & 7)..+3; for the 8 samples of a batch, the lanes of corner c
+// (8c .. 8c + 7) hold, sample k of the batch in lane 8c + k, that corner's float4 offset
+// ``row`` from ``base`` and its weight ``wgt`` (attention folded in, 0 for a corner off
+// the map, whose row is then a valid one). Each lane takes its own corner's row and
+// weight of every sample with one shuffle each, and all 8 loads are issued before the
+// first is consumed: 8 independent 512-byte warp loads in flight.
+#ifdef MSDA_GATHER_ROW0
+// A measurement build (chip_smoke.py builds it with -DMSDA_GATHER_ROW0): every gathered
+// row becomes row 0 of its base, an L1 hit, through a mask the compiler cannot know is
+// 0, so the time left is the kernel's own work without the memory system's.
+__device__ int msda_row_mask = 0;
+#endif
+
+__device__ __forceinline__ void gather8(const float4* __restrict__ base, int row, float wgt,
+                                        int lane, float4& acc) {
+  const int grp = lane & 24;
+#ifdef MSDA_GATHER_ROW0
+  row &= *(volatile int*)&msda_row_mask;
+#endif
+  float4 v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __ldg(base + __shfl_sync(0xffffffffu, row, grp | k));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float w = __shfl_sync(0xffffffffu, wgt, grp | k);
+    acc.x = fmaf(w, v[k].x, acc.x);
+    acc.y = fmaf(w, v[k].y, acc.y);
+    acc.z = fmaf(w, v[k].z, acc.z);
+    acc.w = fmaf(w, v[k].w, acc.w);
+  }
+}
+
+// Sum the four corners (lanes l, l^8, l^16, l^24 hold the same channels) and store the
+// head's 32 channels from lanes 0-7 as one 128-byte row.
+__device__ __forceinline__ void store_corners(float4 acc, int lane, float* __restrict__ out) {
+#pragma unroll
+  for (int k = 8; k <= 16; k <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, k);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, k);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, k);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, k);
+  }
+  if (lane < 8) reinterpret_cast<float4*>(out)[lane] = acc;
+}
+
+// The level table on the lanes: lane k holds level (k & 7)'s (h, w, start), read from
+// the parameter once with level_dims, so that any lane finds any level's dims with three
+// shuffles instead of a select over every level.
+struct LaneLevel {
+  int h, w, start;
+};
+
+__device__ __forceinline__ LaneLevel lane_level(const LevelInfo& lv, int lane) {
+  LaneLevel t;
+  level_dims(lv, lane & (MSDA_MAX_LEVELS - 1), t.h, t.w, t.start);
+  return t;
+}
+
+__device__ __forceinline__ LaneLevel level_of(const LaneLevel& t, int l) {
+  return {__shfl_sync(0xffffffffu, t.h, l), __shfl_sync(0xffffffffu, t.w, l),
+          __shfl_sync(0xffffffffu, t.start, l)};
+}
+
+// i / P for 0 <= i < 64 and 1 <= P <= 64 without a division per use:
+// (i * level_magic(P)) >> 16, exact because i * (ceil(2^16 / P) - 2^16 / P) < 2^16 / P.
+__device__ __forceinline__ int level_magic(int P) { return (65536 + P - 1) / P; }
+
+// value (B, S, M, 32); off (B, S, M, L, P, 2) raw target-level cells;
+// logits (B, S, M, L*P); out (B, S, M*32). blockIdx.y is the (batch, head) pair and
+// warp w of block x takes token 8x + w: warps in (b, m, s) order, tokens fastest, so
+// the warps of one block sample one head around neighbouring tokens, and no lane
+// divides 64-bit indices. L*P <= 64.
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __restrict__ off,
+                              const float* __restrict__ logits, float* __restrict__ out,
+                              LevelInfo lv, int S, int M, int L, int P) {
+  const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  const int m = (int)(warp % M);
-  const int64_t bs = warp / M;
-  const int s = (int)(bs % S);
-  const int64_t b = bs / S;
+  if (s >= S) return;
+  const int m = blockIdx.y % M;
+  const int b = blockIdx.y / M;
+  const LaneLevel levels = lane_level(lv, lane);
   // the query token's own level and grid cell
   int l1 = 0;
-  while (l1 + 1 < L && s >= lv.start[l1 + 1]) ++l1;
-  const int t = s - lv.start[l1];
-  const int row = t / lv.w[l1];
-  const int col = t - row * lv.w[l1];
-  const float rx = ((float)col + 0.5f) / (float)lv.w[l1];
-  const float ry = ((float)row + 0.5f) / (float)lv.h[l1];
+#pragma unroll
+  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) l1 += (i < L && s >= lv.start[i]);
+  const LaneLevel q = level_of(levels, l1);
+  const int t = s - q.start;
+  const int qrow = t / q.w;
+  const int qcol = t - qrow * q.w;
+  const float rx = ((float)qcol + 0.5f) / (float)q.w;
+  const float ry = ((float)qrow + 0.5f) / (float)q.h;
 
+  // lane j holds sample j's (and j + 32's) offset pair and logit: one coalesced load
   const int LP = L * P;
-  const float* lg = logits + warp * LP;
-  const float* of = off + warp * LP * 2;
-  float mx = __int_as_float(0xff800000);  // -inf
-  for (int i = 0; i < LP; ++i) mx = fmaxf(mx, __ldg(lg + i));
-  float sum = 0.f;
-  for (int i = 0; i < LP; ++i) sum += expf(__ldg(lg + i) - mx);
+  const int64_t bsm = ((int64_t)b * S + s) * M + m;
+  const float* lg = logits + bsm * LP;
+  const float2* of = reinterpret_cast<const float2*>(off + bsm * LP * 2);
+  const float neg_inf = __int_as_float(0xff800000);
+  const float lg0 = lane < LP ? __ldg(lg + lane) : neg_inf;
+  const float lg1 = lane + 32 < LP ? __ldg(lg + lane + 32) : neg_inf;
+  const float2 of0 = lane < LP ? __ldg(of + lane) : make_float2(0.f, 0.f);
+  const float2 of1 = lane + 32 < LP ? __ldg(of + lane + 32) : make_float2(0.f, 0.f);
+  // the softmax over the L*P logits: one expf per sample, max and sum by shuffles
+  float mx = fmaxf(lg0, lg1);
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, k));
+  const float e0 = lane < LP ? expf(lg0 - mx) : 0.f;
+  const float e1 = lane + 32 < LP ? expf(lg1 - mx) : 0.f;
+  float sum = e0 + e1;
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, k);
+  const float inv_sum = 1.f / sum;
 
-  const int64_t tok_stride = (int64_t)M * D;
-  for (int d = lane; d < D; d += 32) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int h = lv.h[l];
-      const int w = lv.w[l];
-      const float* vb = value + ((b * S + lv.start[l]) * M + m) * D + d;
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        const float a = expf(__ldg(lg + i) - mx) / sum;
-        // the reference's order: loc = ref + off / (W, H), then x = loc * W - 0.5
-        const float lx = rx + __ldg(of + 2 * i) / (float)w;
-        const float ly = ry + __ldg(of + 2 * i + 1) / (float)h;
-        acc += a * bilinear_tap(vb, h, w, tok_stride, lx * w - 0.5f, ly * h - 0.5f);
+  // per sample, on the lane of each corner: the clamped token row and the weight
+  const int cx = (lane >> 3) & 1;
+  const int cy = lane >> 4;
+  const int tok4 = M * 8;  // float4s per token
+  const int magic = level_magic(P);
+  auto geometry = [&](int i0, int& row, float& wgt) {
+    const int i = i0 + (lane & 7);
+    const int src = i & 31;  // warp-uniform choice of register: i0 is
+    const float ox = __shfl_sync(0xffffffffu, i0 < 32 ? of0.x : of1.x, src);
+    const float oy = __shfl_sync(0xffffffffu, i0 < 32 ? of0.y : of1.y, src);
+    const float e = __shfl_sync(0xffffffffu, i0 < 32 ? e0 : e1, src);
+    const LaneLevel lvl = level_of(levels, min((i * magic) >> 16, MSDA_MAX_LEVELS - 1));
+    row = 0;
+    wgt = 0.f;
+    if (i < LP) {
+      const int h = lvl.h, w = lvl.w, start = lvl.start;
+      const float wf = (float)w;
+      const float hf = (float)h;
+      // the reference's order: loc = ref + off / (W, H), then x = loc * W - 0.5;
+      // clamped where every corner is off the map anyway, so the int casts are safe
+      const float lx = rx + ox / wf;
+      const float ly = ry + oy / hf;
+      const float x = fminf(fmaxf(lx * wf - 0.5f, -2.f), wf + 1.f);
+      const float y = fminf(fmaxf(ly * hf - 0.5f, -2.f), hf + 1.f);
+      const float x0 = floorf(x);
+      const float y0 = floorf(y);
+      const float fx = x - x0;
+      const float fy = y - y0;
+      const int xc = (int)x0 + cx;
+      const int yc = (int)y0 + cy;
+      if (xc >= 0 && xc < w && yc >= 0 && yc < h) {
+        row = (start + yc * w + xc) * tok4;
+        wgt = e * inv_sum * (cy ? fy : 1.f - fy) * (cx ? fx : 1.f - fx);
       }
     }
-    out[warp * D + d] = acc;
+  };
+
+  const float4* base = reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) +
+                       (lane & 7);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int row;
+  float wgt;
+  geometry(0, row, wgt);
+  for (int i0 = 0; i0 < LP; i0 += 8) {
+    // the next batch's geometry is computed while this batch's loads are in flight
+    int row_n = 0;
+    float wgt_n = 0.f;
+    if (i0 + 8 < LP) geometry(i0 + 8, row_n, wgt_n);
+    gather8(base, row, wgt, lane, acc);
+    row = row_n;
+    wgt = wgt_n;
   }
+  store_corners(acc, lane, out + bsm * 32);
 }
 
 // Backward of one bilinear tap for this lane's channel. ``v``/``dv`` point at
@@ -380,25 +562,6 @@ __global__ void ms_deform_attn_encoder_bwd_kernel(
   for (int i = lane; i < LP; i += 32) dlg[i] = a[i] * (dlg[i] - dot);
 }
 
-// (h, w, start) of level l. The loop over constant indices keeps the parameter
-// struct out of local memory: indexing it with a runtime l makes every thread
-// copy all 96 bytes of it to its stack first, which costs more than the whole
-// work of a thread of the table build.
-__device__ __forceinline__ void level_dims(const LevelInfo& lv, int l, int& h, int& w,
-                                           int& start) {
-  h = lv.h[0];
-  w = lv.w[0];
-  start = lv.start[0];
-#pragma unroll
-  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) {
-    if (i == l) {
-      h = lv.h[i];
-      w = lv.w[i];
-      start = lv.start[i];
-    }
-  }
-}
-
 // Slot weights of one axis (_merged_indices_and_slot_weights :103-111): the true
 // corners c0 (weight 1 - f) and c0 + 1 (weight f) land on slot 0 or 1 of the
 // window anchored at ``base``; a corner off the map matches no slot, and slot 1
@@ -411,38 +574,40 @@ __device__ __forceinline__ void axis_slots(float c0, float f, float base, float 
 }
 
 // table (B, M, S, 4*32); loc (B, Lq, M, L, P, 2); attn (B, Lq, M, L, P);
-// out (B, Lq, M*32). Warp index == flattened (b, m, q). D == 32, L*P <= 64.
-__global__ void ms_deform_attn_merged_kernel(const float* __restrict__ table,
-                                             const float* __restrict__ loc,
-                                             const float* __restrict__ attn,
-                                             float* __restrict__ out, LevelInfo lv, int S,
-                                             int Lq, int M, int L, int P, int64_t n_warps) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+// out (B, Lq, M*32). blockIdx.y is the (batch, head) pair and warp w of block x takes
+// query 8x + w, as in B2. L*P <= 64.
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __restrict__ loc,
+                             const float* __restrict__ attn, float* __restrict__ out,
+                             LevelInfo lv, int S, int Lq, int M, int L, int P) {
+  const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  const int q = (int)(warp % Lq);
-  const int64_t bm = warp / Lq;
-  const int m = (int)(bm % M);
-  const int64_t b = bm / M;
+  if (q >= Lq) return;
+  const int bm = blockIdx.y;
+  const int m = bm % M;
+  const int b = bm / M;
+  const LaneLevel levels = lane_level(lv, lane);
+  const int magic = level_magic(P);
   const int LP = L * P;
-  const int64_t bqm = (b * Lq + q) * M + m;
-  const float* loc_w = loc + bqm * LP * 2;
+  const int64_t bqm = ((int64_t)b * Lq + q) * M + m;
+  const float2* loc_w = reinterpret_cast<const float2*>(loc + bqm * LP * 2);
   const float* attn_w = attn + bqm * LP;
-  const float4* tab = reinterpret_cast<const float4*>(table + bm * (int64_t)S * 128) + lane;
-  const int corner = lane >> 3;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i0 = 0; i0 < LP; i0 += 32) {
-    // lane j: base row and slot weights of sample i0 + j
-    const int i = i0 + lane;
-    int idx = 0;
-    float w00 = 0.f, w01 = 0.f, w10 = 0.f, w11 = 0.f;
+  const int cx = (lane >> 3) & 1;
+  const int cy = lane >> 4;
+  // per sample, on the lane of each corner: the base row (the same for the four
+  // corners: float4 offset row * 32) and this corner's slot weight
+  auto geometry = [&](int i0, int& row, float& wgt) {
+    const int i = i0 + (lane & 7);
+    const LaneLevel lvl = level_of(levels, min((i * magic) >> 16, MSDA_MAX_LEVELS - 1));
+    row = 0;
+    wgt = 0.f;
     if (i < LP) {
-      int h, w, start;
-      level_dims(lv, i / P, h, w, start);
+      const int w = lvl.w, start = lvl.start;
       const float wf = (float)w;
-      const float hf = (float)h;
-      const float x = __ldg(loc_w + 2 * i) * wf - 0.5f;
-      const float y = __ldg(loc_w + 2 * i + 1) * hf - 0.5f;
+      const float hf = (float)lvl.h;
+      const float2 xy = __ldg(loc_w + i);
+      const float x = xy.x * wf - 0.5f;
+      const float y = xy.y * hf - 0.5f;
       const float x0 = floorf(x);
       const float y0 = floorf(y);
       const float bx = fminf(fmaxf(x0, 0.f), fmaxf(wf - 2.f, 0.f));
@@ -450,36 +615,25 @@ __global__ void ms_deform_attn_merged_kernel(const float* __restrict__ table,
       float wx0, wx1, wy0, wy1;
       axis_slots(x0, x - x0, bx, wf, wx0, wx1);
       axis_slots(y0, y - y0, by, hf, wy0, wy1);
-      const float a = __ldg(attn_w + i);
-      w00 = wy0 * wx0 * a;
-      w01 = wy0 * wx1 * a;
-      w10 = wy1 * wx0 * a;
-      w11 = wy1 * wx1 * a;
-      idx = start + (int)by * w + (int)bx;
+      wgt = (cy ? wy1 : wy0) * (cx ? wx1 : wx0) * __ldg(attn_w + i);
+      row = (start + (int)by * w + (int)bx) * 32;
     }
-    const int n = min(32, LP - i0);
-    for (int s = 0; s < n; ++s) {
-      const int row = __shfl_sync(0xffffffffu, idx, s);
-      const float v00 = __shfl_sync(0xffffffffu, w00, s);
-      const float v01 = __shfl_sync(0xffffffffu, w01, s);
-      const float v10 = __shfl_sync(0xffffffffu, w10, s);
-      const float v11 = __shfl_sync(0xffffffffu, w11, s);
-      const float w = corner == 0 ? v00 : corner == 1 ? v01 : corner == 2 ? v10 : v11;
-      const float4 t = __ldg(tab + (int64_t)row * 32);
-      acc.x += w * t.x;
-      acc.y += w * t.y;
-      acc.z += w * t.z;
-      acc.w += w * t.w;
-    }
+  };
+
+  const float4* base = reinterpret_cast<const float4*>(table + bm * (int64_t)S * 128) + lane;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int row;
+  float wgt;
+  geometry(0, row, wgt);
+  for (int i0 = 0; i0 < LP; i0 += 8) {
+    int row_n = 0;
+    float wgt_n = 0.f;
+    if (i0 + 8 < LP) geometry(i0 + 8, row_n, wgt_n);
+    gather8(base, row, wgt, lane, acc);
+    row = row_n;
+    wgt = wgt_n;
   }
-  // sum the four corners: lanes l, l^8, l^16, l^24 hold the same channels
-  for (int k = 8; k <= 16; k <<= 1) {
-    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, k);
-    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, k);
-    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, k);
-    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, k);
-  }
-  if (lane < 8) reinterpret_cast<float4*>(out + bqm * 32)[lane] = acc;
+  store_corners(acc, lane, out + bqm * 32);
 }
 
 // value (B, S, M, 32) -> table (B, M, S, 4*32): one warp per table row, lane j
@@ -794,26 +948,45 @@ extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
                                           const float* logits, float* out, const int* shapes,
                                           int B, int S, int M, int D, int L, int P,
                                           void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const int64_t n_warps = (int64_t)B * S * M;
-  if (n_warps == 0) return (int)cudaSuccess;
-  ms_deform_attn_encoder_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
-                                  (cudaStream_t)stream>>>(
-      value, off, logits, out, make_levels(shapes, L), S, M, D, L, P, n_warps);
+  // D == 32: one float4 per lane and corner; the token rows of one batch item in int
+  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES ||
+      (int64_t)S * M * 8 > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * M > 65535) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || S == 0) return (int)cudaSuccess;
+  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  ms_deform_attn_encoder_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      value, off, logits, out, make_levels(shapes, L), S, M, L, P);
   return (int)cudaGetLastError();
+}
+
+// What the runtime made of a redesigned forward (which: 0 B2, 1 B5): info[0] registers
+// a thread, info[1] local memory a thread in bytes (stack and spills), info[2] resident
+// blocks of 32 * MSDA_WARPS_PER_BLOCK threads per SM.
+extern "C" int ms_deform_attn_fwd_info(int which, int* info) {
+  const void* fn = which == 0 ? (const void*)ms_deform_attn_encoder_kernel
+                              : (const void*)ms_deform_attn_merged_kernel;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.localSizeBytes;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], fn, 32 * MSDA_WARPS_PER_BLOCK, 0);
+  return (int)e;
 }
 
 extern "C" int ms_deform_attn_merged_fwd(const float* table, const float* loc,
                                          const float* attn, float* out, const int* shapes,
                                          int B, int S, int Lq, int M, int D, int L, int P,
                                          void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES)
+  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES ||
+      (int64_t)S * 32 > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const int64_t n_warps = (int64_t)B * M * Lq;
-  if (n_warps == 0) return (int)cudaSuccess;
-  ms_deform_attn_merged_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
-                                 (cudaStream_t)stream>>>(
-      table, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P, n_warps);
+  if ((int64_t)B * M > 65535) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
+  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  ms_deform_attn_merged_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      table, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
   return (int)cudaGetLastError();
 }
 

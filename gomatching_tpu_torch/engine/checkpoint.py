@@ -1,12 +1,16 @@
 """Torch checkpoints of the port: ``{"model": state_dict}`` under the reference's
-``state_dict`` keys (the JAX package writes ``.npz`` params instead)."""
+``state_dict`` keys; and the JAX package's ``.npz`` params (flat arrays under
+'/'-joined tree paths, gomatching_tpu/engine/checkpoint.py:28-53), read back into their
+tree for ``weights.params_from_jax``."""
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict
+import zipfile
+from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -34,3 +38,27 @@ def load_checkpoint(path: str, what: str = "checkpoint") -> Dict[str, torch.Tens
     if not isinstance(ckpt, dict):
         raise ValueError(f"{what} {path!r} holds a {type(ckpt).__name__}, not a state_dict")
     return ckpt.get("model", ckpt.get("state_dict", ckpt))
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """{'a/b/c': x} -> {'a': {'b': {'c': x}}} (the JAX package's ``_unflatten``)."""
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_jax_params(path: str, what: str = "params") -> Dict[str, Any]:
+    """The params tree of a JAX ``.npz`` (``save_params``'s format). A missing file, or
+    one that is not an ``.npz`` archive, raises; ``what`` names the file in the message."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"{what} {path!r} does not exist")
+    try:
+        with np.load(path, allow_pickle=False) as data:
+            return _unflatten({k: data[k] for k in data.files})
+    except (ValueError, OSError, zipfile.BadZipFile) as e:
+        raise ValueError(f"{what} {path!r} is not an .npz archive of JAX params") from e

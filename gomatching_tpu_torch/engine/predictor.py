@@ -29,8 +29,8 @@ from ..data.preprocess import compute_test_size, device_preprocess
 from ..models.gomatching import build_model
 from ..tracking.tracker import FrameDetections, Tracker
 from ..utils.ctc import ctc_decode, load_char_table
-from ..weights import init_weights_, load_weights
-from .checkpoint import load_checkpoint
+from ..weights import init_weights_, load_weights, params_from_jax
+from .checkpoint import load_checkpoint, load_jax_params
 
 
 class VideoPredictor:
@@ -38,9 +38,9 @@ class VideoPredictor:
 
     ``device``: None runs on the current CUDA device and raises when there is none;
     pass ``"cpu"`` to run on the CPU. ``state_dict``: reference-keyed weights; by
-    default ``MODEL.WEIGHTS`` is loaded (a torch checkpoint in the reference's
-    layout), and when it is '' the model gets seeded random weights (``SEED``, or 0
-    when it is negative).
+    default ``MODEL.WEIGHTS`` is loaded (the JAX package's ``.npz`` params, or a torch
+    checkpoint in the reference's layout), and when it is '' the model gets seeded
+    random weights (``SEED``, or 0 when it is negative).
     """
 
     def __init__(self, cfg, state_dict=None, device=None):
@@ -81,8 +81,9 @@ class VideoPredictor:
     @staticmethod
     def _checkpoint(cfg):
         """``MODEL.WEIGHTS`` as a state_dict; None (seeded random weights) only when
-        it is ''. A missing file, or one that is not a torch checkpoint (such as the
-        JAX package's ``.npz`` params, which the port does not load yet), raises."""
+        it is ''. A path ending in ``.npz`` is read as the JAX package's params (the
+        format every shipped config names) and mapped to the port's keys; any other
+        path as a torch checkpoint. A missing file, or one that holds neither, raises."""
         path = cfg.MODEL.WEIGHTS
         if not path:
             return None
@@ -91,7 +92,14 @@ class VideoPredictor:
                 f"MODEL.WEIGHTS {path!r} does not exist; pass MODEL.WEIGHTS '' to run on "
                 "seeded random weights"
             )
-        return load_checkpoint(path, "MODEL.WEIGHTS")
+        if not path.endswith(".npz"):
+            return load_checkpoint(path, "MODEL.WEIGHTS")
+        tree = load_jax_params(path, "MODEL.WEIGHTS")
+        try:
+            return params_from_jax(tree, cfg)
+        except KeyError as e:
+            raise ValueError(f"MODEL.WEIGHTS {path!r} lacks the JAX param {e} that this "
+                             "config's model needs") from e
 
     @torch.no_grad()
     def associate(self, tokens: np.ndarray, valid: np.ndarray, short_term: bool,

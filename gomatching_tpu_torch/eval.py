@@ -6,9 +6,10 @@
 
 Same flags and output tree as the repository's root ``eval.py`` (reference eval.py):
 <output>/preds/res_*.xml, <output>/jsons/*.json, <output>/preds/res_*.txt. Runs on the
-current CUDA device; ``--cpu`` runs on the CPU. ``MODEL.WEIGHTS`` must name a torch
-checkpoint, or be '' for seeded random weights. ``--profile-dir`` writes a
-``torch.profiler`` Chrome trace there. ``--show`` (visualizations) is not ported yet.
+current CUDA device; ``--cpu`` runs on the CPU. ``MODEL.WEIGHTS`` names the JAX
+package's ``.npz`` params or a torch checkpoint, or is '' for seeded random weights.
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace there. ``--show``
+(visualizations) is not ported yet.
 """
 
 from __future__ import annotations

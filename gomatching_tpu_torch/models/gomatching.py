@@ -197,6 +197,22 @@ def _check_ported(cfg) -> None:
         raise NotImplementedError(f"MODEL.PRECISION={cfg.MODEL.PRECISION} is not ported yet")
 
 
+# Inference keys that change the JAX predictor's outputs and that the port does not read
+# yet (ROADMAP A13), with the values it accepts: the f32 matcher and the RGB upload.
+_UNPORTED_INFERENCE_KEYS = {
+    "ASSOC_PRECISION": ("", "float32"),  # JAX: a bf16 association matcher
+    "UPLOAD_FORMAT": ("rgb",),  # JAX: a lossy I420 round trip of every frame
+}
+
+
+def _check_inference_keys(cfg) -> None:
+    for key, accepted in _UNPORTED_INFERENCE_KEYS.items():
+        value = cfg.TPU[key]
+        if value not in accepted:
+            raise NotImplementedError(f"TPU.{key}={value!r} is not ported yet (ROADMAP A13); "
+                                      f"the port runs {accepted[-1]!r}")
+
+
 def _spotter_kwargs(cfg) -> Dict:
     t = cfg.MODEL.TRANSFORMER
     return dict(
@@ -229,6 +245,7 @@ def build_model(cfg) -> GoMatchingModel:
     GoMatching (``ROI_HEADS.NAME`` LSTMatcher) or GoMatching++ (SHA_FFN_CRSATTN), with
     or without the matcher's positional embeddings (JAX gomatching.py:400-441)."""
     _check_ported(cfg)
+    _check_inference_keys(cfg)
     if cfg.MODEL.ROI_HEADS.NAME not in MATCHER_VARIANTS:
         raise ValueError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME}: expected one of "
                          f"{sorted(MATCHER_VARIANTS)}")

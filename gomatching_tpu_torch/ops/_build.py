@@ -5,7 +5,9 @@ no PyTorch headers, so one ``nvcc`` call per source builds a shared library in
 seconds; it is loaded with ``ctypes``. The host Hungarian solver
 (``native/lap.cpp``) is built the same way with ``g++``. Libraries are built at
 first use into ``build/gomatching_tpu_torch/`` at the repository root, named by a
-hash of their source and flags, so an edited source never loads a stale library.
+hash of their source and flags, so an edited source never loads a stale library. The
+compiler's report (for nvcc, ptxas's registers, stack and spills of every kernel) is kept
+beside each library (``build_log``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "--ptxas-options=-v",
 )
 
 _lock = threading.Lock()
@@ -54,6 +56,11 @@ def library_path(source, flags: Sequence[str] = NVCC_FLAGS) -> Path:
     return BUILD_DIR / f"{src.stem}_{digest[:16]}.so"
 
 
+def build_log(source, flags: Sequence[str] = NVCC_FLAGS) -> Path:
+    """Where ``build`` keeps the compiler's output for ``source``."""
+    return library_path(source, flags).with_suffix(".log")
+
+
 def build(source, compiler: Optional[str] = None,
           flags: Sequence[str] = NVCC_FLAGS) -> Path:
     """Compile ``source`` (a file under ``csrc/``, or an absolute path) into a shared
@@ -70,6 +77,7 @@ def build(source, compiler: Optional[str] = None,
         raise RuntimeError(
             f"{cmd[0]} failed to build {source} ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
         )
+    build_log(source, flags).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

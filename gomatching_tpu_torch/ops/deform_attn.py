@@ -31,9 +31,10 @@ backward is a kernel too:
     ``_v2_bwd_impl``), exact over the whole level.
 
 The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through the plain
-forwards; the tests and ``chip_smoke.py`` hold the kernels against them. All four
-kernels are bound by memory traffic on an H100 (see the source note in the .cu file for
-the design). Each launch adds one to ``launch_counts[name]``, which also counts the
+forwards; the tests and ``chip_smoke.py`` hold the kernels against them. B2 takes
+D == 32 channels per head (one float4 per lane and corner); the others any D. The source
+note in the .cu file gives each kernel's design and what bounds it on an H100. Each
+launch adds one to ``launch_counts[name]``, which also counts the
 launches of B5 and of its table build (``ms_deform_attn_merged``,
 ``ms_deform_attn_merged_table``; ``ops/deform_attn_merged.py``) and of the four
 footprint entries (``ms_deform_attn_encoder_vmem``, ``..._vmem_tm``, ``..._vmem_v3``,
@@ -83,9 +84,12 @@ _SIGNATURES = {
     "ms_deform_attn_merged_table": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_footprint_fwd": [_I, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_fwd_info": [_I, ctypes.POINTER(_I)],
 }
 _MAX_LEVELS = 8
 _MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)
+_WARPS_PER_BLOCK = 8  # MSDA_WARPS_PER_BLOCK of the .cu file
+KERNEL_D = 32  # channels per head of B2 and B5: one float4 per lane and corner
 
 
 def reset_launch_counts() -> None:
@@ -327,6 +331,9 @@ class _EncoderFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, offsets, attn_logits, spatial_shapes):
         dims = _encoder_dims(value, spatial_shapes, offsets, attn_logits)
+        if dims[3] != KERNEL_D:
+            raise ValueError(f"{ENCODER}: the kernel takes D == {KERNEL_D} channels per head, "
+                             f"got value {tuple(value.shape)}")
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, offsets, attn_logits)
         B, S, M, D, L, P = dims
@@ -338,6 +345,22 @@ class _EncoderFunction(torch.autograd.Function):
     def backward(ctx, grad_out):
         return (*ms_deform_attn_encoder_backward(ctx.saved_tensors[0], ctx.spatial_shapes,
                                                  *ctx.saved_tensors[1:], grad_out), None)
+
+
+def forward_kernel_info() -> Dict[str, Dict[str, int]]:
+    """Registers and local memory a thread, and resident warps per SM, of B2 and B5 as
+    the CUDA runtime reports them for the loaded library (needs a card)."""
+    from ._build import load
+
+    fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_fwd_info
+    out = {}
+    for which, name in enumerate((ENCODER, MERGED)):
+        info = (_I * 3)()
+        rc = fn(which, info)
+        if rc != 0:
+            raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with cudaError {rc}")
+        out[name] = {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2] * _WARPS_PER_BLOCK}
+    return out
 
 
 def _shape_key(spatial_shapes: Shapes) -> Tuple[Tuple[int, int], ...]:
@@ -374,7 +397,7 @@ def ms_deform_attn_encoder(
 
     value (B, S, M, D); offsets (B, S, M, L, P, 2) raw, in target-level cells
     (the ``sampling_offsets`` projection in its (m, l, p, xy) order); attn_logits
-    (B, S, M, L*P) before the softmax -> (B, S, M*D).
+    (B, S, M, L*P) before the softmax -> (B, S, M*D). The kernel takes D == 32.
     """
     if _on_cpu(value, offsets, attn_logits):
         return ms_deform_attn_encoder_plain(value, spatial_shapes, offsets, attn_logits)

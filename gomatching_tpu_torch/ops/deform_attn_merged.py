@@ -34,6 +34,7 @@ import torch
 from .deform_attn import (
     _MAX_LEVELS,
     _MAX_SAMPLES,
+    KERNEL_D,
     MERGED,
     MERGED_TABLE,
     Shapes,
@@ -43,8 +44,6 @@ from .deform_attn import (
     _queries_dims,
     _shape_key,
 )
-
-KERNEL_D = 32  # channels per head the kernel takes: one float4 per lane and corner
 
 
 def _corner_rows(spatial_shapes: Shapes, device=None) -> torch.Tensor:

@@ -89,6 +89,26 @@ def test_clip_matches_jax(predictors, tmp_path):
     _check_clip(*predictors, tmp_path)
 
 
+def test_jax_npz_weights_load_and_match_jax(predictors, tmp_path):
+    """MODEL.WEIGHTS naming the JAX package's .npz params (``save_params``'s format, the
+    one every shipped config names) loads in the port to the same weights, and the clip
+    gives JAX's ids and XML."""
+    from gomatching_tpu.engine.checkpoint import save_params
+    from gomatching_tpu_torch.config import setup_eval_cfg
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor
+
+    jp, tp = predictors
+    path = tmp_path / "params.npz"
+    save_params(str(path), jp.params)
+    cfg = setup_eval_cfg(CONFIG, list(TINY_OPTS) + ["MODEL.WEIGHTS", str(path)])
+    loaded = VideoPredictor(cfg, device="cpu")
+    got, want = loaded.model.state_dict(), tp.model.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    _check_clip(jp, loaded, tmp_path)
+
+
 def test_gomatching_pp_clip_matches_jax(tmp_path, monkeypatch):
     """GoMatching++ with the port on the 'pallas' sampler: every deformable-attention
     call goes to B5's op, and ids and XML equal JAX's."""

@@ -175,7 +175,8 @@ def test_predictor_loads_a_reference_checkpoint(cfgs, tmp_path):
 
 @pytest.mark.parametrize("kind", ["missing", "npz"])
 def test_predictor_refuses_weights_it_cannot_load(tmp_path, kind):
-    """Random weights only for MODEL.WEIGHTS ''; a missing file or JAX .npz params raise."""
+    """Random weights only for MODEL.WEIGHTS ''; a missing file, or an .npz that does not
+    hold the config's JAX params, raises."""
     from gomatching_tpu_torch.config import setup_eval_cfg
     from gomatching_tpu_torch.engine.predictor import VideoPredictor
 
