@@ -5,13 +5,17 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device check and kernel build (nvcc, from the sources in this checkout); ptxas's
-     registers, stack and spills of B2 and B5 and their resident warps per SM;
+     registers, stack and spills of the lane-layout kernels B1, B2, B4 and B5, and from
+     the runtime their registers, local memory (which must be 0) and resident warps per
+     SM;
   2. each hand-written kernel against its plain PyTorch version at the full-width
      ICDAR15 shapes (1000x1778 input: levels (125,223) (63,112) (32,56) (16,28),
      S=37171 tokens, M=8 heads, D=32, L=4, P=4, 100x25 decoder queries), with
      locations and offsets outside the maps; max |kernel - plain| against
      ATOL_KERNEL, the same bits on a second call, and the kernel's / plain version's
-     time beside the roofline bound and its rate in corner rows per second;
+     time beside the roofline bound and its rate in corner rows per second; then B1 at
+     the EDGE_CASES shapes (L*P not a multiple of 8 or 64, one level, a 1-wide and a
+     1-tall level, B*M > 1 with B > 1), locations partly off the maps, the same way;
   3. one frame through the full-depth spotter with the kernels and with the plain
      versions (same seeded weights, TF32 off): encoder memory, then the decoder from
      the same proposals, compared at ATOL_PATH;
@@ -25,7 +29,9 @@ Phases (any failure exits non-zero and prints no result line):
      (autograd through grid_sample) at the pretraining shapes (1280x1280 square input:
      levels (160,160) (80,80) (40,40) (20,20), S=34000, B=1, 100x25 decoder queries),
      with locations and offsets outside the maps; max |kernel - plain| / max |plain| of
-     each gradient against RTOL_BWD, and times beside the bound;
+     each gradient against RTOL_BWD, and times beside the bound; B4's dOffsets and
+     dLogits the same bits on a second call; then B4 at the EDGE_CASES shapes, offsets
+     partly off the maps and off grid lines, the same way;
   7. one full-width pretraining step (forward, costs, host Hungarian, losses,
      backward) with the kernels, with the plain versions, and with the plain versions
      in float64 at the same matches: same seeded weights, image and targets, TF32 off;
@@ -60,10 +66,10 @@ Phases (any failure exits non-zero and prints no result line):
      over the shared-memory budget on the direct route; a raise under autograd; kernel,
      plain and bound times beside B1's and B2's on the same function, and the share of
      corner taps read from shared memory;
- 13. the path of this slice: the sampler benchmark ``gomatching_tpu_torch.tools.
-     bench_deform_attn.main`` at B=3 over every sampler (B1, B2, B5, B6a natural and
-     tile-major, B6b, B6c) and two tilesets; each within ATOL_KERNEL of the exact gather,
-     each of the four B6 entries launched;
+ 13. the sampler benchmark ``gomatching_tpu_torch.tools.bench_deform_attn.main`` at B=3
+     over every sampler (B1, B2, B5, B6a natural and tile-major, B6b, B6c) and two
+     tilesets; each within ATOL_KERNEL of the exact gather, each of the four B6 entries
+     launched; B1's time per encoder call beside B2's on the same samples;
  14. the probe kernels (``csrc/probes.cu``): T1 ``gather_rows_sum`` in the four cases of
      the gather rate probe, on an integer-valued table (kernel, plain version and the
      float64 sum exactly equal) and on a randn table (within RTOL_GATHER of the sum of
@@ -72,9 +78,12 @@ Phases (any failure exits non-zero and prints no result line):
      count printed); kernel (CUDA events and the profiler's device time), plain, library
      and bound times; then the path of this slice, both probe tools' ``main``
      (``gomatching_tpu_torch.tools.bench_gather``, ``.probe_bf16_g``), each kernel launched;
- 15. B2 and B5 from a measurement build of ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0:
-     every gathered row is row 0 of its base, an L1 hit) against the real build on the
-     same inputs, in turns: how much of each kernel's time the memory system adds.
+ 15. B1 (decoder and encoder shapes), B2 and B5 from a measurement build of
+     ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0: every gathered row is row 0 of its
+     base, an L1 hit) against the real build on the same inputs, in turns: how much of
+     each kernel's time the memory system adds; and B4 from a build without its dValue
+     atomics (-DMSDA_NO_SCATTER) against the real build at the pretraining shape, in
+     turns: what the scatter costs beside the gather.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1 and T2); the last is {"ok": true, "device": {...}}.
 """
@@ -128,7 +137,19 @@ TILESETS = "8x16,8x16,8x16,8x16;16x16,16x16,16x16,16x16"  # phase 13's tile swee
 # reduction is taken to be no deeper, so the two differ by at most 2 * 276 * 2**-24.
 RTOL_GATHER = 2 * 276 * 2.0 ** -24
 ATOL_G = 1e-6  # T2 in f32: the kernel does _g_kernel's ops in its order, without FMAs
-ROW0_FLAGS = ("-DMSDA_GATHER_ROW0",)  # phase 15's measurement build
+ROW0_FLAGS = ("-DMSDA_GATHER_ROW0",)  # phase 15's measurement builds
+NO_SCATTER_FLAGS = ("-DMSDA_NO_SCATTER",)
+# The small shapes phases 2 and 6 also run B1 and B4 at (tests/test_torch_deform_attn_edges.py
+# holds the plain versions against JAX at the same): (name, B, M, level shapes, P)
+EDGE_LEVELS = [(6, 9), (3, 5), (2, 3), (1, 2)]
+EDGE_CASES = [
+    ("L*P=12", 1, 8, EDGE_LEVELS, 3),
+    ("L*P=64", 1, 8, EDGE_LEVELS, 16),
+    ("L=1", 1, 8, [(7, 5)], 4),
+    ("1-wide and 1-tall levels", 1, 8, [(5, 1), (1, 6), (3, 3)], 4),
+    ("B=2 M=3", 2, 3, EDGE_LEVELS, 4),
+]
+EDGE_LQ = 13  # B1's queries at the edge shapes: not a multiple of the 8 warps of a block
 CONFIG = "configs/GoMatching_ICDAR15.yaml"
 CONFIG_PP = "configs/GoMatching_PP_ICDAR15.yaml"  # GoMatching++ (shared matcher)
 
@@ -189,10 +210,13 @@ def value_reads(torch, loc, S, D, shapes=SHAPES):
 
 
 def phase_resources(da, _build):
-    """What ptxas and the runtime made of the two redesigned forwards (B2, B5):
+    """What ptxas and the runtime made of the lane-layout kernels (B1, B2, B4, B5):
     registers, stack and spills from nvcc's report kept beside the library, and
-    registers, local memory and resident warps per SM from the CUDA runtime."""
-    names = {da.ENCODER: "ms_deform_attn_encoder_kernel", da.MERGED: "ms_deform_attn_merged_kernel"}
+    registers, local memory and resident warps per SM from the CUDA runtime. None may
+    keep anything in local memory."""
+    names = {da.QUERIES: "ms_deform_attn_queries_kernel", da.ENCODER: "ms_deform_attn_encoder_kernel",
+             da.ENCODER_BWD: "ms_deform_attn_encoder_bwd_kernel",
+             da.MERGED: "ms_deform_attn_merged_kernel"}
     report = {name: [] for name in names}
     cur = None
     for line in _build.build_log("ms_deform_attn.cu").read_text().splitlines():
@@ -200,12 +224,14 @@ def phase_resources(da, _build):
             cur = next((n for n, k in names.items() if k in line), None)
         elif cur and ("Used" in line or "spill" in line):
             report[cur].append(" ".join(line.replace("ptxas info    :", "").split()))
-    info = da.forward_kernel_info()
+    info = da.kernel_info()
     for name in names:
         check(report[name], f"{name}: no ptxas report for {names[name]}")
         print(f"[1] {name} ({names[name]}): ptxas: {'; '.join(report[name])}; runtime: "
               f"{info[name]['registers']} registers, {info[name]['local_bytes']} bytes of local "
               f"memory a thread, {info[name]['warps_per_sm']} resident warps per SM")
+        check(info[name]["local_bytes"] == 0, f"{name}: {info[name]['local_bytes']} bytes of "
+              "local memory a thread (stack or spills)")
 
 
 def same_bits(torch, name, fn, got):
@@ -234,6 +260,8 @@ def phase_kernels(torch, da):
     check(math.isfinite(err) and err <= ATOL_KERNEL, f"{da.QUERIES}: max err {err}")
     same_bits(torch, da.QUERIES, lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn), got)
     ms = cuda_time_ms(lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn))
+    dev_us = device_us(torch, lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn),
+                       "ms_deform_attn_queries_kernel")
     plain_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn))
     v_bytes, taps = value_reads(torch, loc, S, D)
     samples = B * Lq * M * L * P
@@ -243,7 +271,7 @@ def phase_kernels(torch, da):
         name=da.QUERIES, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
         replaces="gomatching_tpu/ops/deform_attn_dec_vmem.py:54", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, value_mb=v_bytes / 1e6,
-        taps=taps, corners=4 * samples,
+        taps=taps, corners=4 * samples, device_us=dev_us,
     )
 
     # B2: raw offsets of a few cells, some far beyond the map, and logits
@@ -258,6 +286,8 @@ def phase_kernels(torch, da):
     check(math.isfinite(err) and err <= ATOL_KERNEL, f"{da.ENCODER}: max err {err}")
     same_bits(torch, da.ENCODER, lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits), got)
     ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits))
+    dev_us = device_us(torch, lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits),
+                       "ms_deform_attn_encoder_kernel")
     plain_ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder_plain(value, SHAPES, off, logits),
                             iters=5, warmup=1)
     wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32, device=dev)
@@ -272,16 +302,43 @@ def phase_kernels(torch, da):
         name=da.ENCODER, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
         replaces="gomatching_tpu/ops/deform_attn_vmem.py:246", max_abs_err=err, ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None, value_mb=v_bytes / 1e6,
-        taps=taps, corners=4 * samples,
+        taps=taps, corners=4 * samples, device_us=dev_us,
     )
     for r in records.values():
         print(f"[2] {r['name']}: max|kernel-plain| {r['max_abs_err']:.3e} (atol {ATOL_KERNEL}), "
-              f"same bits twice; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"same bits twice; kernel {r['ms']:.4f} ms a call (device {fmt_us(r['device_us'])}), "
+              f"plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['value_mb']:.1f} MB of value rows "
               f"touched of {nbytes(value) / 1e6:.1f} MB) at B={B}; {r['corners'] / 1e6:.2f}M "
               f"corner rows ({r['taps'] / 1e6:.2f}M in the maps): "
               f"{r['corners'] / r['ms'] / 1e6:.1f} G corner rows/s")
+    edge_queries(torch, da)
     return records
+
+
+def edge_queries(torch, da):
+    """B1 against its plain version at the EDGE_CASES shapes, locations partly off the
+    maps: max |kernel - plain| against ATOL_KERNEL and the same bits on a second call."""
+    g = torch.Generator().manual_seed(8)
+    for name, b, m, shapes, p in EDGE_CASES:
+        S, L = sum(h * w for h, w in shapes), len(shapes)
+        value = torch.randn(b, S, m, D, generator=g).cuda()
+        loc = (torch.rand(b, EDGE_LQ, m, L, p, 2, generator=g) * 1.3 - 0.15).cuda()
+        attn = (torch.randn(b, EDGE_LQ, m, L * p, generator=g).softmax(-1)
+                .view(b, EDGE_LQ, m, L, p).cuda())
+        before = da.launch_counts[da.QUERIES]
+        got = da.ms_deform_attn_queries(value, shapes, loc, attn)
+        check(da.launch_counts[da.QUERIES] == before + 1, f"{da.QUERIES} {name}: no launch")
+        want = da.ms_deform_attn_queries_plain(value, shapes, loc, attn)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(math.isfinite(err) and err <= ATOL_KERNEL, f"{da.QUERIES} {name}: max err {err}")
+        same_bits(torch, f"{da.QUERIES} {name}",
+                  lambda: da.ms_deform_attn_queries(value, shapes, loc, attn), got)
+        outside = ((loc < 0) | (loc > 1)).any(-1).float().mean().item()
+        print(f"[2] {da.QUERIES} at {name} (B={b}, M={m}, levels {shapes}, P={p}, Lq={EDGE_LQ}): "
+              f"max|kernel-plain| {err:.3e} (atol {ATOL_KERNEL}), same bits twice; "
+              f"{100 * outside:.0f}% of samples outside [0, 1]")
 
 
 @contextlib.contextmanager
@@ -722,8 +779,10 @@ def phase_bench(torch, da):
               f"phase 13: {r['impl']} {r['tiles']} differs from the exact gather by {r['max_abs_err']}")
     for name in (da.VMEM, da.VMEM_TM, da.VMEM_V3, da.FUSED):
         check(counts[name] > 0, f"phase 13: {name} never launched")
+    ms = {r["impl"]: r["ms"] for r in res["results"]}
     print(f"[13] sampler benchmark: {len(res['results'])} runs within {ATOL_KERNEL} of the exact "
-          f"gather; launches {counts}")
+          f"gather; launches {counts}; per encoder call on the same samples: {da.QUERIES} (B1) "
+          f"{ms['gather']:.4f} ms, {da.ENCODER} (B2) {ms['encoder']:.4f} ms")
     return counts
 
 
@@ -743,13 +802,14 @@ def device_us(torch, fn, marker, n=20):
     return us / n if us > 0 else None
 
 
+def fmt_us(us):
+    return "not measured" if us is None else f"{us:.2f} us"
+
+
 def phase_probes(torch, gp, og):
     """T1 and T2 against their plain versions at the probe tools' shapes; returns the
     kernels-line records (sans launches): T1 at (32768, 32, 64) f32, T2 in f32."""
     from gomatching_tpu_torch.tools import bench_gather, probe_bf16_g
-
-    def fmt(us):
-        return "not measured" if us is None else f"{us:.2f} us"
 
     dev = "cuda"
     rng = np.random.RandomState(5)
@@ -788,7 +848,7 @@ def phase_probes(torch, gp, og):
               f"|kernel-plain| {err:.3e} = {err / scale:.2e} of sum|terms| (rtol {RTOL_GATHER:.2e}), "
               f"kernel-exact {abs(got.item() - exact) / scale:.2e}, plain-exact "
               f"{abs(want.item() - exact) / scale:.2e}, same bits twice; kernel {ms:.4f} ms "
-              f"(device {fmt(us)}) -> {rows / ms / 1e3:.0f}M rows/s, {gathered / ms / 1e6:.1f} GB/s "
+              f"(device {fmt_us(us)}) -> {rows / ms / 1e3:.0f}M rows/s, {gathered / ms / 1e6:.1f} GB/s "
               f"gathered; plain {plain_ms:.4f} ms, index_select+sum {lib_ms:.4f} ms "
               f"({rows / lib_ms / 1e3:.0f}M rows/s; index_select alone {select_ms:.4f} ms); "
               f"bound {b_ms:.4f} ms ({b_by}: "
@@ -831,7 +891,7 @@ def phase_probes(torch, gp, og):
         # G written once, x, y, a read once; 2 P flops per element
         b_ms, b_by = bound(nbytes(got, x, y, a), 2 * P * FH * FW * Q)
         print(f"[14] {tag} (P={P}, {FH}x{FW}x{Q}): {how}; kernel {ms:.4f} ms per call "
-              f"(device {fmt(us)}), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
+              f"(device {fmt_us(us)}), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
               f"no single PyTorch call computes it")
         if out_dtype == torch.float32:
             records[og.ONEHOT] = dict(
@@ -866,10 +926,24 @@ def phase_probe_tools(torch, gp, og):
     return counts
 
 
+def in_turns(name, call, libs, builds, what):
+    """Time ``call(lib)`` on the two builds in turns (a, b, b, a); print both means."""
+    times = {k: [] for k in builds}
+    for build in (builds[0], builds[1], builds[1], builds[0]):
+        check(call(libs[build]) == 0, f"{name}: the {build} build refused the launch")
+        times[build].append(cuda_time_ms(lambda: call(libs[build])))
+    real, other = (sum(times[k]) / len(times[k]) for k in builds)
+    print(f"[15] {name}: real build {real:.4f} ms, {builds[1]} {other:.4f} ms (in turns: " + ", ".join(
+        f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
+        + f"): {what} {real - other:.4f} ms, {100 * (real - other) / real:.1f}% of the real time")
+
+
 def phase_gather_floor(torch, da, dam, _build):
-    """B2 and B5 from the measurement build in which every gathered row is row 0 of its
-    base (an L1 hit) against the real build, on the same inputs and in turns (real, row
-    0, row 0, real): what the memory system adds to each kernel's time."""
+    """B1, B2 and B5 from the measurement build in which every gathered row is row 0 of
+    its base (an L1 hit) against the real build, on the same inputs and in turns (real,
+    row 0, row 0, real): what the memory system adds to each kernel's time; and B4 from
+    the build without its dValue atomics against the real build, in turns: what the
+    scatter adds to B4."""
     import ctypes
 
     S = sum(h * w for h, w in SHAPES)
@@ -882,36 +956,54 @@ def phase_gather_floor(torch, da, dam, _build):
     loc = (da.encoder_reference_points(SHAPES, dev)[None, :, None, None, None, :]
            + off / wh[None, None, None, :, None, :]).contiguous()
     attn = logits.softmax(-1).view(B, S, M, L, P).contiguous()
+    Lq = NQ * NPTS
+    dec_loc = (torch.rand(B, Lq, M, L, P, 2, generator=g) * 1.2 - 0.1).to(dev)
+    dec_attn = torch.randn(B, Lq, M, L * P, generator=g).softmax(-1).view(B, Lq, M, L, P).to(dev)
     table = dam.merged_table(value, SHAPES)
     out = torch.empty(B, S, M * D, device=dev)
     flat = (ctypes.c_int * (2 * L))(*[x for hw in SHAPES for x in hw])
     stream = torch.cuda.current_stream().cuda_stream
-    fns = ("ms_deform_attn_encoder_fwd", "ms_deform_attn_merged_fwd")
+    fns = ("ms_deform_attn_queries_fwd", "ms_deform_attn_encoder_fwd", "ms_deform_attn_merged_fwd",
+           "ms_deform_attn_encoder_bwd")
     libs = {}
-    for build, flags in (("real", _build.NVCC_FLAGS), ("row 0", _build.NVCC_FLAGS + ROW0_FLAGS)):
-        libs[build] = ctypes.CDLL(str(_build.build("ms_deform_attn.cu", flags=flags)))
+    for build, flags in (("real", ()), ("row 0", ROW0_FLAGS), ("no scatter", NO_SCATTER_FLAGS)):
+        libs[build] = ctypes.CDLL(str(_build.build("ms_deform_attn.cu",
+                                                   flags=_build.NVCC_FLAGS + flags)))
         for fn in fns:
             getattr(libs[build], fn).argtypes = da._SIGNATURES[fn]
             getattr(libs[build], fn).restype = ctypes.c_int
     calls = {
-        da.ENCODER: lambda lib: lib.ms_deform_attn_encoder_fwd(
+        f"{da.QUERIES} at B={B}, Lq={Lq}": lambda lib: lib.ms_deform_attn_queries_fwd(
+            value.data_ptr(), dec_loc.data_ptr(), dec_attn.data_ptr(), out.data_ptr(), flat,
+            B, S, Lq, M, D, L, P, stream),
+        f"{da.QUERIES} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_queries_fwd(
+            value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), flat,
+            B, S, S, M, D, L, P, stream),
+        f"{da.ENCODER} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_encoder_fwd(
             value.data_ptr(), off.data_ptr(), logits.data_ptr(), out.data_ptr(), flat,
             B, S, M, D, L, P, stream),
-        da.MERGED: lambda lib: lib.ms_deform_attn_merged_fwd(
+        f"{da.MERGED} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_merged_fwd(
             table.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), flat,
             B, S, S, M, D, L, P, stream),
     }
     for name, call in calls.items():
-        times = {"real": [], "row 0": []}
-        for build in ("real", "row 0", "row 0", "real"):
-            check(call(libs[build]) == 0, f"{name}: the {build} build refused the launch")
-            times[build].append(cuda_time_ms(lambda: call(libs[build])))
-        real, row0 = (sum(times[k]) / len(times[k]) for k in ("real", "row 0"))
-        print(f"[15] {name} at B={B}, Lq={S}: real build {real:.4f} ms, every gathered row an "
-              f"L1 hit {row0:.4f} ms (in turns: " + ", ".join(
-                  f"{k} {', '.join(f'{t:.4f}' for t in v)}" for k, v in times.items())
-              + f"): the memory system adds {real - row0:.4f} ms, "
-              f"{100 * (real - row0) / real:.1f}% of the real time")
+        in_turns(name, call, libs, ("real", "row 0"),
+                 "every gathered row an L1 hit; the memory system adds")
+    del value, off, logits, loc, attn, dec_loc, dec_attn, table, out
+
+    # B4 at the pretraining shape, as phase 6 (dValue accumulates over the timed calls)
+    S = sum(h * w for h, w in TRAIN_SHAPES)
+    flat = (ctypes.c_int * (2 * L))(*[x for hw in TRAIN_SHAPES for x in hw])
+    value = torch.randn(1, S, M, D, generator=g).to(dev)
+    off = (torch.randn(1, S, M, L, P, 2, generator=g) * 4.0).to(dev)
+    logits = torch.randn(1, S, M, L * P, generator=g).to(dev)
+    dout = torch.randn(1, S, M * D, generator=g).to(dev)
+    grads = [torch.zeros(1, S, M, D, device=dev), torch.empty(1, S, M, L, P, 2, device=dev),
+             torch.empty(1, S, M, L * P, device=dev)]
+    in_turns(f"{da.ENCODER_BWD} at B=1, Lq={S}", lambda lib: lib.ms_deform_attn_encoder_bwd(
+        value.data_ptr(), off.data_ptr(), logits.data_ptr(), dout.data_ptr(),
+        *(t.data_ptr() for t in grads), flat, 1, S, M, D, L, P, stream), libs,
+        ("real", "no scatter"), "without the dValue atomics; the scatter adds")
 
 
 def off_grid(torch, x, margin=1e-3):
@@ -976,7 +1068,10 @@ def phase_backward(torch, da):
         abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
         for n, e in errs.items():
             check(math.isfinite(e) and e <= RTOL_BWD, f"{name}: d{n} relative error {e}")
+        if name == da.ENCODER_BWD:
+            bits_twice(torch, name, got, kernel(*args))
         ms = cuda_time_ms(lambda: kernel(*args))
+        dev_us = device_us(torch, lambda: kernel(*args), f"{name}_kernel")
         plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
         v_bytes, taps = value_reads(torch, sample_loc, S, D, shapes)
         samples = n_q * M * L * P
@@ -995,11 +1090,56 @@ def phase_backward(torch, da):
         )
         print(f"[6] {name}: max|kernel-plain|/max|plain| "
               + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
-              + f" (rtol {RTOL_BWD}); max abs {abs_err:.3e}; kernel {ms:.4f} ms, plain "
+              + f" (rtol {RTOL_BWD}); max abs {abs_err:.3e}; kernel {ms:.4f} ms a call (device "
+              f"{fmt_us(dev_us)}), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {v_bytes / 1e6:.1f} MB of value "
               f"rows touched of {nbytes(value) / 1e6:.1f} MB) at B=1, {n_q} queries")
         del got, want
+    edge_encoder_backward(torch, da)
     return records
+
+
+def bits_twice(torch, name, got, again):
+    """B4's dOffsets and dLogits are summed in a fixed order: a second call gives the same
+    bits (dValue's atomics may reorder its last bits)."""
+    torch.cuda.synchronize()
+    for n, a, b in zip(("offsets", "logits"), got[1:], again[1:]):
+        check(torch.equal(a, b), f"{name}: d{n} differs on a second call")
+
+
+def edge_encoder_backward(torch, da):
+    """B4 against its plain version at the EDGE_CASES shapes, offsets partly beyond the
+    maps and off grid lines: max |kernel - plain| / max |plain| per gradient against
+    RTOL_BWD, and dOffsets and dLogits the same bits on a second call."""
+    g = torch.Generator().manual_seed(9)
+    for name, b, m, shapes, p in EDGE_CASES:
+        S, L = sum(h * w for h, w in shapes), len(shapes)
+        wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)[None, None, None, :, None, :]
+        value = torch.randn(b, S, m, D, generator=g)
+        off = torch.randn(b, S, m, L, p, 2, generator=g) * 1.5
+        far = torch.rand(b, S, m, L, p, 2, generator=g) < 0.1
+        off = torch.where(far, off * 30.0, off)
+        ref_px = da.encoder_reference_points(shapes)[None, :, None, None, None, :] * wh
+        off = off_grid(torch, ref_px + off - 0.5) + 0.5 - ref_px
+        px = ref_px + off - 0.5
+        outside = ((px <= -1) | (px >= wh)).any(-1).float().mean().item()
+        args = [t.cuda() for t in (value, off, torch.randn(b, S, m, L * p, generator=g),
+                                   torch.randn(b, S, m * D, generator=g))]
+        args.insert(1, shapes)
+        before = da.launch_counts[da.ENCODER_BWD]
+        got = da.ms_deform_attn_encoder_backward(*args)
+        check(da.launch_counts[da.ENCODER_BWD] == before + 1, f"{da.ENCODER_BWD} {name}: no launch")
+        want = da.ms_deform_attn_encoder_plain_backward(*args)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, w) for n, a, w in zip(("value", "offsets", "logits"), got, want)}
+        for n, e in errs.items():
+            check(math.isfinite(e) and e <= RTOL_BWD, f"{da.ENCODER_BWD} {name}: d{n} relative "
+                  f"error {e}")
+        bits_twice(torch, f"{da.ENCODER_BWD} {name}", got, da.ms_deform_attn_encoder_backward(*args))
+        print(f"[6] {da.ENCODER_BWD} at {name} (B={b}, M={m}, levels {shapes}, P={p}): "
+              "max|kernel-plain|/max|plain| " + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
+              + f" (rtol {RTOL_BWD}); dOffsets and dLogits the same bits twice; "
+              f"{100 * outside:.0f}% of samples wholly off the map")
 
 
 def train_cfg(extra=()):
@@ -1357,7 +1497,8 @@ def main():
     print(card)  # as nvidia-smi gives it: name, power limit
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
-    builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS))
+    builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS),
+              ("ms_deform_attn.cu", NO_SCATTER_FLAGS))
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda sf: _build.build(sf[0], flags=_build.NVCC_FLAGS + sf[1]), builds))
     print(f"[1] kernels built in {time.time() - t0:.1f} s ("

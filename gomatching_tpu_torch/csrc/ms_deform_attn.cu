@@ -3,15 +3,13 @@
 // Two forwards take arbitrary locations or the encoder's own grid (grid_sample
 // semantics: align_corners=False, zero padding):
 //
-//   ms_deform_attn_queries_fwd  -- arbitrary normalized sampling locations and
+//   ms_deform_attn_queries_fwd  -- B1: arbitrary normalized sampling locations and
 //       softmaxed attention (decoder cross-attention). Replaces the TPU kernel
 //       gomatching_tpu/ops/deform_attn_dec_vmem.py:_kernel (entry
 //       ms_deform_attn_queries_vmem). The gather form of the reference CUDA im2col
 //       forward (ms_deform_im2col_cuda.cuh:238), not the TPU's one-hot matrix
-//       contraction: one warp per (batch, query, head), lanes on the channels, so
-//       each bilinear corner is one coalesced 128-byte load at D == 32 (D > 32 loops
-//       over channel groups), through bilinear_tap. Accumulation is f32.
-//   ms_deform_attn_encoder_fwd  -- encoder self-attention (B2): the queries are the
+//       contraction. D == 32, L*P <= 64.
+//   ms_deform_attn_encoder_fwd  -- B2: encoder self-attention: the queries are the
 //       grid tokens themselves, so each token's level, (row, col) and reference
 //       point ((col+0.5)/W, (row+0.5)/H) come from its index; inputs are the raw
 //       sampling offsets (target-level cells, reference (m, l, p, xy) order) and
@@ -23,39 +21,47 @@
 // What bounds both on an H100: memory. Per sample a head does 4 FMAs per channel
 // against 4 scattered corner rows, ~0.5 flop per byte of corner traffic; the least
 // time is the bytes of the touched value rows + locations + attention + output over
-// 3.35 TB/s (0.119 ms for B2 at 3 frames of 1000x1778). But every sample reads four
-// 128-byte rows (57M rows, 7.3 GB for that call), almost all from L2 and L1, so what
-// the kernels reach is a rate of gathered rows, not the byte bound.
+// 3.35 TB/s (0.119 ms for B2 at 3 frames of 1000x1778, 0.030 ms for B1 at 3 x 2500
+// decoder queries). But every sample reads four 128-byte rows (57M rows, 7.3 GB for
+// B2's call), almost all from L2 and L1, so what the kernels reach is a rate of
+// gathered rows, not the byte bound.
 //
-// B2, redesigned. Its first form (one warp per (batch, token, head), lanes on the
-// channels, 16 samples in series through bilinear_tap) took 3.70 ms on an NVIDIA H100
-// 80GB HBM3 at 700 W, 15.4 G corner rows/s: every lane reloaded the 16 logits three
-// times and called expf per lane and sample; the runtime-indexed LevelInfo parameter
-// was copied to each thread's stack; and each sample's four branch-guarded corner
-// loads depended on that sample's offset load, so a warp had about one load in flight.
-// The design now, on B5's lane layout straight from value (B, S, M, 32):
+// The lane layout (B1, B2, B4, and B5 on its table). The first forms of B1 and B2 took
+// one warp per (batch, query, head), lanes on the channels, 16 samples in series through
+// a per-sample bilinear tap: B2 3.70 ms, B1 0.212 ms a call on an NVIDIA H100 80GB HBM3 at
+// 700 W. Every lane reloaded the samples' inputs (B2: its 16 logits three times, expf per
+// lane and sample); the runtime-indexed LevelInfo parameter was copied to each thread's
+// stack; each sample's four branch-guarded corner loads depended on that sample's input
+// load, so a warp had about one load in flight. The design now, straight from value
+// (B, S, M, 32):
 //   - a 2D grid: blockIdx.y is the (batch, head) pair and the 8 warps of a block take 8
-//     neighbouring tokens, so warps run in (batch, head, token) order and share that
-//     head's L1 and L2 lines, and no lane divides a 64-bit index (an intermediate
-//     form with a 1D grid, 64-bit divisions and level_dims per sample took 0.93 ms);
-//   - lane j loads sample j's offset pair and logit (one coalesced load for the
-//     warp); the softmax max and sum are shuffles, one expf per sample;
+//     neighbouring queries, so warps run in (batch, head, query) order and share that
+//     head's L1 and L2 lines (B1's 25 points of a text instance are neighbouring
+//     queries), and no lane divides a 64-bit index (a form of B2 with a 1D grid, 64-bit
+//     divisions and level_dims per sample took 0.93 ms);
+//   - lane j loads sample j's coordinate pair and weight (one coalesced load each for the
+//     warp, load_samples); B2 softmaxes the logits there (lane_softmax: max and sum by
+//     shuffles, one expf per sample);
 //   - the level dims come from a table on the lanes (lane_level / level_of), filled
 //     from LevelInfo with constant indices: no runtime index into the parameter;
 //   - lane l owns corner l/8 and channels 4(l%8)..+3. For a batch of 8 samples, lane
 //     8c + k computes sample k's clamped token row of corner c and that corner's
-//     weight with the softmaxed attention folded in (0, with a valid row, for a
+//     weight with the attention folded in (sample_corner; 0, with a valid row, for a
 //     corner off the map: loads need no branch). gather8 hands each lane its own
 //     corner's row and weight with one shuffle each and issues the batch's 8 float4
 //     loads (8 x 4 128-byte lines) before the first is used, while the next batch's
 //     geometry is computed; shuffles by 8 and 16 then sum the corners and lanes 0-7
 //     store the head's 128 bytes. The sums run in a fixed order, without atomics, so
 //     a call gives the same bits every time.
-// ptxas: 63 registers, no stack, no spills (the kernel asks for 4 blocks of 256
-// threads a SM); the runtime holds 32 warps per SM. On an NVIDIA H100 80GB HBM3 at
-// 700 W: 0.794 ms against a bound of 0.119 ms, 71.9 G corner rows/s, 4.7x faster than
-// the first form. What bounds it now is its own work, not memory: with every gathered
-// row an L1 hit (the -DMSDA_GATHER_ROW0 build) it still takes 0.733 ms of its 0.785.
+// ptxas: B1 64 registers, B2 62, no stack, no spills (the kernels ask for 4 blocks of 256
+// threads a SM); the runtime holds 32 warps per SM. On an NVIDIA H100 80GB HBM3 at 700 W:
+// B2 0.79 ms against a bound of 0.119 ms (4.7x faster than its first form); B1 0.059 ms
+// at the decoder shape against a bound of 0.030 ms (a wrapper call, host included, ~0.1
+// ms) and 0.62 ms at the encoder's shape, on the same samples as B2: the same function
+// from the same inputs, less the reference point and the softmax. What bounds them now is
+// their own work, not memory: with every gathered row an L1 hit (the -DMSDA_GATHER_ROW0
+// build) B2 still takes 0.739 ms of its 0.789, B1 0.575 of 0.625 at the encoder's shape
+// and 0.043 of 0.059 at the decoder's.
 // Not used, and why: tensor cores (the function does ~0.5 flop per byte; the one-hot
 // operand of a matmul form alone costs 4-10 us a block to build, the probe T2);
 // shared-memory value tiles (measured in B6: 3.8-4.4 ms); TMA (it copies tiles, not
@@ -63,37 +69,60 @@
 //
 // Their backwards (the VJPs the training path needs) recompute the taps:
 //
-//   ms_deform_attn_queries_bwd  -- B1's VJP: dValue, dLoc, dAttn from dOut.
+//   ms_deform_attn_queries_bwd  -- B3: B1's VJP: dValue, dLoc, dAttn from dOut.
 //       Replaces gomatching_tpu/ops/deform_attn_dec_vmem.py:_bwd_kernel (via
 //       _op_bwd).
-//   ms_deform_attn_encoder_bwd  -- B2's VJP: dValue, dOffsets (cells) and
+//   ms_deform_attn_encoder_bwd  -- B4: B2's VJP: dValue, dOffsets (cells) and
 //       dLogits through the in-register softmax. Replaces
 //       gomatching_tpu/ops/deform_attn_vmem.py:_bwd_kernel_v2 (via
 //       _v2_bwd_impl); exact over the whole level, no halo and no slab
 //       overlap-add.
 //
-// Design: the gather/scatter form of the reference CUDA col2im backward
+// Both compute, per sample and in-map corner c with bilinear weight w_c,
+//   dValue[corner] += attn * w_c * dOut
+//   dAttn  = sum_c w_c * dot(dOut, v_c)
+//   dLoc   = attn * sum_c dot(dOut, v_c) * dw_c/dx * W (and y, H; the encoder's
+//            offsets are in cells, so dx/doff = 1)
+// the gather/scatter form of the reference CUDA col2im backward
 // (ms_deform_im2col_cuda.cuh:302, :407, :514), not the TPU's transposed one-hot
-// contraction. B1's warp layout: one warp per (batch, query, head), lanes on
-// the channels. Per (level, point) the warp recomputes x, y and
-// the four corner weights, then
-//   dValue[corner] += attn * w_corner * dOut       (f32 atomicAdd: one coalesced
-//                                                   128-byte reduction per corner
-//                                                   at D == 32)
-//   dAttn  = sum_d dOut[d] * sample[d]             (warp shuffles)
-//   dLoc   = attn * sum_d dOut[d] * dsample/dx * W (and y, H; the encoder's
-//                                                   offsets are in cells, so
-//                                                   dx/doff = 1)
-// Corners outside the map contribute nothing to any of the three, behind the
-// same in-range gate as bilinear_tap, so the gradient is grid_sample's. The
-// atomics reorder f32 sums, so dValue differs in its last bits from run to run.
-// Bound: bytes again (the touched value rows read, dValue zeroed and written,
-// the per-sample inputs read and gradients written). The function needs ~4 flops
-// per channel per in-range corner (one dot dOut . v_corner, one dValue
-// scale-and-add; dAttn, dx and dy follow from the four corner dots as scalars),
-// which stays under the byte time. This kernel does ~8 (it accumulates the
-// sample, gx and gy per channel), and the scattered corner atomics, mostly L2
-// hits, are what the simple form pays above the bound.
+// contraction. Corners outside the map contribute nothing to any of the three, so the
+// gradient is grid_sample's. dValue's f32 atomics reorder its sums, so it differs in
+// its last bits from run to run. Bound: bytes (the touched value rows read, dValue
+// zeroed and written, the per-sample inputs read and gradients written; 0.062 ms for B4
+// at 1280x1280, 0.021 ms for B3 at 2500 queries). The function needs ~4 flops per
+// channel per in-range corner (one dot, one dValue scale-and-add), which stays under
+// the byte time.
+//
+// B3 keeps its first form: one warp per (batch, query, head), lanes on the channels;
+// per (level, point) the warp recomputes x, y and the four corner weights, scatters
+// with one scalar f32 atomicAdd per channel and corner (a 128-byte reduction per
+// corner at D == 32) and reduces the sample, dx and dy with three 5-step warp sums;
+// lane 0 writes dAttn and dLoc; LevelInfo indexed at run time (on the stack). 0.14 ms
+// against its 0.021 ms bound on an NVIDIA H100 80GB HBM3 at 700 W.
+//
+// B4 is the transpose of B2 on its lane layout (B4's first form had B3's and took
+// 1.81 ms): B2's grid, level table, softmax and geometry, so each sample lands in the
+// same cell as in the forward. Lane l keeps dOut's channels 4(l%8)..+3 as one float4.
+// Per batch of 8 samples, lane 8c + k holds corner c of sample k: the warp first adds
+// a_k w_ck dOut to each in-map corner row with one float4 atomicAdd per lane and sample
+// (4x fewer atomic instructions than a scalar one per channel; a corner off the map
+// issues none), merging the corners of the batch that share a row (merge_shared_rows)
+// so a row gets one atomic; then it gathers the batch's rows (load8, 8 loads in flight)
+// and each lane forms its 4-channel share of dot(dOut, v_ck); a 7-shuffle
+// reduce-scatter (xor 4, 2, 1) leaves the whole dot of (c, k) on lane 8c + k, where the
+// corner's weight and its x and y derivatives (all 0 off the map: the corner's row is
+// the valid one it was clamped to) turn it into the three terms that shuffles by 8 and
+// 16 sum over the corners: dA_k, gx_k, gy_k. The lane of sample k stores dOffsets_k =
+// a_k (gx_k, gy_k), and dLogits_j = a_j (dA_j - sum_i a_i dA_i) runs on the lanes
+// without a round trip through device memory. dOffsets and dLogits are summed in a
+// fixed order: the same bits every call. ptxas: 64 registers, no stack, no spills; 32
+// warps per SM. On an NVIDIA H100 80GB HBM3 at 700 W: 0.65 ms at (1, 34000, 8, 32)
+// against a bound of 0.062 ms (2.8x faster than its first form); without the dValue
+// atomics (the -DMSDA_NO_SCATTER build) 0.29 ms, so the scatter (17.4M 128-byte L2
+// reductions a call) sets its pace. Tried and not kept: the atomics issued after the
+// loads (32 bytes of spills, 0.72 ms). Merging shared rows took B4 from 0.67 to 0.65 ms
+// at random offsets and from 0.77 to 0.58 ms a launch in a training step, whose offsets
+// cluster, so it stays.
 //
 // A third forward samples the corner-merged table (SAMPLING_IMPL='pallas'):
 //
@@ -151,11 +180,12 @@
 #include <stdint.h>
 
 #define MSDA_MAX_LEVELS 8
-#define MSDA_MAX_SAMPLES 64  // L * P per head, kept in registers by the encoder backward
+#define MSDA_MAX_SAMPLES 64  // L * P per head: two samples a lane in the lane-layout kernels
 #define MSDA_WARPS_PER_BLOCK 8
-// resident blocks per SM the two redesigned forwards (B2, B5) ask of the compiler: at
+// resident blocks per SM the lane-layout kernels (B1, B2, B4, B5) ask of the compiler: at
 // most 64 registers a thread, so that 32 warps fit on an SM
 #define MSDA_FWD_MIN_BLOCKS 4
+#define MSDA_FULL 0xffffffffu
 
 struct LevelInfo {
   int h[MSDA_MAX_LEVELS];
@@ -182,75 +212,11 @@ __device__ __forceinline__ void level_dims(const LevelInfo& lv, int l, int& h, i
   }
 }
 
-// Bilinear sample of one channel. ``v`` points at (level start token, head,
-// this lane's channel); consecutive tokens are ``tok_stride`` floats apart.
-// (x, y) are pixel coordinates with align_corners=False already applied
-// (x = loc_x * W - 0.5). Corners outside the map contribute zero.
-__device__ __forceinline__ float bilinear_tap(const float* __restrict__ v, int h, int w,
-                                              int64_t tok_stride, float x, float y) {
-  if (!(x > -1.f && y > -1.f && x < (float)w && y < (float)h)) return 0.f;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const float dx = x - x0f;
-  const float dy = y - y0f;
-  const float hx = 1.f - dx;
-  const float hy = 1.f - dy;
-  float acc = 0.f;
-  if (y0 >= 0) {
-    const float* row = v + (int64_t)y0 * w * tok_stride;
-    if (x0 >= 0) acc += hy * hx * __ldg(row + (int64_t)x0 * tok_stride);
-    if (x0 + 1 < w) acc += hy * dx * __ldg(row + (int64_t)(x0 + 1) * tok_stride);
-  }
-  if (y0 + 1 < h) {
-    const float* row = v + (int64_t)(y0 + 1) * w * tok_stride;
-    if (x0 >= 0) acc += dy * hx * __ldg(row + (int64_t)x0 * tok_stride);
-    if (x0 + 1 < w) acc += dy * dx * __ldg(row + (int64_t)(x0 + 1) * tok_stride);
-  }
-  return acc;
-}
-
-// value (B, S, M, D); loc (B, Lq, M, L, P, 2); attn (B, Lq, M, L, P);
-// out (B, Lq, M*D). Warp index == flattened (b, q, m).
-__global__ void ms_deform_attn_queries_kernel(const float* __restrict__ value,
-                                              const float* __restrict__ loc,
-                                              const float* __restrict__ attn,
-                                              float* __restrict__ out, LevelInfo lv, int S,
-                                              int Lq, int M, int D, int L, int P,
-                                              int64_t n_warps) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  const int m = (int)(warp % M);
-  const int64_t b = warp / ((int64_t)M * Lq);
-  const int LP = L * P;
-  const float* loc_w = loc + warp * LP * 2;
-  const float* attn_w = attn + warp * LP;
-  const int64_t tok_stride = (int64_t)M * D;
-  for (int d = lane; d < D; d += 32) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) {
-      const int h = lv.h[l];
-      const int w = lv.w[l];
-      const float* vb = value + ((b * S + lv.start[l]) * M + m) * D + d;
-      for (int p = 0; p < P; ++p) {
-        const int i = l * P + p;
-        const float x = __ldg(loc_w + 2 * i) * w - 0.5f;
-        const float y = __ldg(loc_w + 2 * i + 1) * h - 0.5f;
-        acc += __ldg(attn_w + i) * bilinear_tap(vb, h, w, tok_stride, x, y);
-      }
-    }
-    out[warp * D + d] = acc;
-  }
-}
-
-// The gather of the two redesigned forwards (B2, B5), D == 32. Lane l owns corner
+// The gather of the lane-layout kernels (B1, B2, B4, B5), D == 32. Lane l owns corner
 // l >> 3 and channels 4(l & 7)..+3; for the 8 samples of a batch, the lanes of corner c
 // (8c .. 8c + 7) hold, sample k of the batch in lane 8c + k, that corner's float4 offset
-// ``row`` from ``base`` and its weight ``wgt`` (attention folded in, 0 for a corner off
-// the map, whose row is then a valid one). Each lane takes its own corner's row and
-// weight of every sample with one shuffle each, and all 8 loads are issued before the
+// ``row`` from ``base`` (a valid row for a corner off the map). load8 takes each lane's
+// own corner's row of every sample with one shuffle and issues all 8 loads before the
 // first is consumed: 8 independent 512-byte warp loads in flight.
 #ifdef MSDA_GATHER_ROW0
 // A measurement build (chip_smoke.py builds it with -DMSDA_GATHER_ROW0): every gathered
@@ -259,18 +225,26 @@ __global__ void ms_deform_attn_queries_kernel(const float* __restrict__ value,
 __device__ int msda_row_mask = 0;
 #endif
 
-__device__ __forceinline__ void gather8(const float4* __restrict__ base, int row, float wgt,
-                                        int lane, float4& acc) {
+__device__ __forceinline__ void load8(const float4* __restrict__ base, int row, int lane,
+                                      float4 (&v)[8]) {
   const int grp = lane & 24;
 #ifdef MSDA_GATHER_ROW0
   row &= *(volatile int*)&msda_row_mask;
 #endif
-  float4 v[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __ldg(base + __shfl_sync(0xffffffffu, row, grp | k));
+  for (int k = 0; k < 8; ++k) v[k] = __ldg(base + __shfl_sync(MSDA_FULL, row, grp | k));
+}
+
+// The forwards' gather: load8, then each lane scales its corner's rows by that corner's
+// weight ``wgt`` (attention folded in, 0 for a corner off the map), one shuffle each.
+__device__ __forceinline__ void gather8(const float4* __restrict__ base, int row, float wgt,
+                                        int lane, float4& acc) {
+  const int grp = lane & 24;
+  float4 v[8];
+  load8(base, row, lane, v);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    const float w = __shfl_sync(0xffffffffu, wgt, grp | k);
+    const float w = __shfl_sync(MSDA_FULL, wgt, grp | k);
     acc.x = fmaf(w, v[k].x, acc.x);
     acc.y = fmaf(w, v[k].y, acc.y);
     acc.z = fmaf(w, v[k].z, acc.z);
@@ -283,10 +257,10 @@ __device__ __forceinline__ void gather8(const float4* __restrict__ base, int row
 __device__ __forceinline__ void store_corners(float4 acc, int lane, float* __restrict__ out) {
 #pragma unroll
   for (int k = 8; k <= 16; k <<= 1) {
-    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, k);
-    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, k);
-    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, k);
-    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, k);
+    acc.x += __shfl_xor_sync(MSDA_FULL, acc.x, k);
+    acc.y += __shfl_xor_sync(MSDA_FULL, acc.y, k);
+    acc.z += __shfl_xor_sync(MSDA_FULL, acc.z, k);
+    acc.w += __shfl_xor_sync(MSDA_FULL, acc.w, k);
   }
   if (lane < 8) reinterpret_cast<float4*>(out)[lane] = acc;
 }
@@ -305,13 +279,173 @@ __device__ __forceinline__ LaneLevel lane_level(const LevelInfo& lv, int lane) {
 }
 
 __device__ __forceinline__ LaneLevel level_of(const LaneLevel& t, int l) {
-  return {__shfl_sync(0xffffffffu, t.h, l), __shfl_sync(0xffffffffu, t.w, l),
-          __shfl_sync(0xffffffffu, t.start, l)};
+  return {__shfl_sync(MSDA_FULL, t.h, l), __shfl_sync(MSDA_FULL, t.w, l),
+          __shfl_sync(MSDA_FULL, t.start, l)};
 }
 
 // i / P for 0 <= i < 64 and 1 <= P <= 64 without a division per use:
 // (i * level_magic(P)) >> 16, exact because i * (ceil(2^16 / P) - 2^16 / P) < 2^16 / P.
 __device__ __forceinline__ int level_magic(int P) { return (65536 + P - 1) / P; }
+
+// The encoder's query token s: its reference point ((col + 0.5) / W, (row + 0.5) / H) on
+// its own level.
+__device__ __forceinline__ float2 token_ref(const LevelInfo& lv, const LaneLevel& levels, int s,
+                                            int L) {
+  int l1 = 0;
+#pragma unroll
+  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) l1 += (i < L && s >= lv.start[i]);
+  const LaneLevel q = level_of(levels, l1);
+  const int t = s - q.start;
+  const int qrow = t / q.w;
+  const int qcol = t - qrow * q.w;
+  return make_float2(((float)qcol + 0.5f) / (float)q.w, ((float)qrow + 0.5f) / (float)q.h);
+}
+
+// A warp's L*P <= 64 samples, lane j holding sample j's (and j + 32's) coordinate pair and
+// weight: the pair and the weight are each one coalesced load for the warp.
+struct Samples {
+  float2 xy0, xy1;
+  float a0, a1;
+};
+
+__device__ __forceinline__ Samples load_samples(const float* __restrict__ xy,
+                                                const float* __restrict__ a, int LP, int lane,
+                                                float fill) {
+  const float2* xy2 = reinterpret_cast<const float2*>(xy);
+  const float2 zero = make_float2(0.f, 0.f);
+  return {lane < LP ? __ldg(xy2 + lane) : zero, lane + 32 < LP ? __ldg(xy2 + lane + 32) : zero,
+          lane < LP ? __ldg(a + lane) : fill, lane + 32 < LP ? __ldg(a + lane + 32) : fill};
+}
+
+// The softmax of the logits in a0, a1 (-inf past L*P) over the warp, in place: max and sum
+// by shuffles, one expf per sample. Every lane ends with the same sum, bit for bit.
+__device__ __forceinline__ void lane_softmax(Samples& sm, int LP, int lane) {
+  float mx = fmaxf(sm.a0, sm.a1);
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) mx = fmaxf(mx, __shfl_xor_sync(MSDA_FULL, mx, k));
+  const float e0 = lane < LP ? expf(sm.a0 - mx) : 0.f;
+  const float e1 = lane + 32 < LP ? expf(sm.a1 - mx) : 0.f;
+  float sum = e0 + e1;
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) sum += __shfl_xor_sync(MSDA_FULL, sum, k);
+  const float inv_sum = 1.f / sum;
+  sm.a0 = e0 * inv_sum;
+  sm.a1 = e1 * inv_sum;
+}
+
+// One bilinear corner of one sample: its float4 row offset from the head's base (0, a
+// valid row, for a corner off the map), whether it lies in the map, and the fractional
+// position (fx, fy) in the sample's cell.
+struct Corner {
+  int row;
+  bool in;
+  float fx, fy;
+};
+
+// Sample i = i0 + (lane & 7) of a batch of 8 for corner ((lane >> 3) & 1, lane >> 4): its
+// coordinates and weight come from lane i & 31 by shuffle (register 0 or 1 by i0, which is
+// warp-uniform), its level's dims from the lane-held table (level i / P). CELLS: the
+// coordinates are offsets in target-level cells from the reference point (rx, ry), in the
+// reference's order (loc = ref + off / (W, H), then x = loc * W - 0.5); else normalized
+// locations (x = loc * W - 0.5). x and y are clamped where every corner is off the map
+// anyway, so the int casts are safe. ``a`` gets the sample's weight.
+template <bool CELLS>
+__device__ __forceinline__ Corner sample_corner(int i0, int lane, int LP, int magic,
+                                                const LaneLevel& levels, const Samples& sm,
+                                                float2 ref, int tok4, float& a) {
+  const int i = i0 + (lane & 7);
+  const int src = i & 31;
+  const float ox = __shfl_sync(MSDA_FULL, i0 < 32 ? sm.xy0.x : sm.xy1.x, src);
+  const float oy = __shfl_sync(MSDA_FULL, i0 < 32 ? sm.xy0.y : sm.xy1.y, src);
+  a = __shfl_sync(MSDA_FULL, i0 < 32 ? sm.a0 : sm.a1, src);
+  const LaneLevel lvl = level_of(levels, min((i * magic) >> 16, MSDA_MAX_LEVELS - 1));
+  Corner c = {0, false, 0.f, 0.f};
+  if (i < LP) {
+    const int h = lvl.h, w = lvl.w;
+    const float wf = (float)w;
+    const float hf = (float)h;
+    float x, y;
+    if (CELLS) {
+      const float lx = ref.x + ox / wf;
+      const float ly = ref.y + oy / hf;
+      x = lx * wf - 0.5f;
+      y = ly * hf - 0.5f;
+    } else {
+      x = ox * wf - 0.5f;
+      y = oy * hf - 0.5f;
+    }
+    x = fminf(fmaxf(x, -2.f), wf + 1.f);
+    y = fminf(fmaxf(y, -2.f), hf + 1.f);
+    const float x0 = floorf(x);
+    const float y0 = floorf(y);
+    c.fx = x - x0;
+    c.fy = y - y0;
+    const int xc = (int)x0 + ((lane >> 3) & 1);
+    const int yc = (int)y0 + (lane >> 4);
+    if (xc >= 0 && xc < w && yc >= 0 && yc < h) {
+      c.in = true;
+      c.row = (lvl.start + yc * w + xc) * tok4;
+    }
+  }
+  return c;
+}
+
+// The bilinear weight of this lane's corner of the sample.
+__device__ __forceinline__ float corner_weight(const Corner& c, int lane) {
+  return ((lane >> 4) ? c.fy : 1.f - c.fy) * (((lane >> 3) & 1) ? c.fx : 1.f - c.fx);
+}
+
+// The sampling loop of the forwards: batches of 8 samples, the next batch's geometry
+// computed while this batch's loads are in flight; ``geometry(i0, row, wgt)`` gives this
+// lane's corner of sample i0 + (lane & 7).
+template <typename Geometry>
+__device__ __forceinline__ float4 sample_loop(const float4* __restrict__ base, int LP, int lane,
+                                              Geometry geometry) {
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int row;
+  float wgt;
+  geometry(0, row, wgt);
+  for (int i0 = 0; i0 < LP; i0 += 8) {
+    int row_n = 0;
+    float wgt_n = 0.f;
+    if (i0 + 8 < LP) geometry(i0 + 8, row_n, wgt_n);
+    gather8(base, row, wgt, lane, acc);
+    row = row_n;
+    wgt = wgt_n;
+  }
+  return acc;
+}
+
+// value (B, S, M, 32); loc (B, Lq, M, L, P, 2) normalized; attn (B, Lq, M, L*P) softmaxed;
+// out (B, Lq, M*32). B2's design on normalized locations: blockIdx.y is the (batch, head)
+// pair and warp w of block x takes query 8x + w, so the warps of a block sample one head
+// around neighbouring queries (the 25 points of one text instance are neighbours). L*P <= 64.
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_queries_kernel(const float* __restrict__ value, const float* __restrict__ loc,
+                              const float* __restrict__ attn, float* __restrict__ out,
+                              LevelInfo lv, int S, int Lq, int M, int L, int P) {
+  const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (q >= Lq) return;
+  const int m = blockIdx.y % M;
+  const int b = blockIdx.y / M;
+  const LaneLevel levels = lane_level(lv, lane);
+  const int LP = L * P;
+  const int64_t bqm = ((int64_t)b * Lq + q) * M + m;
+  const Samples sm = load_samples(loc + bqm * LP * 2, attn + bqm * LP, LP, lane, 0.f);
+  const int tok4 = M * 8;  // float4s per token
+  const int magic = level_magic(P);
+  const float4* base = reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) +
+                       (lane & 7);
+  const float4 acc = sample_loop(base, LP, lane, [&](int i0, int& row, float& wgt) {
+    float a;
+    const Corner c =
+        sample_corner<false>(i0, lane, LP, magic, levels, sm, make_float2(0.f, 0.f), tok4, a);
+    row = c.row;
+    wgt = c.in ? a * corner_weight(c, lane) : 0.f;
+  });
+  store_corners(acc, lane, out + bqm * 32);
+}
 
 // value (B, S, M, 32); off (B, S, M, L, P, 2) raw target-level cells;
 // logits (B, S, M, L*P); out (B, S, M*32). blockIdx.y is the (batch, head) pair and
@@ -328,92 +462,158 @@ ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __re
   const int m = blockIdx.y % M;
   const int b = blockIdx.y / M;
   const LaneLevel levels = lane_level(lv, lane);
-  // the query token's own level and grid cell
-  int l1 = 0;
-#pragma unroll
-  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) l1 += (i < L && s >= lv.start[i]);
-  const LaneLevel q = level_of(levels, l1);
-  const int t = s - q.start;
-  const int qrow = t / q.w;
-  const int qcol = t - qrow * q.w;
-  const float rx = ((float)qcol + 0.5f) / (float)q.w;
-  const float ry = ((float)qrow + 0.5f) / (float)q.h;
-
-  // lane j holds sample j's (and j + 32's) offset pair and logit: one coalesced load
+  const float2 ref = token_ref(lv, levels, s, L);
   const int LP = L * P;
   const int64_t bsm = ((int64_t)b * S + s) * M + m;
-  const float* lg = logits + bsm * LP;
-  const float2* of = reinterpret_cast<const float2*>(off + bsm * LP * 2);
-  const float neg_inf = __int_as_float(0xff800000);
-  const float lg0 = lane < LP ? __ldg(lg + lane) : neg_inf;
-  const float lg1 = lane + 32 < LP ? __ldg(lg + lane + 32) : neg_inf;
-  const float2 of0 = lane < LP ? __ldg(of + lane) : make_float2(0.f, 0.f);
-  const float2 of1 = lane + 32 < LP ? __ldg(of + lane + 32) : make_float2(0.f, 0.f);
-  // the softmax over the L*P logits: one expf per sample, max and sum by shuffles
-  float mx = fmaxf(lg0, lg1);
-#pragma unroll
-  for (int k = 16; k > 0; k >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, k));
-  const float e0 = lane < LP ? expf(lg0 - mx) : 0.f;
-  const float e1 = lane + 32 < LP ? expf(lg1 - mx) : 0.f;
-  float sum = e0 + e1;
-#pragma unroll
-  for (int k = 16; k > 0; k >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, k);
-  const float inv_sum = 1.f / sum;
-
-  // per sample, on the lane of each corner: the clamped token row and the weight
-  const int cx = (lane >> 3) & 1;
-  const int cy = lane >> 4;
-  const int tok4 = M * 8;  // float4s per token
+  Samples sm = load_samples(off + bsm * LP * 2, logits + bsm * LP, LP, lane,
+                            __int_as_float(0xff800000));  // -inf
+  lane_softmax(sm, LP, lane);
+  const int tok4 = M * 8;
   const int magic = level_magic(P);
-  auto geometry = [&](int i0, int& row, float& wgt) {
-    const int i = i0 + (lane & 7);
-    const int src = i & 31;  // warp-uniform choice of register: i0 is
-    const float ox = __shfl_sync(0xffffffffu, i0 < 32 ? of0.x : of1.x, src);
-    const float oy = __shfl_sync(0xffffffffu, i0 < 32 ? of0.y : of1.y, src);
-    const float e = __shfl_sync(0xffffffffu, i0 < 32 ? e0 : e1, src);
-    const LaneLevel lvl = level_of(levels, min((i * magic) >> 16, MSDA_MAX_LEVELS - 1));
-    row = 0;
-    wgt = 0.f;
-    if (i < LP) {
-      const int h = lvl.h, w = lvl.w, start = lvl.start;
-      const float wf = (float)w;
-      const float hf = (float)h;
-      // the reference's order: loc = ref + off / (W, H), then x = loc * W - 0.5;
-      // clamped where every corner is off the map anyway, so the int casts are safe
-      const float lx = rx + ox / wf;
-      const float ly = ry + oy / hf;
-      const float x = fminf(fmaxf(lx * wf - 0.5f, -2.f), wf + 1.f);
-      const float y = fminf(fmaxf(ly * hf - 0.5f, -2.f), hf + 1.f);
-      const float x0 = floorf(x);
-      const float y0 = floorf(y);
-      const float fx = x - x0;
-      const float fy = y - y0;
-      const int xc = (int)x0 + cx;
-      const int yc = (int)y0 + cy;
-      if (xc >= 0 && xc < w && yc >= 0 && yc < h) {
-        row = (start + yc * w + xc) * tok4;
-        wgt = e * inv_sum * (cy ? fy : 1.f - fy) * (cx ? fx : 1.f - fx);
-      }
-    }
-  };
-
   const float4* base = reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) +
                        (lane & 7);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  int row;
-  float wgt;
-  geometry(0, row, wgt);
-  for (int i0 = 0; i0 < LP; i0 += 8) {
-    // the next batch's geometry is computed while this batch's loads are in flight
-    int row_n = 0;
-    float wgt_n = 0.f;
-    if (i0 + 8 < LP) geometry(i0 + 8, row_n, wgt_n);
-    gather8(base, row, wgt, lane, acc);
-    row = row_n;
-    wgt = wgt_n;
-  }
+  const float4 acc = sample_loop(base, LP, lane, [&](int i0, int& row, float& wgt) {
+    float a;
+    const Corner c = sample_corner<true>(i0, lane, LP, magic, levels, sm, ref, tok4, a);
+    row = c.row;
+    wgt = c.in ? a * corner_weight(c, lane) : 0.f;
+  });
   store_corners(acc, lane, out + bsm * 32);
 }
+
+// Lane 8c + j holds p[k] = its channels' share of corner c's dot for sample k of the batch
+// (k < 8); returns, on lane 8c + k, the sum of p[k] over the 8 lanes of corner c: a
+// reduce-scatter by xor 4, 2, 1 in 7 shuffles, in a fixed order.
+__device__ __forceinline__ float reduce_scatter8(float (&p)[8], int lane) {
+#pragma unroll
+  for (int half = 4; half >= 1; half >>= 1) {
+    const bool upper = lane & half;
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      const float send = upper ? p[j] : p[j + half];
+      const float keep = upper ? p[j + half] : p[j];
+      p[j] = keep + __shfl_xor_sync(MSDA_FULL, send, half);
+    }
+  }
+  return p[0];
+}
+
+// The scatter weights of a batch's corners with the corners that share a row merged:
+// lane 8c + k holds corner c of sample k, its row and its weight (0 off the map). Lanes
+// are grouped by row (__match_any_sync); the lowest lane of a group gets the group's sum
+// and the others 0, so that a row gets one atomic per batch. A batch with no shared row
+// skips the sum.
+__device__ __forceinline__ float merge_shared_rows(int row, bool in, float wgt, int lane) {
+  const unsigned peers = __match_any_sync(MSDA_FULL, in ? row : -1);
+  if (!__any_sync(MSDA_FULL, in && peers != (1u << lane))) return wgt;
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float wj = __shfl_sync(MSDA_FULL, wgt, j);
+    if ((peers >> j) & 1u) sum += wj;
+  }
+  return in && __ffs(peers) - 1 == lane ? sum : 0.f;
+}
+
+// B2's VJP. value/off/logits as the forward; dout (B, S, M*32); dvalue (B, S, M, 32) zeroed
+// by the caller; doff (B, S, M, L, P, 2) in cells; dlogits (B, S, M, L*P). B2's grid, level
+// table, softmax and geometry (the same samples land in the same cells as in the
+// forward). Lane l keeps dOut's channels 4(l & 7)..+3 for the whole warp. Per batch of 8
+// samples, lane 8c + k holds corner c of sample k; each lane adds a_k w_ck dOut to its
+// corner's in-map row of every sample with one float4 atomic, gathers those rows (load8)
+// and forms its 4-channel share of dot(dOut, v_ck); a reduce-scatter leaves the whole dot
+// of (c, k) on lane 8c + k, where it meets the corner's weight and derivative weights, and
+// shuffles by 8 and 16 sum the corners: dA_k, and gx_k, gy_k (d/dx, d/dy of the sample;
+// x is in cells, so d x / d off = 1). The lane of sample i0 + k stores dOffsets_k = a_k
+// (gx_k, gy_k) and keeps dA_k, and the softmax backward runs on the lanes:
+// dLogits_j = a_j (dA_j - sum_i a_i dA_i).
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_encoder_bwd_kernel(const float* __restrict__ value, const float* __restrict__ off,
+                                  const float* __restrict__ logits,
+                                  const float* __restrict__ dout, float* __restrict__ dvalue,
+                                  float* __restrict__ doff, float* __restrict__ dlogits,
+                                  LevelInfo lv, int S, int M, int L, int P) {
+  const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= S) return;
+  const int m = blockIdx.y % M;
+  const int b = blockIdx.y / M;
+  const LaneLevel levels = lane_level(lv, lane);
+  const float2 ref = token_ref(lv, levels, s, L);
+  const int LP = L * P;
+  const int64_t bsm = ((int64_t)b * S + s) * M + m;
+  Samples sm = load_samples(off + bsm * LP * 2, logits + bsm * LP, LP, lane,
+                            __int_as_float(0xff800000));  // -inf
+  lane_softmax(sm, LP, lane);
+  const float4 g = __ldg(reinterpret_cast<const float4*>(dout + bsm * 32) + (lane & 7));
+  const int tok4 = M * 8;
+  const int magic = level_magic(P);
+  const int64_t head = ((int64_t)b * S * M + m) * 32;
+  const float4* base = reinterpret_cast<const float4*>(value + head) + (lane & 7);
+  float4* dbase = reinterpret_cast<float4*>(dvalue + head) + (lane & 7);
+  const int grp = lane & 24;
+  const bool cx = (lane >> 3) & 1;
+  const bool cy = lane >> 4;
+  float2* doff2 = reinterpret_cast<float2*>(doff + bsm * LP * 2);
+  float dA0 = 0.f, dA1 = 0.f;
+  for (int i0 = 0; i0 < LP; i0 += 8) {
+    float a;
+    const Corner c = sample_corner<true>(i0, lane, LP, magic, levels, sm, ref, tok4, a);
+#ifndef MSDA_NO_SCATTER
+    // dValue first: the atomics are issued before the loads, so that neither waits on the
+    // other and their operands are dead before the 8 rows arrive (issued after the loads,
+    // they spill). A measurement build (chip_smoke.py builds it with -DMSDA_NO_SCATTER)
+    // skips these atomics and nothing else.
+    const float wgt =
+        merge_shared_rows(c.row, c.in, c.in ? a * corner_weight(c, lane) : 0.f, lane);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float wk = __shfl_sync(MSDA_FULL, wgt, grp | k);
+      const int rk = __shfl_sync(MSDA_FULL, c.row, grp | k);
+      if (wk != 0.f) atomicAdd(dbase + rk, make_float4(wk * g.x, wk * g.y, wk * g.z, wk * g.w));
+    }
+#endif
+    float4 v[8];
+    load8(base, c.row, lane, v);
+    float p[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      p[k] = fmaf(g.w, v[k].w, fmaf(g.z, v[k].z, fmaf(g.y, v[k].y, g.x * v[k].x)));
+    const float dot = reduce_scatter8(p, lane);
+    // the corner's weight and its derivatives in x and y, all 0 for a corner off the map:
+    // its row is the valid one it was clamped to, whose dot must add nothing
+    const float wx = cx ? c.fx : 1.f - c.fx;
+    const float wy = cy ? c.fy : 1.f - c.fy;
+    float tA = c.in ? wy * wx * dot : 0.f;
+    float tx = c.in ? (cx ? wy : -wy) * dot : 0.f;
+    float ty = c.in ? (cy ? wx : -wx) * dot : 0.f;
+#pragma unroll
+    for (int k = 8; k <= 16; k <<= 1) {
+      tA += __shfl_xor_sync(MSDA_FULL, tA, k);
+      tx += __shfl_xor_sync(MSDA_FULL, tx, k);
+      ty += __shfl_xor_sync(MSDA_FULL, ty, k);
+    }
+    // the lane of sample i = i0 + (lane & 7) keeps dA_i and stores dOffsets_i
+    const int i = i0 + (lane & 7);
+    if ((lane >> 3) == ((i0 >> 3) & 3) && i < LP) {
+      const float ai = i0 < 32 ? sm.a0 : sm.a1;
+      doff2[i] = make_float2(ai * tx, ai * ty);
+      if (i0 < 32)
+        dA0 = tA;
+      else
+        dA1 = tA;
+    }
+  }
+  float sdot = sm.a0 * dA0 + sm.a1 * dA1;
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) sdot += __shfl_xor_sync(MSDA_FULL, sdot, k);
+  float* dlg = dlogits + bsm * LP;
+  if (lane < LP) dlg[lane] = sm.a0 * (dA0 - sdot);
+  if (lane + 32 < LP) dlg[lane + 32] = sm.a1 * (dA1 - sdot);
+}
+
+// ---------------------------------------------------------------------------
+// B3, in its first form (one warp per (batch, query, head), lanes on the channels).
 
 // Backward of one bilinear tap for this lane's channel. ``v``/``dv`` point at
 // (level start token, head, channel) of value and dValue. Scatters ``ag`` (attn *
@@ -450,8 +650,8 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The backward of one (batch, query, head) warp over its L*P samples, shared by
-// both kernels: writes dLoc (in units of ``loc_scale`` per pixel: W, H for
+// The backward of one (batch, query, head) warp over its L*P samples (B3; B4 had the
+// same layout before its redesign): writes dLoc (in units of ``loc_scale`` per pixel: W, H for
 // normalized locations, 1 for cell offsets) and the attention gradient dA into
 // ``dattn_w`` (lane 0), and scatters into dValue. ``xy_of`` maps sample i to its
 // pixel coordinates (x, y).
@@ -511,55 +711,6 @@ __global__ void ms_deform_attn_queries_bwd_kernel(
   };
   warp_bwd(value, dvalue, dout + warp * D, dloc + warp * LP * 2, dattn + warp * LP, lv, b, S, m,
            M, D, L, P, lane, true, attn_w, xy_of);
-}
-
-// value/off/logits as the forward; dout (B, S, M*D); dvalue zeroed by the caller;
-// doff (B, S, M, L, P, 2) in cells; dlogits (B, S, M, L*P).
-__global__ void ms_deform_attn_encoder_bwd_kernel(
-    const float* __restrict__ value, const float* __restrict__ off,
-    const float* __restrict__ logits, const float* __restrict__ dout, float* __restrict__ dvalue,
-    float* __restrict__ doff, float* __restrict__ dlogits, LevelInfo lv, int S, int M, int D,
-    int L, int P, int64_t n_warps) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  const int m = (int)(warp % M);
-  const int64_t bs = warp / M;
-  const int s = (int)(bs % S);
-  const int64_t b = bs / S;
-  int l1 = 0;
-  while (l1 + 1 < L && s >= lv.start[l1 + 1]) ++l1;
-  const int t = s - lv.start[l1];
-  const int row = t / lv.w[l1];
-  const int col = t - row * lv.w[l1];
-  const float rx = ((float)col + 0.5f) / (float)lv.w[l1];
-  const float ry = ((float)row + 0.5f) / (float)lv.h[l1];
-
-  const int LP = L * P;
-  const float* lg = logits + warp * LP;
-  const float* of = off + warp * LP * 2;
-  float* dlg = dlogits + warp * LP;
-  float mx = __int_as_float(0xff800000);  // -inf
-  for (int i = 0; i < LP; ++i) mx = fmaxf(mx, __ldg(lg + i));
-  float sum = 0.f;
-  for (int i = 0; i < LP; ++i) sum += expf(__ldg(lg + i) - mx);
-  // the softmax, as the forward computes it, in a per-thread array
-  float a[MSDA_MAX_SAMPLES];
-  for (int i = 0; i < LP; ++i) a[i] = expf(__ldg(lg + i) - mx) / sum;
-  auto xy_of = [&](int i, int l, float& x, float& y) {
-    const float w = (float)lv.w[l];
-    const float h = (float)lv.h[l];
-    x = (rx + __ldg(of + 2 * i) / w) * w - 0.5f;
-    y = (ry + __ldg(of + 2 * i + 1) / h) * h - 0.5f;
-  };
-  // dA goes into dlogits first, then through the softmax in place
-  warp_bwd(value, dvalue, dout + warp * D, doff + warp * LP * 2, dlg, lv, b, S, m, M, D, L, P,
-           lane, false, a, xy_of);
-  __syncwarp();
-  float dot = 0.f;
-  for (int i = 0; i < LP; ++i) dot += a[i] * dlg[i];
-  __syncwarp();
-  for (int i = lane; i < LP; i += 32) dlg[i] = a[i] * (dlg[i] - dot);
 }
 
 // Slot weights of one axis (_merged_indices_and_slot_weights :103-111): the true
@@ -680,7 +831,7 @@ __global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ val
 // halo) in VMEM, contracts a one-hot G against it on the MXU and drops the samples
 // beyond it. Here the footprint is a cache: a corner inside the staged footprint is
 // read from shared memory, any other corner from device memory, so the result is
-// exact (grid_sample semantics, the bilinear_tap rule) whatever the halo.
+// exact (grid_sample semantics: corners off the map contribute zero) whatever the halo.
 //
 // Design. One block (8 warps) per (query chunk, batch, head): blockIdx.x runs over
 // the chunks of up to FP_QCHUNK queries of the query tiles of all source levels,
@@ -728,7 +879,9 @@ __device__ __forceinline__ float fp_corner(const float* __restrict__ fp,
   return __ldg(v + ((int64_t)y * w + x) * tok_stride);
 }
 
-// bilinear_tap with the footprint cache: (oy, ox) is the footprint's origin.
+// The bilinear sample of this lane's channel at pixel coordinates (x, y) (x = loc * W -
+// 0.5; corners off the map contribute zero), with the footprint cache: (oy, ox) is the
+// footprint's origin.
 __device__ __forceinline__ float fp_tap(const float* __restrict__ fp, const float* __restrict__ v,
                                         int h, int w, int64_t tok_stride, int oy, int ox,
                                         int fh, int fw, float x, float y) {
@@ -931,16 +1084,24 @@ static unsigned int n_blocks(int64_t n_warps) {
   return (unsigned int)((n_warps + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK);
 }
 
+// The limits of the lane-layout kernels B1, B2 and B4 (ops/deform_attn.py check_lane_layout
+// raises on the same): D == 32, one float4 per lane and corner; at most two samples a lane;
+// the (batch, head) pairs within gridDim.y; the float4 index of every token row of one batch
+// item in int.
+static bool lane_layout_ok(int B, int S, int M, int D, int L, int P) {
+  return L >= 1 && L <= MSDA_MAX_LEVELS && D == 32 && P >= 1 && L * P <= MSDA_MAX_SAMPLES &&
+         (int64_t)B * M <= 65535 && (int64_t)S * M * 8 <= INT32_MAX;
+}
+
 extern "C" int ms_deform_attn_queries_fwd(const float* value, const float* loc,
                                           const float* attn, float* out, const int* shapes,
                                           int B, int S, int Lq, int M, int D, int L, int P,
                                           void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const int64_t n_warps = (int64_t)B * Lq * M;
-  if (n_warps == 0) return (int)cudaSuccess;
-  ms_deform_attn_queries_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
-                                  (cudaStream_t)stream>>>(
-      value, loc, attn, out, make_levels(shapes, L), S, Lq, M, D, L, P, n_warps);
+  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
+  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  ms_deform_attn_queries_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      value, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
   return (int)cudaGetLastError();
 }
 
@@ -948,11 +1109,7 @@ extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
                                           const float* logits, float* out, const int* shapes,
                                           int B, int S, int M, int D, int L, int P,
                                           void* stream) {
-  // D == 32: one float4 per lane and corner; the token rows of one batch item in int
-  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES ||
-      (int64_t)S * M * 8 > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if ((int64_t)B * M > 65535) return (int)cudaErrorInvalidValue;
+  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
   if (B * M == 0 || S == 0) return (int)cudaSuccess;
   const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
   ms_deform_attn_encoder_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
@@ -960,18 +1117,22 @@ extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
   return (int)cudaGetLastError();
 }
 
-// What the runtime made of a redesigned forward (which: 0 B2, 1 B5): info[0] registers
-// a thread, info[1] local memory a thread in bytes (stack and spills), info[2] resident
-// blocks of 32 * MSDA_WARPS_PER_BLOCK threads per SM.
-extern "C" int ms_deform_attn_fwd_info(int which, int* info) {
-  const void* fn = which == 0 ? (const void*)ms_deform_attn_encoder_kernel
-                              : (const void*)ms_deform_attn_merged_kernel;
+// What the runtime made of a lane-layout kernel (which: 0 B1, 1 B2, 2 B4, 3 B5): info[0]
+// registers a thread, info[1] local memory a thread in bytes (stack and spills), info[2]
+// resident blocks of 32 * MSDA_WARPS_PER_BLOCK threads per SM.
+extern "C" int ms_deform_attn_kernel_info(int which, int* info) {
+  const void* fns[] = {(const void*)ms_deform_attn_queries_kernel,
+                       (const void*)ms_deform_attn_encoder_kernel,
+                       (const void*)ms_deform_attn_encoder_bwd_kernel,
+                       (const void*)ms_deform_attn_merged_kernel};
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t e = cudaFuncGetAttributes(&attr, fns[which]);
   if (e != cudaSuccess) return (int)e;
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], fn, 32 * MSDA_WARPS_PER_BLOCK, 0);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], fns[which],
+                                                    32 * MSDA_WARPS_PER_BLOCK, 0);
   return (int)e;
 }
 
@@ -1021,13 +1182,12 @@ extern "C" int ms_deform_attn_encoder_bwd(const float* value, const float* off,
                                           float* dvalue, float* doff, float* dlogits,
                                           const int* shapes, int B, int S, int M, int D, int L,
                                           int P, void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS || L * P > MSDA_MAX_SAMPLES) return (int)cudaErrorInvalidValue;
-  const int64_t n_warps = (int64_t)B * S * M;
-  if (n_warps == 0) return (int)cudaSuccess;
-  ms_deform_attn_encoder_bwd_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
+  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || S == 0) return (int)cudaSuccess;
+  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  ms_deform_attn_encoder_bwd_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0,
                                       (cudaStream_t)stream>>>(
-      value, off, logits, dout, dvalue, doff, dlogits, make_levels(shapes, L), S, M, D, L, P,
-      n_warps);
+      value, off, logits, dout, dvalue, doff, dlogits, make_levels(shapes, L), S, M, L, P);
   return (int)cudaGetLastError();
 }
 

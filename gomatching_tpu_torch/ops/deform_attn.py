@@ -31,9 +31,10 @@ backward is a kernel too:
     ``_v2_bwd_impl``), exact over the whole level.
 
 The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through the plain
-forwards; the tests and ``chip_smoke.py`` hold the kernels against them. B2 takes
-D == 32 channels per head (one float4 per lane and corner); the others any D. The source
-note in the .cu file gives each kernel's design and what bounds it on an H100. Each
+forwards; the tests and ``chip_smoke.py`` hold the kernels against them. B1, B2 and B4
+take D == 32 channels per head (one float4 per lane and corner) within the limits that
+``check_lane_layout`` names; B3 any D. The source note in the .cu file gives each
+kernel's design and what bounds it on an H100. Each
 launch adds one to ``launch_counts[name]``, which also counts the
 launches of B5 and of its table build (``ms_deform_attn_merged``,
 ``ms_deform_attn_merged_table``; ``ops/deform_attn_merged.py``) and of the four
@@ -84,12 +85,14 @@ _SIGNATURES = {
     "ms_deform_attn_merged_table": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_footprint_fwd": [_I, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ms_deform_attn_fwd_info": [_I, ctypes.POINTER(_I)],
+    "ms_deform_attn_kernel_info": [_I, ctypes.POINTER(_I)],
 }
 _MAX_LEVELS = 8
 _MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)
 _WARPS_PER_BLOCK = 8  # MSDA_WARPS_PER_BLOCK of the .cu file
-KERNEL_D = 32  # channels per head of B2 and B5: one float4 per lane and corner
+KERNEL_D = 32  # channels per head of B1, B2, B4 and B5: one float4 per lane and corner
+_MAX_GRID_Y = 65535  # (batch, head) pairs: the grid's y extent
+_INT32_MAX = 2**31 - 1
 
 
 def reset_launch_counts() -> None:
@@ -261,11 +264,27 @@ def _encoder_dims(value, spatial_shapes, offsets, attn_logits, name=ENCODER):
     B, S, M, D = value.shape
     L, P = offsets.shape[3], offsets.shape[4]
     if (offsets.shape != (B, S, M, L, P, 2) or attn_logits.shape != (B, S, M, L * P)
-            or len(spatial_shapes) != L or L * P > _MAX_SAMPLES):
+            or len(spatial_shapes) != L):
         raise ValueError(f"{name}: shape mismatch {tuple(offsets.shape)} / "
                          f"{tuple(attn_logits.shape)} for value {tuple(value.shape)} "
-                         f"and {L} levels (L*P <= {_MAX_SAMPLES})")
+                         f"and {L} levels")
     return B, S, M, D, L, P
+
+
+def check_lane_layout(name: str, B: int, S: int, M: int, D: int, L: int, P: int) -> None:
+    """Raise ValueError, naming the limit, for value (B, S, M, D) and L levels of P points
+    that the lane-layout kernels (B1, B2, B4) do not take; their C entries refuse the same."""
+    if D != KERNEL_D:
+        raise ValueError(f"{name}: the kernel takes D == {KERNEL_D} channels per head, got D={D}")
+    if not 1 <= P or L * P > _MAX_SAMPLES:
+        raise ValueError(f"{name}: the kernel takes 1 <= P and L*P <= {_MAX_SAMPLES} samples "
+                         f"per head, got L={L}, P={P}")
+    if B * M > _MAX_GRID_Y:
+        raise ValueError(f"{name}: the kernel takes B*M <= {_MAX_GRID_Y} (batch, head) pairs, "
+                         f"got B={B}, M={M}")
+    if S * M * 8 > _INT32_MAX:
+        raise ValueError(f"{name}: the kernel takes S*M*8 <= {_INT32_MAX} (float4 rows of one "
+                         f"batch item), got S={S}, M={M}")
 
 
 def _check_grad_out(name, grad_out, shape):
@@ -295,6 +314,7 @@ def ms_deform_attn_encoder_backward(value, spatial_shapes, offsets, attn_logits,
     tensors only: on the CPU, autograd differentiates the plain forward."""
     _require_cuda(ENCODER_BWD, value, offsets, attn_logits, grad_out)
     B, S, M, D, L, P = _encoder_dims(value, spatial_shapes, offsets, attn_logits, ENCODER_BWD)
+    check_lane_layout(ENCODER_BWD, B, S, M, D, L, P)
     _check_grad_out(ENCODER_BWD, grad_out, (B, S, M * D))
     return tuple(_launch(
         ENCODER_BWD, "ms_deform_attn_encoder_bwd",
@@ -311,9 +331,10 @@ class _QueriesFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes):
         dims = _queries_dims(value, spatial_shapes, sampling_locations, attention_weights)
+        B, S, Lq, M, D, L, P = dims
+        check_lane_layout(QUERIES, B, S, M, D, L, P)
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, sampling_locations, attention_weights)
-        B, S, Lq, M, D, L, P = dims
         return _launch(QUERIES, "ms_deform_attn_queries_fwd",
                        {"value": value, "sampling_locations": sampling_locations,
                         "attention_weights": attention_weights},
@@ -331,9 +352,7 @@ class _EncoderFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, offsets, attn_logits, spatial_shapes):
         dims = _encoder_dims(value, spatial_shapes, offsets, attn_logits)
-        if dims[3] != KERNEL_D:
-            raise ValueError(f"{ENCODER}: the kernel takes D == {KERNEL_D} channels per head, "
-                             f"got value {tuple(value.shape)}")
+        check_lane_layout(ENCODER, *dims)
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, offsets, attn_logits)
         B, S, M, D, L, P = dims
@@ -347,14 +366,15 @@ class _EncoderFunction(torch.autograd.Function):
                                                  *ctx.saved_tensors[1:], grad_out), None)
 
 
-def forward_kernel_info() -> Dict[str, Dict[str, int]]:
-    """Registers and local memory a thread, and resident warps per SM, of B2 and B5 as
-    the CUDA runtime reports them for the loaded library (needs a card)."""
+def kernel_info() -> Dict[str, Dict[str, int]]:
+    """Registers and local memory a thread, and resident warps per SM, of the lane-layout
+    kernels B1, B2, B4 and B5 as the CUDA runtime reports them for the loaded library
+    (needs a card)."""
     from ._build import load
 
-    fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_fwd_info
+    fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_kernel_info
     out = {}
-    for which, name in enumerate((ENCODER, MERGED)):
+    for which, name in enumerate((QUERIES, ENCODER, ENCODER_BWD, MERGED)):
         info = (_I * 3)()
         rc = fn(which, info)
         if rc != 0:
@@ -376,7 +396,7 @@ def ms_deform_attn_queries(
     """B1: deformable attention for arbitrary normalized locations (B3 its backward).
 
     value (B, S, M, D); sampling_locations (B, Lq, M, L, P, 2); attention_weights
-    (B, Lq, M, L, P), softmaxed over (L, P) -> (B, Lq, M*D).
+    (B, Lq, M, L, P), softmaxed over (L, P) -> (B, Lq, M*D). The kernel takes D == 32.
     """
     if _on_cpu(value, sampling_locations, attention_weights):
         return ms_deform_attn_queries_plain(
