@@ -5,9 +5,11 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device check and kernel build (nvcc, from the sources in this checkout); ptxas's
-     registers, stack and spills of the lane-layout kernels B1, B2, B4 and B5, and from
-     the runtime their registers, local memory (which must be 0) and resident warps per
-     SM;
+     registers, stack and spills of the lane-layout kernels B1-B5, and from the runtime
+     their registers, local memory (which must be 0; B3 at most 64 registers) and resident
+     warps per SM; the same for the footprint kernel's three instantiations (B6a-c) at
+     the dynamic shared memory of a block under the shipped budget, and for the
+     -DFP_WARPS=8 measurement build (blocks of 8 warps) under a budget of 0;
   2. each hand-written kernel against its plain PyTorch version at the full-width
      ICDAR15 shapes (1000x1778 input: levels (125,223) (63,112) (32,56) (16,28),
      S=37171 tokens, M=8 heads, D=32, L=4, P=4, 100x25 decoder queries), with
@@ -29,9 +31,11 @@ Phases (any failure exits non-zero and prints no result line):
      (autograd through grid_sample) at the pretraining shapes (1280x1280 square input:
      levels (160,160) (80,80) (40,40) (20,20), S=34000, B=1, 100x25 decoder queries),
      with locations and offsets outside the maps; max |kernel - plain| / max |plain| of
-     each gradient against RTOL_BWD, and times beside the bound; B4's dOffsets and
-     dLogits the same bits on a second call; then B4 at the EDGE_CASES shapes, offsets
-     partly off the maps and off grid lines, the same way;
+     each gradient against RTOL_BWD, and times (CUDA events and the profiler's device
+     time) beside the bound; B3's dLoc and dAttn and B4's dOffsets and dLogits the same
+     bits on a second call; then B3 (EDGE_LQ queries) and B4 at the EDGE_CASES shapes,
+     locations and offsets partly off the maps and off grid lines, the same way; B3's
+     wrapper refuses D = 16 on the card (ValueError, no launch);
   7. one full-width pretraining step (forward, costs, host Hungarian, losses,
      backward) with the kernels, with the plain versions, and with the plain versions
      in float64 at the same matches: same seeded weights, image and targets, TF32 off;
@@ -44,7 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
      TRAIN_SIZE 1280 over a synthetic dataset of 720x1280 images with text boxes; finite
      losses, moved parameters, a checkpoint that loads back strictly, each of B1-B4
      launched 6 x steps times; ms/step, images/s and peak memory over the steps after
-     warm-up; host wall per stage; one step under torch.profiler;
+     warm-up; host wall per stage; one step under torch.profiler, with B3's and B4's
+     device time in it;
   9. B5 (the corner-merged sampler of TPU.SAMPLING_IMPL 'pallas') against its plain
      version and against the B1 kernel at the full-width encoder (Lq = S) and decoder
      (Lq = 2500) shapes, locations partly outside the maps, at ATOL_KERNEL, the same
@@ -62,14 +67,20 @@ Phases (any failure exits non-zero and prints no result line):
      ``ms_deform_attn_encoder_fused``; one kernel) at the full-width encoder shapes with
      TILED_HALO 5 and the default tiles, offsets beyond the halo for >= 5% of samples and
      beyond the maps for some: each against its plain version and against the B1 kernel
-     on the same locations at ATOL_KERNEL; its launch counted; a (source, target) pair
-     over the shared-memory budget on the direct route; a raise under autograd; kernel,
-     plain and bound times beside B1's and B2's on the same function, and the share of
-     corner taps read from shared memory;
+     on the same locations at ATOL_KERNEL, the same bits on a second call; its launch
+     counted; the copy route and buffers printed; a (source, target) pair over the
+     shared-memory budget on the direct route, reading nothing from shared memory; a
+     raise under autograd; the shipped build and budget (one block of 16 warps an SM,
+     large buffers), four blocks of 8 warps an SM (the -DFP_WARPS=8 measurement build)
+     and one block of 16 warps, both under a budget of 0 (every pair direct), each within
+     ATOL_KERNEL of plain, timed in turns with their resident warps per SM and share of
+     corner taps read from shared memory; kernel, plain and bound times beside B1's and
+     B2's on the same function;
  13. the sampler benchmark ``gomatching_tpu_torch.tools.bench_deform_attn.main`` at B=3
      over every sampler (B1, B2, B5, B6a natural and tile-major, B6b, B6c) and two
      tilesets; each within ATOL_KERNEL of the exact gather, each of the four B6 entries
-     launched; B1's time per encoder call beside B2's on the same samples;
+     launched; every sampler's time per encoder call on the same samples (B6a-c beside B1
+     and B2);
  14. the probe kernels (``csrc/probes.cu``): T1 ``gather_rows_sum`` in the four cases of
      the gather rate probe, on an integer-valued table (kernel, plain version and the
      float64 sum exactly equal) and on a randn table (within RTOL_GATHER of the sum of
@@ -81,9 +92,9 @@ Phases (any failure exits non-zero and prints no result line):
  15. B1 (decoder and encoder shapes), B2 and B5 from a measurement build of
      ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0: every gathered row is row 0 of its
      base, an L1 hit) against the real build on the same inputs, in turns: how much of
-     each kernel's time the memory system adds; and B4 from a build without its dValue
-     atomics (-DMSDA_NO_SCATTER) against the real build at the pretraining shape, in
-     turns: what the scatter costs beside the gather.
+     each kernel's time the memory system adds; and B4 and B3 from a build without their
+     dValue atomics (-DMSDA_NO_SCATTER) against the real build at the pretraining shape,
+     in turns: what the scatter costs beside the gather.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1 and T2); the last is {"ok": true, "device": {...}}.
 """
@@ -139,6 +150,7 @@ RTOL_GATHER = 2 * 276 * 2.0 ** -24
 ATOL_G = 1e-6  # T2 in f32: the kernel does _g_kernel's ops in its order, without FMAs
 ROW0_FLAGS = ("-DMSDA_GATHER_ROW0",)  # phase 15's measurement builds
 NO_SCATTER_FLAGS = ("-DMSDA_NO_SCATTER",)
+FP_WARPS8_FLAGS = ("-DFP_WARPS=8",)  # phases 1 and 12: footprint blocks of 8 warps
 # The small shapes phases 2 and 6 also run B1 and B4 at (tests/test_torch_deform_attn_edges.py
 # holds the plain versions against JAX at the same): (name, B, M, level shapes, P)
 EDGE_LEVELS = [(6, 9), (3, 5), (2, 3), (1, 2)]
@@ -209,21 +221,34 @@ def value_reads(torch, loc, S, D, shapes=SHAPES):
     return int(touched.sum().item()) * D * 4, taps
 
 
-def phase_resources(da, _build):
-    """What ptxas and the runtime made of the lane-layout kernels (B1, B2, B4, B5):
-    registers, stack and spills from nvcc's report kept beside the library, and
-    registers, local memory and resident warps per SM from the CUDA runtime. None may
-    keep anything in local memory."""
-    names = {da.QUERIES: "ms_deform_attn_queries_kernel", da.ENCODER: "ms_deform_attn_encoder_kernel",
-             da.ENCODER_BWD: "ms_deform_attn_encoder_bwd_kernel",
-             da.MERGED: "ms_deform_attn_merged_kernel"}
-    report = {name: [] for name in names}
+def ptxas_report(path, kernels):
+    """{name: ptxas's 'Used ...' and spill lines} for each kernel of ``kernels`` (name ->
+    a substring of its mangled name) in the build log at ``path``."""
+    report = {name: [] for name in kernels}
     cur = None
-    for line in _build.build_log("ms_deform_attn.cu").read_text().splitlines():
+    for line in path.read_text().splitlines():
         if "Compiling entry function" in line:
-            cur = next((n for n, k in names.items() if k in line), None)
+            cur = next((n for n, k in kernels.items() if k in line), None)
         elif cur and ("Used" in line or "spill" in line):
             report[cur].append(" ".join(line.replace("ptxas info    :", "").split()))
+    return report
+
+
+def phase_resources(da, dav, _build):
+    """What ptxas and the runtime made of the lane-layout kernels (B1, B2, B4, B5, B3) and
+    of the footprint kernel's three instantiations (B6a-c): registers, stack and spills
+    from nvcc's report kept beside the library, and registers, local memory and resident
+    warps per SM from the CUDA runtime (the footprint kernel's at the dynamic shared memory
+    phase 12's footprints take under the shipped budget, and those of the -DFP_WARPS=8
+    measurement build under a budget of 0). No lane-layout kernel may keep anything in
+    local memory, and B3 at most 64 registers."""
+    names = {da.QUERIES: "ms_deform_attn_queries_kernel", da.ENCODER: "ms_deform_attn_encoder_kernel",
+             da.ENCODER_BWD: "ms_deform_attn_encoder_bwd_kernel",
+             da.MERGED: "ms_deform_attn_merged_kernel",
+             da.QUERIES_BWD: "ms_deform_attn_queries_bwd_kernel"}
+    fp_names = {f"ms_deform_attn_footprint_kernel<{g}>": f"ms_deform_attn_footprint_kernelILi{i}E"
+                for i, g in enumerate(("NATURAL_LOC", "TM_LOC", "TM_OFF_CELLS"))}
+    report = ptxas_report(_build.build_log("ms_deform_attn.cu"), {**names, **fp_names})
     info = da.kernel_info()
     for name in names:
         check(report[name], f"{name}: no ptxas report for {names[name]}")
@@ -232,6 +257,56 @@ def phase_resources(da, _build):
               f"memory a thread, {info[name]['warps_per_sm']} resident warps per SM")
         check(info[name]["local_bytes"] == 0, f"{name}: {info[name]['local_bytes']} bytes of "
               "local memory a thread (stack or spills)")
+    check(info[da.QUERIES_BWD]["registers"] <= 64,
+          f"{da.QUERIES_BWD}: {info[da.QUERIES_BWD]['registers']} registers a thread (limit 64)")
+    fp = dav.vmem_footprints(da.VMEM, SHAPES, P, TILED_HALO)
+    for (kernel, name), i in zip(fp_names.items(), dav.footprint_kernel_info(fp).values()):
+        check(report[kernel], f"{kernel}: no ptxas report")
+        print(f"[1] {kernel} (for {name.split(' (')[0]}): ptxas: {'; '.join(report[kernel])}; "
+              f"runtime, shipped budget (SMEM_BLOCK_BYTES {dav.SMEM_BLOCK_BYTES}): "
+              f"{fp.smem_bytes} bytes of dynamic shared memory a block ({dav.NBUF} buffers of "
+              f"{fp.fp_bytes}), {i['registers']} registers, {i['local_bytes']} bytes of local "
+              f"memory a thread, {i['warps_per_sm']} resident warps per SM")
+        check(i["warps_per_sm"] > 0, f"{kernel}: does not fit an SM")
+    # the -DFP_WARPS=8 measurement build under a budget of 0 (nothing staged), as phase 12
+    lib8 = measurement_lib(_build, da, FP_WARPS8_FLAGS)
+    log8 = _build.build_log("ms_deform_attn.cu", _build.NVCC_FLAGS + FP_WARPS8_FLAGS)
+    report8 = ptxas_report(log8, fp_names)
+    with patched(dav, SMEM_BLOCK_BYTES=0):
+        dav.footprints.cache_clear()
+        fp = dav.vmem_footprints(da.VMEM, SHAPES, P, TILED_HALO)
+    dav.footprints.cache_clear()
+    for which, kernel in enumerate(fp_names, start=5):
+        check(report8[kernel], f"{kernel} (-DFP_WARPS=8): no ptxas report")
+        i = lib_kernel_info(lib8, which, fp.smem_bytes)
+        print(f"[1] {kernel} of the -DFP_WARPS=8 build: ptxas: {'; '.join(report8[kernel])}; "
+              f"runtime, budget 0: {fp.smem_bytes} bytes of dynamic shared memory a block, "
+              f"{i['registers']} registers, {i['local_bytes']} bytes of local memory a thread, "
+              f"{i['warps_per_sm']} resident warps per SM")
+        check(i["warps_per_sm"] > 0, f"{kernel} (-DFP_WARPS=8): does not fit an SM")
+
+
+def measurement_lib(_build, da, flags):
+    """``csrc/ms_deform_attn.cu`` built with ``flags`` added (a measurement build, which the
+    wrappers never load), its C functions typed as the wrappers type them."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(_build.build("ms_deform_attn.cu", flags=_build.NVCC_FLAGS + flags)))
+    for fn, argtypes in da._SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def lib_kernel_info(lib, which, smem_bytes):
+    """``ms_deform_attn_kernel_info`` of kernel ``which`` of ``lib``, as
+    ``deform_attn._kernel_info`` gives it for the wrappers' library."""
+    import ctypes
+
+    info = (ctypes.c_int * 3)()
+    rc = lib.ms_deform_attn_kernel_info(which, smem_bytes, info)
+    check(rc == 0, f"ms_deform_attn_kernel_info({which}): cudaError {rc}")
+    return {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2]}
 
 
 def same_bits(torch, name, fn, got):
@@ -651,10 +726,11 @@ def phase_sampler_ab(torch, predictor, n_pairs=10):
         for k, v in fps.items()) + f"; pallas ahead in {wins} of {n_pairs} pairs")
 
 
-def phase_footprint(torch, da, dav, daf):
+def phase_footprint(torch, da, dav, daf, _build):
     """B6a-c at the full-width encoder shapes: each entry against its plain version and
-    the B1 kernel, its launch, its direct route and its refusal under autograd; returns
-    the kernels-line records (sans launches)."""
+    the B1 kernel, its launch, its direct route and its refusal under autograd, and the
+    buffers-against-occupancy trade-off in turns; returns the kernels-line records (sans
+    launches)."""
     S = sum(h * w for h, w in SHAPES)
     g = torch.Generator().manual_seed(11)
     dev = "cuda"
@@ -685,28 +761,51 @@ def phase_footprint(torch, da, dav, daf):
     b1_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn))
     b2_ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits))
     # (name, the entry as a function of value, its plain version, the locations and
-    # attention B1 takes for the same function, the footprints, the locations in the
-    # kernel's query order, the TPU kernel, the entry's inputs)
+    # attention B1 takes for the same function, the footprints under the current budget,
+    # the locations in the kernel's query order, the TPU kernel, the entry's inputs)
     cases = [
         (da.VMEM, lambda v: dav.ms_deform_attn_encoder_vmem(v, SHAPES, loc, attn, h),
          lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn),
-         (loc, attn), dav.vmem_footprints(da.VMEM, SHAPES, P, h), loc,
+         (loc, attn), lambda: dav.vmem_footprints(da.VMEM, SHAPES, P, h), loc,
          "gomatching_tpu/ops/deform_attn_vmem.py:896", (loc, attn)),
         (da.VMEM_TM, lambda v: dav.ms_deform_attn_encoder_vmem_tm(v, SHAPES, locT, attnT, h),
          lambda: dav.ms_deform_attn_encoder_vmem_tm_plain(value, SHAPES, locT, attnT),
-         (loc, attn), dav.vmem_footprints(da.VMEM_TM, SHAPES, P, h, S_tm=S_tm), loc[:, perm],
-         "gomatching_tpu/ops/deform_attn_vmem.py:896", (locT, attnT)),
+         (loc, attn), lambda: dav.vmem_footprints(da.VMEM_TM, SHAPES, P, h, S_tm=S_tm),
+         loc[:, perm], "gomatching_tpu/ops/deform_attn_vmem.py:896", (locT, attnT)),
         (da.VMEM_V3, lambda v: dav.ms_deform_attn_encoder_vmem_v3(v, SHAPES, offT, attnT3, h),
          lambda: dav.ms_deform_attn_encoder_vmem_v3_plain(value, SHAPES, offT, attnT3),
-         (loc3, attn3), dav.vmem_footprints(da.VMEM_V3, SHAPES, P, h, S_tm=S_tm), loc3,
+         (loc3, attn3), lambda: dav.vmem_footprints(da.VMEM_V3, SHAPES, P, h, S_tm=S_tm), loc3,
          "gomatching_tpu/ops/deform_attn_vmem.py:724", (offT, attnT3)),
         (da.FUSED, lambda v: daf.ms_deform_attn_encoder_fused(v, SHAPES, loc, attn, h),
          lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn),
-         (loc, attn), daf.fused_footprints(SHAPES, P, h), loc,
+         (loc, attn), lambda: daf.fused_footprints(SHAPES, P, h), loc,
          "gomatching_tpu/ops/deform_attn_fused.py:54", (loc, attn)),
     ]
+    # (budget SMEM_BLOCK_BYTES, library, warps a block) of the buffers-against-occupancy
+    # trade-off: the shipped build and budget (one block of 16 warps an SM, large buffers);
+    # blocks of 8 warps, four an SM, from the -DFP_WARPS=8 measurement build, whose small
+    # buffers fit no footprint at these shapes, so under a budget of 0; and the shipped
+    # build under a budget of 0 (every pair direct): staging against gathering at the same
+    # occupancy
+    lib8 = measurement_lib(_build, da, FP_WARPS8_FLAGS)
+    configs = {"shipped": (dav.SMEM_BLOCK_BYTES, None, 16), "four blocks": (0, lib8, 8),
+               "one block, direct": (0, None, 16)}
+    print(f"[12] footprint copies: TMA (one cp.async.bulk.tensor.5d box per staged footprint, "
+          f"completion on an mbarrier), {dav.NBUF} buffers a block; (budget SMEM_BLOCK_BYTES, "
+          f"warps a block): " + ", ".join(f"{k} ({c[0]}, {c[2]})" for k, c in configs.items()))
+
+    @contextlib.contextmanager
+    def config(label):
+        cap, lib, _ = configs[label]
+        with patched(dav, SMEM_BLOCK_BYTES=cap, **({"load": lambda *_: lib} if lib else {})):
+            dav.footprints.cache_clear()
+            try:
+                yield
+            finally:
+                dav.footprints.cache_clear()
+
     records = {}
-    for name, entry, plain, (w_loc, w_attn), fp, fp_loc, replaces, inputs in cases:
+    for name, entry, plain, (w_loc, w_attn), fp_of, fp_loc, replaces, inputs in cases:
         def call():
             return entry(value)
 
@@ -720,46 +819,78 @@ def phase_footprint(torch, da, dav, daf):
         err_b1 = (got - witness).abs().max().item()
         check(math.isfinite(err) and err <= ATOL_KERNEL, f"{name}: max err {err}")
         check(math.isfinite(err_b1) and err_b1 <= ATOL_KERNEL, f"{name}: differs from B1 by {err_b1}")
-        del want, witness
-        share = dav.staged_share(fp, SHAPES, fp_loc)
-        direct = [pair for pair, (n_smem, n_taps) in share.items()
-                  if not fp.pairs[pair[0]][pair[1]][4] and n_taps > 0]
-        check(direct and all(share[p][0] == 0 for p in direct),
-              f"{name}: no (source, target) pair over the budget on the direct route")
+        same_bits(torch, name, call, got)
+        del witness
+        fps, shares, errs = {}, {}, {}
+        for label in configs:
+            with config(label):
+                fps[label] = fp_of()
+                shares[label] = dav.staged_share(fps[label], SHAPES, fp_loc)
+                if label != "shipped":
+                    errs[label] = (call() - want).abs().max().item()
+                    check(math.isfinite(errs[label]) and errs[label] <= ATOL_KERNEL,
+                          f"{name} ({label}): max err {errs[label]}")
+        del want
+        # a pair over the budget reads nothing from shared memory: under the shipped budget,
+        # or under the budget of 0 if the shipped one stages every pair with taps
+        direct = []
+        for label in ("shipped", "one block, direct"):
+            fp, share = fps[label], shares[label]
+            direct = [pair for pair, (n_smem, n_taps) in share.items()
+                      if not fp.pairs[pair[0]][pair[1]][4] and n_taps > 0]
+            if direct:
+                check(all(share[p][0] == 0 for p in direct),
+                      f"{name}: a direct pair read from shared memory ({label} budget)")
+                break
+        check(direct, f"{name}: no (source, target) pair over the budget on the direct route")
+        check(not fps["one block, direct"].boxes.any() and not fps["four blocks"].boxes.any(),
+              f"{name}: a budget of 0 stages a footprint")
         try:
             entry(value.detach().requires_grad_(True))
             raised = False
         except RuntimeError as e:
             raised = "no backward" in str(e)
         check(raised, f"{name}: did not raise under autograd")
-        # the same kernel with every pair on the direct route (no footprint staged, a
-        # quarter of the shared memory), in turns with the staged one
-        runs = {"staged": [], "direct": []}
-        for route in ("staged", "direct", "direct", "staged"):
-            with patched(dav, SMEM_BLOCK_BYTES=0 if route == "direct" else dav.SMEM_BLOCK_BYTES):
-                dav.footprints.cache_clear()
-                runs[route].append(cuda_time_ms(call))
-        dav.footprints.cache_clear()
-        ms = sum(runs["staged"]) / len(runs["staged"])
+        # the three configurations in turns (a, b, c, c, b, a)
+        runs = {label: [] for label in configs}
+        for label in (*configs, *reversed(configs)):
+            with config(label):
+                runs[label].append(cuda_time_ms(call))
+        warps = {label: (lib_kernel_info(lib, 5 + fps[label].layout, fps[label].smem_bytes)
+                         if lib else list(dav.footprint_kernel_info(fps[label]).values())[
+                             fps[label].layout])["warps_per_sm"]
+                 for label, (_, lib, _) in configs.items()}
+        ms = sum(runs["shipped"]) / len(runs["shipped"])
         plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
         v_bytes, taps = value_reads(torch, w_loc, S, D)
         samples = w_loc.shape[1] * B * M * L * P
         b_ms, b_by = bound(v_bytes + nbytes(*inputs, got), samples * (20 + 2 * D) + taps * (2 * D + 1))
-        smem, n_taps = (sum(v[k] for v in share.values()) for k in (0, 1))
         records[name] = dict(
             name=name, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None,
         )
+
+        def staged_pct(label):
+            smem, n_taps = (sum(v[k] for v in shares[label].values()) for k in (0, 1))
+            return f"{100 * smem / n_taps:.1f}%"
+
         print(f"[12] {name} (Lq={w_loc.shape[1]}): max|kernel-plain| {err:.3e}, max|kernel-B1| "
-              f"{err_b1:.3e} (atol {ATOL_KERNEL}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}); every pair direct "
-              f"{', '.join(f'{t:.4f}' for t in runs['direct'])} ms against staged "
-              f"{', '.join(f'{t:.4f}' for t in runs['staged'])} ms in turns; on the same "
-              f"function B1 {b1_ms:.4f} ms, B2 "
-              f"{b2_ms:.4f} ms; staged {100 * smem / n_taps:.1f}% of {n_taps} in-map corner taps, "
-              f"direct pairs {direct}; raises under autograd; at B={B}, halo {TILED_HALO}, "
-              f"{100 * beyond:.1f}% of samples beyond the halo, {100 * outside:.2f}% outside the maps")
+              f"{err_b1:.3e} (atol {ATOL_KERNEL}), same bits twice; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); on the same function B1 "
+              f"{b1_ms:.4f} ms, B2 {b2_ms:.4f} ms; direct pairs {direct}; raises under autograd; "
+              f"at B={B}, halo {TILED_HALO}, {100 * beyond:.1f}% of samples beyond the halo, "
+              f"{100 * outside:.2f}% outside the maps")
+        for label, (cap, _, block_warps) in configs.items():
+            fp = fps[label]
+            print(f"[12]   {name} {label} (SMEM_BLOCK_BYTES {cap}): "
+                  f"{', '.join(f'{t:.4f}' for t in runs[label])} ms in turns; "
+                  f"{block_warps} warps and {fp.smem_bytes} bytes of shared memory a block, "
+                  f"{warps[label]} resident "
+                  f"warps per SM; {sum(st for row in fp.pairs for *_, st in row)} of "
+                  f"{len(SHAPES) ** 2} pairs staged, {staged_pct(label)} of in-map corner taps "
+                  f"from shared memory"
+                  + (f"; max|kernel-plain| {errs[label]:.3e}" if label in errs else ""))
         del got
     return records
 
@@ -779,10 +910,17 @@ def phase_bench(torch, da):
               f"phase 13: {r['impl']} {r['tiles']} differs from the exact gather by {r['max_abs_err']}")
     for name in (da.VMEM, da.VMEM_TM, da.VMEM_V3, da.FUSED):
         check(counts[name] > 0, f"phase 13: {name} never launched")
-    ms = {r["impl"]: r["ms"] for r in res["results"]}
+    ms = {}
+    for r in res["results"]:
+        ms.setdefault(r["impl"], []).append(r["ms"])
+    names = {"gather": f"{da.QUERIES} (B1)", "encoder": f"{da.ENCODER} (B2)",
+             "merged": "B5 with its table", "vmem": f"{da.VMEM} (B6a)",
+             "vmem_tm": f"{da.VMEM_TM} (B6a, tile-major)", "vmem_v3": f"{da.VMEM_V3} (B6b)",
+             "fused": f"{da.FUSED} (B6c)"}
     print(f"[13] sampler benchmark: {len(res['results'])} runs within {ATOL_KERNEL} of the exact "
-          f"gather; launches {counts}; per encoder call on the same samples: {da.QUERIES} (B1) "
-          f"{ms['gather']:.4f} ms, {da.ENCODER} (B2) {ms['encoder']:.4f} ms")
+          f"gather; launches {counts}; per encoder call on the same samples (ms; B6 per "
+          f"tileset): " + "; ".join(f"{names.get(k, k)} {', '.join(f'{t:.4f}' for t in v)}"
+                                    for k, v in ms.items()))
     return counts
 
 
@@ -941,9 +1079,9 @@ def in_turns(name, call, libs, builds, what):
 def phase_gather_floor(torch, da, dam, _build):
     """B1, B2 and B5 from the measurement build in which every gathered row is row 0 of
     its base (an L1 hit) against the real build, on the same inputs and in turns (real,
-    row 0, row 0, real): what the memory system adds to each kernel's time; and B4 from
-    the build without its dValue atomics against the real build, in turns: what the
-    scatter adds to B4."""
+    row 0, row 0, real): what the memory system adds to each kernel's time; and B4 and B3
+    from the build without their dValue atomics against the real build, in turns: what
+    the scatter adds to each."""
     import ctypes
 
     S = sum(h * w for h, w in SHAPES)
@@ -963,15 +1101,9 @@ def phase_gather_floor(torch, da, dam, _build):
     out = torch.empty(B, S, M * D, device=dev)
     flat = (ctypes.c_int * (2 * L))(*[x for hw in SHAPES for x in hw])
     stream = torch.cuda.current_stream().cuda_stream
-    fns = ("ms_deform_attn_queries_fwd", "ms_deform_attn_encoder_fwd", "ms_deform_attn_merged_fwd",
-           "ms_deform_attn_encoder_bwd")
-    libs = {}
-    for build, flags in (("real", ()), ("row 0", ROW0_FLAGS), ("no scatter", NO_SCATTER_FLAGS)):
-        libs[build] = ctypes.CDLL(str(_build.build("ms_deform_attn.cu",
-                                                   flags=_build.NVCC_FLAGS + flags)))
-        for fn in fns:
-            getattr(libs[build], fn).argtypes = da._SIGNATURES[fn]
-            getattr(libs[build], fn).restype = ctypes.c_int
+    libs = {build: measurement_lib(_build, da, flags)
+            for build, flags in (("real", ()), ("row 0", ROW0_FLAGS),
+                                 ("no scatter", NO_SCATTER_FLAGS))}
     calls = {
         f"{da.QUERIES} at B={B}, Lq={Lq}": lambda lib: lib.ms_deform_attn_queries_fwd(
             value.data_ptr(), dec_loc.data_ptr(), dec_attn.data_ptr(), out.data_ptr(), flat,
@@ -1003,6 +1135,17 @@ def phase_gather_floor(torch, da, dam, _build):
     in_turns(f"{da.ENCODER_BWD} at B=1, Lq={S}", lambda lib: lib.ms_deform_attn_encoder_bwd(
         value.data_ptr(), off.data_ptr(), logits.data_ptr(), dout.data_ptr(),
         *(t.data_ptr() for t in grads), flat, 1, S, M, D, L, P, stream), libs,
+        ("real", "no scatter"), "without the dValue atomics; the scatter adds")
+    # B3 at the pretraining shape, as phase 6
+    Lq = NQ * NPTS
+    loc = (torch.rand(1, Lq, M, L, P, 2, generator=g) * 1.2 - 0.1).to(dev)
+    attn = torch.randn(1, Lq, M, L * P, generator=g).softmax(-1).view(1, Lq, M, L, P).to(dev)
+    dout = torch.randn(1, Lq, M * D, generator=g).to(dev)
+    grads = [torch.zeros(1, S, M, D, device=dev), torch.empty(1, Lq, M, L, P, 2, device=dev),
+             torch.empty(1, Lq, M, L, P, device=dev)]
+    in_turns(f"{da.QUERIES_BWD} at B=1, Lq={Lq}", lambda lib: lib.ms_deform_attn_queries_bwd(
+        value.data_ptr(), loc.data_ptr(), attn.data_ptr(), dout.data_ptr(),
+        *(t.data_ptr() for t in grads), flat, 1, S, Lq, M, D, L, P, stream), libs,
         ("real", "no scatter"), "without the dValue atomics; the scatter adds")
 
 
@@ -1068,8 +1211,7 @@ def phase_backward(torch, da):
         abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
         for n, e in errs.items():
             check(math.isfinite(e) and e <= RTOL_BWD, f"{name}: d{n} relative error {e}")
-        if name == da.ENCODER_BWD:
-            bits_twice(torch, name, got, kernel(*args))
+        bits_twice(torch, name, grad_names[1:], got, kernel(*args))
         ms = cuda_time_ms(lambda: kernel(*args))
         dev_us = device_us(torch, lambda: kernel(*args), f"{name}_kernel")
         plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
@@ -1090,21 +1232,70 @@ def phase_backward(torch, da):
         )
         print(f"[6] {name}: max|kernel-plain|/max|plain| "
               + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
-              + f" (rtol {RTOL_BWD}); max abs {abs_err:.3e}; kernel {ms:.4f} ms a call (device "
+              + f" (rtol {RTOL_BWD}); max abs {abs_err:.3e}; d{grad_names[1]} and "
+              f"d{grad_names[2]} the same bits twice; kernel {ms:.4f} ms a call (device "
               f"{fmt_us(dev_us)}), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {v_bytes / 1e6:.1f} MB of value "
               f"rows touched of {nbytes(value) / 1e6:.1f} MB) at B=1, {n_q} queries")
         del got, want
+    edge_queries_backward(torch, da)
     edge_encoder_backward(torch, da)
     return records
 
 
-def bits_twice(torch, name, got, again):
-    """B4's dOffsets and dLogits are summed in a fixed order: a second call gives the same
-    bits (dValue's atomics may reorder its last bits)."""
+def bits_twice(torch, name, names, got, again):
+    """B3's dLoc and dAttn, B4's dOffsets and dLogits, are summed in a fixed order: a second
+    call gives the same bits (dValue's atomics may reorder its last bits)."""
     torch.cuda.synchronize()
-    for n, a, b in zip(("offsets", "logits"), got[1:], again[1:]):
+    for n, a, b in zip(names, got[1:], again[1:]):
         check(torch.equal(a, b), f"{name}: d{n} differs on a second call")
+
+
+def edge_queries_backward(torch, da):
+    """B3 against its plain version at the EDGE_CASES shapes with EDGE_LQ queries,
+    locations partly off the maps and off grid lines: max |kernel - plain| / max |plain|
+    per gradient against RTOL_BWD, and dLoc and dAttn the same bits on a second call."""
+    g = torch.Generator().manual_seed(10)
+    for name, b, m, shapes, p in EDGE_CASES:
+        S, L = sum(h * w for h, w in shapes), len(shapes)
+        wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)[:, None, :]
+        value = torch.randn(b, S, m, D, generator=g)
+        loc = torch.rand(b, EDGE_LQ, m, L, p, 2, generator=g) * 1.3 - 0.15
+        loc = (off_grid(torch, loc * wh - 0.5) + 0.5) / wh
+        px = loc * wh - 0.5
+        outside = ((px <= -1) | (px >= wh)).any(-1).float().mean().item()
+        attn = torch.randn(b, EDGE_LQ, m, L * p, generator=g).softmax(-1).view(b, EDGE_LQ, m, L, p)
+        dout = torch.randn(b, EDGE_LQ, m * D, generator=g)
+        args = [t.cuda() for t in (value, loc, attn, dout)]
+        args.insert(1, shapes)
+        before = da.launch_counts[da.QUERIES_BWD]
+        got = da.ms_deform_attn_queries_backward(*args)
+        check(da.launch_counts[da.QUERIES_BWD] == before + 1, f"{da.QUERIES_BWD} {name}: no launch")
+        want = da.ms_deform_attn_queries_plain_backward(*args)
+        torch.cuda.synchronize()
+        errs = {n: rel_err(a, w) for n, a, w in zip(("value", "loc", "attn"), got, want)}
+        for n, e in errs.items():
+            check(math.isfinite(e) and e <= RTOL_BWD, f"{da.QUERIES_BWD} {name}: d{n} relative "
+                  f"error {e}")
+        bits_twice(torch, f"{da.QUERIES_BWD} {name}", ("loc", "attn"), got,
+                   da.ms_deform_attn_queries_backward(*args))
+        print(f"[6] {da.QUERIES_BWD} at {name} (B={b}, M={m}, levels {shapes}, P={p}, "
+              f"Lq={EDGE_LQ}): max|kernel-plain|/max|plain| "
+              + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
+              + f" (rtol {RTOL_BWD}); dLoc and dAttn the same bits twice; "
+              f"{100 * outside:.0f}% of samples wholly off the map")
+    # the wrapper's guard on the card: D != 32 raises before any launch
+    before = da.launch_counts[da.QUERIES_BWD]
+    args = [torch.zeros(shape, device="cuda") for shape in
+            ((1, 6, 2, 16), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2), (1, 3, 32))]
+    try:
+        da.ms_deform_attn_queries_backward(args[0], [(2, 3)], *args[1:])
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    check("D == 32" in raised and da.launch_counts[da.QUERIES_BWD] == before,
+          f"{da.QUERIES_BWD}: D = 16 on the card did not raise before the launch ({raised!r})")
+    print(f"[6] {da.QUERIES_BWD} refuses D = 16 on the card before the launch: {raised}")
 
 
 def edge_encoder_backward(torch, da):
@@ -1135,7 +1326,8 @@ def edge_encoder_backward(torch, da):
         for n, e in errs.items():
             check(math.isfinite(e) and e <= RTOL_BWD, f"{da.ENCODER_BWD} {name}: d{n} relative "
                   f"error {e}")
-        bits_twice(torch, f"{da.ENCODER_BWD} {name}", got, da.ms_deform_attn_encoder_backward(*args))
+        bits_twice(torch, f"{da.ENCODER_BWD} {name}", ("offsets", "logits"), got,
+                   da.ms_deform_attn_encoder_backward(*args))
         print(f"[6] {da.ENCODER_BWD} at {name} (B={b}, M={m}, levels {shapes}, P={p}): "
               "max|kernel-plain|/max|plain| " + ", ".join(f"d{n} {e:.3e}" for n, e in errs.items())
               + f" (rtol {RTOL_BWD}); dOffsets and dLogits the same bits twice; "
@@ -1466,6 +1658,12 @@ def phase_train(torch, da):
           f"{sum(r[1] for r in rows)} kernels and copies")
     for t_us, n, key in rows[:15]:
         print(f"[8]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy:5.1f}% x{n:<5d} {key[:90]}")
+    for label, prefix in (("B3", "ms_deform_attn_queries_bwd_kernel("),
+                          ("B4", "ms_deform_attn_encoder_bwd_kernel(")):
+        us = sum(t_us for t_us, _, key in rows if key.startswith(prefix))
+        n = sum(c for _, c, key in rows if key.startswith(prefix))
+        print(f"[8]   {label} ({prefix[:-1]}): {us / 1e3:.3f} ms of device time in the step, "
+              f"{n} launches, {100 * us / 1e3 / busy:.2f}% of the step's device time")
     return counts
 
 
@@ -1498,12 +1696,12 @@ def main():
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
     builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS),
-              ("ms_deform_attn.cu", NO_SCATTER_FLAGS))
+              ("ms_deform_attn.cu", NO_SCATTER_FLAGS), ("ms_deform_attn.cu", FP_WARPS8_FLAGS))
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda sf: _build.build(sf[0], flags=_build.NVCC_FLAGS + sf[1]), builds))
     print(f"[1] kernels built in {time.time() - t0:.1f} s ("
           + ", ".join(" ".join((src, *flags)) for src, flags in builds) + " in parallel)")
-    phase_resources(da, _build)
+    phase_resources(da, dav, _build)
 
     records = phase_kernels(torch, da)
     cfg = setup_eval_cfg(CONFIG, ["MODEL.WEIGHTS", "''",
@@ -1539,7 +1737,7 @@ def main():
     del predictor
 
     # the sampler benchmark on the footprint entries (B6a-c)
-    fp_records = phase_footprint(torch, da, dav, daf)
+    fp_records = phase_footprint(torch, da, dav, daf, _build)
     bench_counts = phase_bench(torch, da)
 
     # the probe kernels (T1, T2) behind the port's probe tools

@@ -26,7 +26,7 @@
 // B2's call), almost all from L2 and L1, so what the kernels reach is a rate of
 // gathered rows, not the byte bound.
 //
-// The lane layout (B1, B2, B4, and B5 on its table). The first forms of B1 and B2 took
+// The lane layout (B1-B4, and B5 on its table). The first forms of B1 and B2 took
 // one warp per (batch, query, head), lanes on the channels, 16 samples in series through
 // a per-sample bilinear tap: B2 3.70 ms, B1 0.212 ms a call on an NVIDIA H100 80GB HBM3 at
 // 700 W. Every lane reloaded the samples' inputs (B2: its 16 logits three times, expf per
@@ -63,9 +63,14 @@
 // build) B2 still takes 0.739 ms of its 0.789, B1 0.575 of 0.625 at the encoder's shape
 // and 0.043 of 0.059 at the decoder's.
 // Not used, and why: tensor cores (the function does ~0.5 flop per byte; the one-hot
-// operand of a matmul form alone costs 4-10 us a block to build, the probe T2);
-// shared-memory value tiles (measured in B6: 3.8-4.4 ms); TMA (it copies tiles, not
-// 16-byte gathers).
+// operand of a matmul form alone costs 4-10 us a block to build, the probe T2); value
+// tiles staged in shared memory, even by TMA and on this lane layout (the footprint kernel
+// B6 below does exactly that): the kernels are bound by their own instructions, not by
+// where a row comes from (shared memory and L1 are one array behind one data path, so a
+// row costs the same wavefronts from either; staging saves only L1 misses), and the shared
+// memory a tile takes costs resident warps; B6 staging 90% of its corner taps is 3%
+// faster than gathering them all at the same occupancy and 26% slower than gathering them
+// at twice its resident warps (the -DFP_WARPS=8 build; chip_smoke.py phase 12).
 //
 // Their backwards (the VJPs the training path needs) recompute the taps:
 //
@@ -93,12 +98,16 @@
 // channel per in-range corner (one dot, one dValue scale-and-add), which stays under
 // the byte time.
 //
-// B3 keeps its first form: one warp per (batch, query, head), lanes on the channels;
-// per (level, point) the warp recomputes x, y and the four corner weights, scatters
-// with one scalar f32 atomicAdd per channel and corner (a 128-byte reduction per
-// corner at D == 32) and reduces the sample, dx and dy with three 5-step warp sums;
-// lane 0 writes dAttn and dLoc; LevelInfo indexed at run time (on the stack). 0.14 ms
-// against its 0.021 ms bound on an NVIDIA H100 80GB HBM3 at 700 W.
+// B3 is B4's kernel on B1's geometry (its first form took one warp per (batch, query,
+// head) with lanes on the channels, walked the samples one at a time, kept LevelInfo on the
+// stack and issued a scalar atomic per channel and corner: 0.138 ms a call, 0.121 ms of
+// device time on an NVIDIA H100 80GB HBM3 at 700 W). Now B1's grid and load_samples on the
+// normalized locations and softmaxed weights (no softmax backward), sample_corner<false>
+// so every sample lands in B1's cell, the merged float4 atomics before the loads, the
+// reduce-scatter of the corner dots; the lane of sample i stores dAttn_i and dLoc_i = a_i
+// (gx_i W, gy_i H). It takes D == 32 within check_lane_layout's limits. What bounds it is
+// what bounds B4: its scatter and its own instructions, not bytes (PERF.md and phases 6 and
+// 15 of chip_smoke.py give its times beside the bound).
 //
 // B4 is the transpose of B2 on its lane layout (B4's first form had B3's and took
 // 1.81 ms): B2's grid, level table, softmax and geometry, so each sample lands in the
@@ -176,13 +185,15 @@
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and the function returns cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #define MSDA_MAX_LEVELS 8
 #define MSDA_MAX_SAMPLES 64  // L * P per head: two samples a lane in the lane-layout kernels
 #define MSDA_WARPS_PER_BLOCK 8
-// resident blocks per SM the lane-layout kernels (B1, B2, B4, B5) ask of the compiler: at
+// resident blocks per SM the lane-layout kernels (B1-B5) ask of the compiler: at
 // most 64 registers a thread, so that 32 warps fit on an SM
 #define MSDA_FWD_MIN_BLOCKS 4
 #define MSDA_FULL 0xffffffffu
@@ -212,7 +223,7 @@ __device__ __forceinline__ void level_dims(const LevelInfo& lv, int l, int& h, i
   }
 }
 
-// The gather of the lane-layout kernels (B1, B2, B4, B5), D == 32. Lane l owns corner
+// The gather of the lane-layout kernels (B1-B5), D == 32. Lane l owns corner
 // l >> 3 and channels 4(l & 7)..+3; for the 8 samples of a batch, the lanes of corner c
 // (8c .. 8c + 7) hold, sample k of the batch in lane 8c + k, that corner's float4 offset
 // ``row`` from ``base`` (a valid row for a corner off the map). load8 takes each lane's
@@ -515,16 +526,62 @@ __device__ __forceinline__ float merge_shared_rows(int row, bool in, float wgt, 
   return in && __ffs(peers) - 1 == lane ? sum : 0.f;
 }
 
+// One batch of 8 samples of the backward kernels B3 and B4: lane 8c + k holds corner c of
+// sample k (``c``; ``a`` the sample's weight), ``g`` the lane's 4 channels of dOut, ``base``
+// and ``dbase`` the head's value and dValue rows at the lane's float4. Each lane adds
+// a_k w_ck dOut to its corner's in-map row of every sample with one float4 atomic, the
+// batch's corners that share a row merged first; the atomics are issued before the
+// batch's loads, so that neither waits on the other and their operands are dead before
+// the 8 rows arrive (issued after the loads, they spill). A measurement build
+// (chip_smoke.py builds it with -DMSDA_NO_SCATTER) skips these atomics and nothing else.
+// Then load8 gathers the rows, each lane forms its 4-channel share of dot(dOut, v_ck), a
+// reduce-scatter leaves the whole dot of (c, k) on lane 8c + k, where it meets the corner's
+// weight and derivative weights (all 0 for a corner off the map: its row is the valid one
+// it was clamped to, whose dot must add nothing), and shuffles by 8 and 16 sum the corners.
+// Every lane of sample k gets dA_k (tA) and the sample's d/dx and d/dy (tx, ty).
+__device__ __forceinline__ void bwd_batch(const Corner& c, float a, float4 g,
+                                          const float4* __restrict__ base,
+                                          float4* __restrict__ dbase, int lane, float& tA,
+                                          float& tx, float& ty) {
+#ifndef MSDA_NO_SCATTER
+  const float wgt =
+      merge_shared_rows(c.row, c.in, c.in ? a * corner_weight(c, lane) : 0.f, lane);
+  const int grp = lane & 24;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float wk = __shfl_sync(MSDA_FULL, wgt, grp | k);
+    const int rk = __shfl_sync(MSDA_FULL, c.row, grp | k);
+    if (wk != 0.f) atomicAdd(dbase + rk, make_float4(wk * g.x, wk * g.y, wk * g.z, wk * g.w));
+  }
+#endif
+  float4 v[8];
+  load8(base, c.row, lane, v);
+  float p[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    p[k] = fmaf(g.w, v[k].w, fmaf(g.z, v[k].z, fmaf(g.y, v[k].y, g.x * v[k].x)));
+  const float dot = reduce_scatter8(p, lane);
+  const bool cx = (lane >> 3) & 1;
+  const bool cy = lane >> 4;
+  const float wx = cx ? c.fx : 1.f - c.fx;
+  const float wy = cy ? c.fy : 1.f - c.fy;
+  tA = c.in ? wy * wx * dot : 0.f;
+  tx = c.in ? (cx ? wy : -wy) * dot : 0.f;
+  ty = c.in ? (cy ? wx : -wx) * dot : 0.f;
+#pragma unroll
+  for (int k = 8; k <= 16; k <<= 1) {
+    tA += __shfl_xor_sync(MSDA_FULL, tA, k);
+    tx += __shfl_xor_sync(MSDA_FULL, tx, k);
+    ty += __shfl_xor_sync(MSDA_FULL, ty, k);
+  }
+}
+
 // B2's VJP. value/off/logits as the forward; dout (B, S, M*32); dvalue (B, S, M, 32) zeroed
 // by the caller; doff (B, S, M, L, P, 2) in cells; dlogits (B, S, M, L*P). B2's grid, level
 // table, softmax and geometry (the same samples land in the same cells as in the
-// forward). Lane l keeps dOut's channels 4(l & 7)..+3 for the whole warp. Per batch of 8
-// samples, lane 8c + k holds corner c of sample k; each lane adds a_k w_ck dOut to its
-// corner's in-map row of every sample with one float4 atomic, gathers those rows (load8)
-// and forms its 4-channel share of dot(dOut, v_ck); a reduce-scatter leaves the whole dot
-// of (c, k) on lane 8c + k, where it meets the corner's weight and derivative weights, and
-// shuffles by 8 and 16 sum the corners: dA_k, and gx_k, gy_k (d/dx, d/dy of the sample;
-// x is in cells, so d x / d off = 1). The lane of sample i0 + k stores dOffsets_k = a_k
+// forward). Lane l keeps dOut's channels 4(l & 7)..+3 for the whole warp. Each batch of 8
+// samples goes through bwd_batch: dValue, and per sample dA_k, gx_k, gy_k (d/dx, d/dy; x
+// is in cells, so d x / d off = 1). The lane of sample i0 + k stores dOffsets_k = a_k
 // (gx_k, gy_k) and keeps dA_k, and the softmax backward runs on the lanes:
 // dLogits_j = a_j (dA_j - sum_i a_i dA_i).
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
@@ -551,48 +608,12 @@ ms_deform_attn_encoder_bwd_kernel(const float* __restrict__ value, const float* 
   const int64_t head = ((int64_t)b * S * M + m) * 32;
   const float4* base = reinterpret_cast<const float4*>(value + head) + (lane & 7);
   float4* dbase = reinterpret_cast<float4*>(dvalue + head) + (lane & 7);
-  const int grp = lane & 24;
-  const bool cx = (lane >> 3) & 1;
-  const bool cy = lane >> 4;
   float2* doff2 = reinterpret_cast<float2*>(doff + bsm * LP * 2);
   float dA0 = 0.f, dA1 = 0.f;
   for (int i0 = 0; i0 < LP; i0 += 8) {
-    float a;
+    float a, tA, tx, ty;
     const Corner c = sample_corner<true>(i0, lane, LP, magic, levels, sm, ref, tok4, a);
-#ifndef MSDA_NO_SCATTER
-    // dValue first: the atomics are issued before the loads, so that neither waits on the
-    // other and their operands are dead before the 8 rows arrive (issued after the loads,
-    // they spill). A measurement build (chip_smoke.py builds it with -DMSDA_NO_SCATTER)
-    // skips these atomics and nothing else.
-    const float wgt =
-        merge_shared_rows(c.row, c.in, c.in ? a * corner_weight(c, lane) : 0.f, lane);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float wk = __shfl_sync(MSDA_FULL, wgt, grp | k);
-      const int rk = __shfl_sync(MSDA_FULL, c.row, grp | k);
-      if (wk != 0.f) atomicAdd(dbase + rk, make_float4(wk * g.x, wk * g.y, wk * g.z, wk * g.w));
-    }
-#endif
-    float4 v[8];
-    load8(base, c.row, lane, v);
-    float p[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-      p[k] = fmaf(g.w, v[k].w, fmaf(g.z, v[k].z, fmaf(g.y, v[k].y, g.x * v[k].x)));
-    const float dot = reduce_scatter8(p, lane);
-    // the corner's weight and its derivatives in x and y, all 0 for a corner off the map:
-    // its row is the valid one it was clamped to, whose dot must add nothing
-    const float wx = cx ? c.fx : 1.f - c.fx;
-    const float wy = cy ? c.fy : 1.f - c.fy;
-    float tA = c.in ? wy * wx * dot : 0.f;
-    float tx = c.in ? (cx ? wy : -wy) * dot : 0.f;
-    float ty = c.in ? (cy ? wx : -wx) * dot : 0.f;
-#pragma unroll
-    for (int k = 8; k <= 16; k <<= 1) {
-      tA += __shfl_xor_sync(MSDA_FULL, tA, k);
-      tx += __shfl_xor_sync(MSDA_FULL, tx, k);
-      ty += __shfl_xor_sync(MSDA_FULL, ty, k);
-    }
+    bwd_batch(c, a, g, base, dbase, lane, tA, tx, ty);
     // the lane of sample i = i0 + (lane & 7) keeps dA_i and stores dOffsets_i
     const int i = i0 + (lane & 7);
     if ((lane >> 3) == ((i0 >> 3) & 3) && i < LP) {
@@ -612,105 +633,53 @@ ms_deform_attn_encoder_bwd_kernel(const float* __restrict__ value, const float* 
   if (lane + 32 < LP) dlg[lane + 32] = sm.a1 * (dA1 - sdot);
 }
 
-// ---------------------------------------------------------------------------
-// B3, in its first form (one warp per (batch, query, head), lanes on the channels).
-
-// Backward of one bilinear tap for this lane's channel. ``v``/``dv`` point at
-// (level start token, head, channel) of value and dValue. Scatters ``ag`` (attn *
-// dOut) times each corner weight into dv, adds g * dsample/dx and g * dsample/dy
-// to gx and gy, and returns the sample.
-__device__ __forceinline__ float bilinear_tap_bwd(const float* __restrict__ v,
-                                                  float* __restrict__ dv, int h, int w,
-                                                  int64_t tok_stride, float x, float y,
-                                                  float g, float ag, float& gx, float& gy) {
-  if (!(x > -1.f && y > -1.f && x < (float)w && y < (float)h)) return 0.f;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const float dx = x - x0f;
-  const float dy = y - y0f;
-  const float hx = 1.f - dx;
-  const float hy = 1.f - dy;
-  const bool in_x0 = x0 >= 0, in_x1 = x0 + 1 < w, in_y0 = y0 >= 0, in_y1 = y0 + 1 < h;
-  const int64_t o00 = ((int64_t)y0 * w + x0) * tok_stride;
-  const int64_t o10 = o00 + (int64_t)w * tok_stride;
-  float v00 = 0.f, v01 = 0.f, v10 = 0.f, v11 = 0.f;
-  if (in_y0 && in_x0) { v00 = __ldg(v + o00); atomicAdd(dv + o00, ag * hy * hx); }
-  if (in_y0 && in_x1) { v01 = __ldg(v + o00 + tok_stride); atomicAdd(dv + o00 + tok_stride, ag * hy * dx); }
-  if (in_y1 && in_x0) { v10 = __ldg(v + o10); atomicAdd(dv + o10, ag * dy * hx); }
-  if (in_y1 && in_x1) { v11 = __ldg(v + o10 + tok_stride); atomicAdd(dv + o10 + tok_stride, ag * dy * dx); }
-  gx += g * (hy * (v01 - v00) + dy * (v11 - v10));
-  gy += g * (hx * (v10 - v00) + dx * (v11 - v01));
-  return hy * hx * v00 + hy * dx * v01 + dy * hx * v10 + dy * dx * v11;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int k = 16; k > 0; k >>= 1) x += __shfl_xor_sync(0xffffffffu, x, k);
-  return x;
-}
-
-// The backward of one (batch, query, head) warp over its L*P samples (B3; B4 had the
-// same layout before its redesign): writes dLoc (in units of ``loc_scale`` per pixel: W, H for
-// normalized locations, 1 for cell offsets) and the attention gradient dA into
-// ``dattn_w`` (lane 0), and scatters into dValue. ``xy_of`` maps sample i to its
-// pixel coordinates (x, y).
-template <typename XY>
-__device__ __forceinline__ void warp_bwd(const float* __restrict__ value, float* __restrict__ dvalue,
-                                         const float* __restrict__ dout_w,
-                                         float* __restrict__ dloc_w, float* __restrict__ dattn_w,
-                                         const LevelInfo& lv, int64_t b, int S, int m, int M,
-                                         int D, int L, int P, int lane, bool normalized,
-                                         const float* attn, XY xy_of) {
-  const int64_t tok_stride = (int64_t)M * D;
-  for (int l = 0; l < L; ++l) {
-    const int h = lv.h[l];
-    const int w = lv.w[l];
-    const int64_t base = ((b * S + lv.start[l]) * M + m) * D;
-    for (int p = 0; p < P; ++p) {
-      const int i = l * P + p;
-      float x, y;
-      xy_of(i, l, x, y);
-      const float a = attn[i];
-      float s_acc = 0.f, gx = 0.f, gy = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        const float g = __ldg(dout_w + d);
-        s_acc += g * bilinear_tap_bwd(value + base + d, dvalue + base + d, h, w, tok_stride,
-                                      x, y, g, a * g, gx, gy);
-      }
-      s_acc = warp_sum(s_acc);
-      gx = warp_sum(gx);
-      gy = warp_sum(gy);
-      if (lane == 0) {
-        dattn_w[i] = s_acc;
-        dloc_w[2 * i] = a * gx * (normalized ? (float)w : 1.f);
-        dloc_w[2 * i + 1] = a * gy * (normalized ? (float)h : 1.f);
-      }
+// B1's VJP. value/loc/attn as B1's forward; dout (B, Lq, M*32); dvalue (B, S, M, 32) zeroed
+// by the caller; dloc (B, Lq, M, L, P, 2); dattn (B, Lq, M, L, P). B4's kernel with B1's
+// geometry: blockIdx.y is the (batch, head) pair and warp w of block x takes query 8x + w
+// (neighbouring points of one text instance), lane j loads sample j's normalized location
+// and softmaxed weight (load_samples; no softmax, so no softmax backward), and each batch of
+// 8 samples goes through sample_corner<false>, so every sample lands in B1's cell, then
+// through B4's bwd_batch. The lane of sample i stores dAttn_i = dA_i and dLoc_i = a_i
+// (gx_i W_l, gy_i H_l): x = loc W - 0.5, so dx / dloc = W. dLoc and dAttn are summed in a
+// fixed order: the same bits every call.
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_queries_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
+                                  const float* __restrict__ attn, const float* __restrict__ dout,
+                                  float* __restrict__ dvalue, float* __restrict__ dloc,
+                                  float* __restrict__ dattn, LevelInfo lv, int S, int Lq, int M,
+                                  int L, int P) {
+  const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (q >= Lq) return;
+  const int m = blockIdx.y % M;
+  const int b = blockIdx.y / M;
+  const LaneLevel levels = lane_level(lv, lane);
+  const int LP = L * P;
+  const int64_t bqm = ((int64_t)b * Lq + q) * M + m;
+  const Samples sm = load_samples(loc + bqm * LP * 2, attn + bqm * LP, LP, lane, 0.f);
+  const float4 g = __ldg(reinterpret_cast<const float4*>(dout + bqm * 32) + (lane & 7));
+  const int tok4 = M * 8;
+  const int magic = level_magic(P);
+  const int64_t head = ((int64_t)b * S * M + m) * 32;
+  const float4* base = reinterpret_cast<const float4*>(value + head) + (lane & 7);
+  float4* dbase = reinterpret_cast<float4*>(dvalue + head) + (lane & 7);
+  float2* dloc2 = reinterpret_cast<float2*>(dloc + bqm * LP * 2);
+  float* dattn_q = dattn + bqm * LP;
+  for (int i0 = 0; i0 < LP; i0 += 8) {
+    float a, tA, tx, ty;
+    const Corner c =
+        sample_corner<false>(i0, lane, LP, magic, levels, sm, make_float2(0.f, 0.f), tok4, a);
+    bwd_batch(c, a, g, base, dbase, lane, tA, tx, ty);
+    // the lane of sample i = i0 + (lane & 7) stores dAttn_i and dLoc_i (its level's W, H
+    // from the lane-held table, fetched by every lane: a shuffle needs the whole warp)
+    const int i = i0 + (lane & 7);
+    const LaneLevel lvl = level_of(levels, min((i * magic) >> 16, MSDA_MAX_LEVELS - 1));
+    if ((lane >> 3) == ((i0 >> 3) & 3) && i < LP) {
+      const float ai = i0 < 32 ? sm.a0 : sm.a1;
+      dloc2[i] = make_float2(ai * tx * (float)lvl.w, ai * ty * (float)lvl.h);
+      dattn_q[i] = tA;
     }
   }
-}
-
-// value/loc/attn as the forward; dout (B, Lq, M*D); dvalue (B, S, M, D) zeroed by
-// the caller; dloc (B, Lq, M, L, P, 2); dattn (B, Lq, M, L, P).
-__global__ void ms_deform_attn_queries_bwd_kernel(
-    const float* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ attn, const float* __restrict__ dout, float* __restrict__ dvalue,
-    float* __restrict__ dloc, float* __restrict__ dattn, LevelInfo lv, int S, int Lq, int M,
-    int D, int L, int P, int64_t n_warps) {
-  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n_warps) return;
-  const int m = (int)(warp % M);
-  const int64_t b = warp / ((int64_t)M * Lq);
-  const int LP = L * P;
-  const float* loc_w = loc + warp * LP * 2;
-  const float* attn_w = attn + warp * LP;
-  auto xy_of = [&](int i, int l, float& x, float& y) {
-    x = __ldg(loc_w + 2 * i) * lv.w[l] - 0.5f;
-    y = __ldg(loc_w + 2 * i + 1) * lv.h[l] - 0.5f;
-  };
-  warp_bwd(value, dvalue, dout + warp * D, dloc + warp * LP * 2, dattn + warp * LP, lv, b, S, m,
-           M, D, L, P, lane, true, attn_w, xy_of);
 }
 
 // Slot weights of one axis (_merged_indices_and_slot_weights :103-111): the true
@@ -833,80 +802,145 @@ __global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ val
 // read from shared memory, any other corner from device memory, so the result is
 // exact (grid_sample semantics: corners off the map contribute zero) whatever the halo.
 //
-// Design. One block (8 warps) per (query chunk, batch, head): blockIdx.x runs over
-// the chunks of up to FP_QCHUNK queries of the query tiles of all source levels,
-// fastest, so that the blocks of one (batch, head) run together and share that
-// head's value rows in L2. A host-built table (the counterpart of the TPU's
-// scalar-prefetched origin table) gives each block its source level, tile origin and
-// width, chunk, first slot, and per target level the footprint origin and extent,
-// or zeros when the footprint is over the shared-memory budget (the direct route:
-// every corner from device memory, as in B1). The block first writes its queries'
-// geometry into shared memory -- x and y in target-level pixels and the attention
-// per (level, point) -- from coalesced rows of the tile-major layouts or, in the
-// natural layout, with lane l on word l of a query's locations. Then per target
-// level it copies the staged footprint (Fh * Fw rows of 32 floats, one float4 per
-// thread, zeros off the map) into shared memory, and each warp takes its queries
-// one at a time with lanes on the channels, accumulating in registers in B1's order
-// (level, point, corner). The table is read with runtime indices from device memory
-// and the level dims from it, so no parameter struct is copied to the stack.
-//
-// What bounds it: the function is bound by bytes, as B2's (the value rows the corners
-// touch, locations, attention and output once: 0.119 ms for a 1000x1778 frame batch of
-// 3 on an H100). This kernel is bound by the latency of each warp's chain of samples:
-// shared memory and registers hold 16 warps per SM, each taking 16 queries in series.
-// Staging shortens that chain (on an H100 at halo 5 it is 1.2-1.5x faster than the
-// same kernel with every pair direct), but a warp per query at full occupancy (B1)
-// is faster still. Simple first: no cp.async, no TMA, one footprint staged at a time.
+// Design. One block (FP_WARPS warps) per (query chunk, batch, head): blockIdx.x runs over the
+// chunks of up to FP_QCHUNK queries of the query tiles of all source levels, fastest, so
+// that the blocks of one (batch, head) run together and share that head's value rows in
+// L2. A host-built table (the counterpart of the TPU's scalar-prefetched origin table)
+// gives each block its source level, tile origin and width, chunk, first slot, and per
+// target level the footprint origin and extent, or zeros when the footprint is over the
+// per-buffer budget (the direct route: every corner from device memory, as in B1).
+//   - Copy: each staged footprint is one TMA copy (cp.async.bulk.tensor.5d) of a box
+//     (32, 1, Fw, Fh, 1) of value's target-level slice viewed as (32, M, W, H, B), one
+//     tensor map per (source, target) level pair, encoded on the host per call
+//     (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library needs no
+//     -lcuda) and passed as a __grid_constant__ parameter. Its shared-memory image is the
+//     footprint (Fh, Fw, 32); cells past the map arrive as zeros. Thread 0 issues the copy
+//     and the warps wait on the buffer's mbarrier. FP_NBUF = 2 buffers: the copy of the
+//     next staged level is in flight while this one is sampled (the first two are issued
+//     before any sampling).
+//   - Sampling on B2's lane layout, per target level: warp w takes queries w, w + FP_WARPS,
+//     ... of the chunk, their samples of this level in batches of 8 (a batch spans 8 / P
+//     queries); lane 8c + k computes corner c of sample k (the level is fixed, so no level
+//     table), its cell in the footprint when the pair is staged and the corner lies
+//     inside it, else its row in device memory; the batch's 8 float4 loads (from shared
+//     or device memory, per lane) are in flight before the first is used, while
+//     the next batch's geometry is computed; 8 lanes read one 128-byte footprint row, 4
+//     wavefronts a sample, without conflicts.
+//   - The chunk's geometry (x and y in target-level pixels and the attention, per
+//     (level, point) and query) is read into shared memory once, by the whole block with
+//     FP_GEO_BATCH loads in flight a thread, while the first copies are in flight.
+//   - A query's output accumulates over the L level passes in shared memory (FP_QCHUNK
+//     rows of 128 bytes, each written only by the warp that owns the query): at the
+//     last sample of a query in a level, shuffles by 8 and 16 sum the corners and lanes
+//     0-7 add the 128 bytes to its row. Sums run in a fixed order: the same bits every
+//     call.
+//   - Blocks of FP_WARPS = 16 warps, one block an SM (at most 128 registers a thread;
+//     buffers of up to 86 KB at L*P = 16: every pair from a source level onto the same or
+//     a coarser level is staged at the ICDAR15 shapes, halo 5, tiles 8x16). Each half of a
+//     batch has its 4 loads in flight at once (8 at once cost the 8-warp blocks of the
+//     -DFP_WARPS=8 measurement build their 64 registers).
+// What bounds it: the function is bound by bytes, as B2's (0.119 ms for a 1000x1778 frame
+// batch of 3 on an H100). This kernel is bound by its own instructions and the latency of
+// each warp's chain of batches (32 a block at L*P = 16), so by its resident warps. On an
+// NVIDIA H100 80GB HBM3 at 700 W, at B = 3 and halo 5 (chip_smoke.py phase 12, in turns):
+// ~1.9-2.0 ms a call with one block of 16 warps an SM and 90% of the corner taps read from
+// the staged footprints (3.8-4.4 ms in its first form, which staged synchronously with one
+// warp a query and one load in flight a warp); ~3% slower with the same blocks and nothing
+// staged; ~1.45 ms with four blocks of 8 warps an SM (32 warps; the -DFP_WARPS=8 build,
+// whose buffers of up to 7 KB fit no footprint at those shapes) and nothing staged. So
+// staging saves little beside the gather at the same occupancy, and the shared memory it
+// needs costs half the resident warps, which cost more. B1 takes ~0.63 ms on the same
+// samples with 32 warps an SM and a chain of 2 batches a query: against it this kernel
+// pays a level pass per query (4 corner reductions and partial-output updates instead of
+// one store), the per-sample choice of shared or device memory, and the block's geometry
+// pass and barriers. The shipped build stages (16 warps, SMEM_BLOCK_BYTES the whole 227 KB):
+// it is what the entries' footprints mean. Tried and not kept: each lane loading its samples' geometry from device
+// memory (the locations miss L2, and every batch waited on them), blocks of 8 warps with
+// the large buffers (8 warps an SM), 8 loads in flight under a 64-register cap (spills).
+// PERF.md has the numbers, from chip_smoke.py phases 12 and 13.
 
-#define FP_QCHUNK 128                      // queries of one block
-#define FP_GEO_STRIDE (FP_QCHUNK + 1)      // +1: one query's rows fall in distinct banks
-#define FP_QPW (FP_QCHUNK / MSDA_WARPS_PER_BLOCK)
+// Warps of a block: 16, one block an SM. A measurement build (chip_smoke.py builds it with
+// -DFP_WARPS=8) takes blocks of 8 warps at 64 registers, four an SM, for the other side of
+// the buffers-against-occupancy trade-off; the wrappers never load it.
+#ifndef FP_WARPS
+#define FP_WARPS 16
+#endif
+#define FP_QCHUNK 128                     // queries of one block
+#define FP_NBUF 2                         // footprint buffers of a block
 #define FP_REC_HEAD 8
+#define FP_MAX_PAIRS (MSDA_MAX_LEVELS * MSDA_MAX_LEVELS)
+#define FP_PART_BYTES (FP_QCHUNK * 128)   // the chunk's partial outputs
+#define FP_GEO_STRIDE (FP_QCHUNK + 1)     // +1: a batch's 8 (point, query) reads in 8 banks
+#define FP_GEO_BATCH 8                    // geometry words a thread loads before it stores
+// the chunk's geometry: x, y and attention per (level, point) and query, in 128-byte units
+#define FP_GEO_BYTES(LP) (((3 * (LP) * FP_GEO_STRIDE * 4) + 127) / 128 * 128)
+// dynamic shared memory of a block: alignment slack, partial outputs, geometry, the
+// buffers, the buffers' mbarriers (ops/deform_attn_vmem.py footprints() sizes it so too)
+#define FP_SMEM_BYTES(fp_bytes, LP) \
+  (128 + FP_PART_BYTES + FP_GEO_BYTES(LP) + FP_NBUF * (fp_bytes) + 8 * FP_NBUF)
 
 // Input layouts: loc (B,S,M,L,P,2) + attn (B,S,M,L,P); locT (B,M,L,P,2,Sq) + attnT
 // (B,M,L,P,Sq); offT (B,2LMP,Sq) rows (l,xy,m,p) in target cells + attnT (B,LMP,Sq)
 // rows (l,m,p), reference point from the slot's tile row and column.
 enum FootprintGeometry { NATURAL_LOC = 0, TM_LOC = 1, TM_OFF_CELLS = 2 };
 
-// The value of one corner for this lane's channel: from the staged footprint ``fp``
-// (cells of 32 floats, row-major over (Fh, Fw)) when (fy, fx) lies inside it, else
-// from device memory. ``fh == 0`` (the direct route) always reads device memory.
-__device__ __forceinline__ float fp_corner(const float* __restrict__ fp,
-                                           const float* __restrict__ v, int w,
-                                           int64_t tok_stride, int fh, int fw, int y, int x,
-                                           int fy, int fx) {
-  if ((unsigned)fy < (unsigned)fh && (unsigned)fx < (unsigned)fw) return fp[(fy * fw + fx) * 32];
-  return __ldg(v + ((int64_t)y * w + x) * tok_stride);
+// One tensor map per (source, target) level pair, row-major; zeros for a direct pair.
+struct FootprintMaps {
+  CUtensorMap pair[FP_MAX_PAIRS];
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// The bilinear sample of this lane's channel at pixel coordinates (x, y) (x = loc * W -
-// 0.5; corners off the map contribute zero), with the footprint cache: (oy, ox) is the
-// footprint's origin.
-__device__ __forceinline__ float fp_tap(const float* __restrict__ fp, const float* __restrict__ v,
-                                        int h, int w, int64_t tok_stride, int oy, int ox,
-                                        int fh, int fw, float x, float y) {
-  if (!(x > -1.f && y > -1.f && x < (float)w && y < (float)h)) return 0.f;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const float dx = x - x0f;
-  const float dy = y - y0f;
-  const float hx = 1.f - dx;
-  const float hy = 1.f - dy;
-  const int fx = x0 - ox;
-  const int fy = y0 - oy;
-  float acc = 0.f;
-  if (y0 >= 0) {
-    if (x0 >= 0) acc += hy * hx * fp_corner(fp, v, w, tok_stride, fh, fw, y0, x0, fy, fx);
-    if (x0 + 1 < w) acc += hy * dx * fp_corner(fp, v, w, tok_stride, fh, fw, y0, x0 + 1, fy, fx + 1);
-  }
-  if (y0 + 1 < h) {
-    if (x0 >= 0) acc += dy * hx * fp_corner(fp, v, w, tok_stride, fh, fw, y0 + 1, x0, fy + 1, fx);
-    if (x0 + 1 < w)
-      acc += dy * dx * fp_corner(fp, v, w, tok_stride, fh, fw, y0 + 1, x0 + 1, fy + 1, fx + 1);
-  }
-  return acc;
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Copy footprint (oy, ox) of extent ``map``'s box into ``dst`` (128-byte aligned);
+// completion (``bytes``) is reported to ``bar``. One thread.
+__device__ __forceinline__ void fp_copy(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                        uint32_t bytes, int m, int ox, int oy, int b) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(m), "r"(ox),
+      "r"(oy), "r"(b)
+      : "memory");
+}
+
+// The first staged target level at or after l2 of block record ``rec`` (L if none).
+__device__ __forceinline__ int fp_next_staged(const int* __restrict__ rec, int l2, int L) {
+  while (l2 < L && __ldg(rec + FP_REC_HEAD + 4 * l2 + 2) == 0) ++l2;
+  return l2;
+}
+
+// Copy number n, the footprint of target level l2 of block record ``rec``, into buffer
+// n % FP_NBUF through l2's tensor map of the block's source level. One thread.
+__device__ __forceinline__ void fp_issue(const int* __restrict__ rec, int l2, int n,
+                                         const CUtensorMap* pair_maps, unsigned char* bufs,
+                                         int fp_bytes, uint64_t* bars, int m, int b) {
+  const int* f = rec + FP_REC_HEAD + 4 * l2;
+  const int fh = __ldg(f + 2), fw = __ldg(f + 3);
+  fp_copy(bufs + (n % FP_NBUF) * fp_bytes, pair_maps + l2, &bars[n % FP_NBUF],
+          (uint32_t)(fh * fw * 128), m, __ldg(f + 1), __ldg(f), b);
 }
 
 // The grid cell (r, c) of in-tile query qt of a tile at (ty0, tx0) of width tx;
@@ -919,147 +953,307 @@ __device__ __forceinline__ bool tile_cell(int qt, int ty0, int tx0, int tx, int 
   return r < H1 && c < W1;
 }
 
-// value (B,S,M,32); a/b the layout's locations (or offsets) and attention; table as
-// Footprints (ops/deform_attn_vmem.py); out (B,S,M*32) natural or, for TM_OFF_CELLS,
-// (B,Sq,M*32) tile-major. Dynamic shared memory: the geometry (3*L*P rows of
-// FP_GEO_STRIDE floats, rounded up to float4s), then the largest staged footprint.
+// The chunk's block record and the level it samples.
+struct FpBlock {
+  const int* rec;
+  int l1, ty0, tx0, tx, q0, nq, slot0, H1, W1, start1;
+};
+
+// One target level's geometry for the block: dims, footprint origin and extent (fh == 0:
+// direct).
+struct FpLevel {
+  int l2, h, w, start, oy, ox, fh, fw;
+};
+
+// Corner ((lane >> 3) & 1, lane >> 4) of sample i = i0 + (lane & 7) of this warp's samples
+// of level ``t`` (sample i: query j = i / P of the warp, point p = i - jP), from the
+// chunk's geometry ``geo``: ``code`` is its float4 row from the head's base (>= 0), or
+// -1 - its footprint cell when it is staged; ``wgt`` its weight with the attention folded
+// in (0, with row 0, off the map).
+__device__ __forceinline__ void fp_corner(const FpLevel& t, const float* geo, int P, int magic,
+                                          int warp, int n_s, int i0, int lane, int tok4,
+                                          int& code, float& wgt) {
+  const int i = i0 + (lane & 7);
+  code = 0;
+  wgt = 0.f;
+  if (i >= n_s) return;
+  const int j = (i * magic) >> 16;
+  const int p = i - j * P;
+  const float* g = geo + (t.l2 * P + p) * 3 * FP_GEO_STRIDE + j * FP_WARPS + warp;
+  float x = g[0];
+  float y = g[FP_GEO_STRIDE];
+  const float att = g[2 * FP_GEO_STRIDE];
+  const float wf = (float)t.w;
+  const float hf = (float)t.h;
+  // the corners of a sample outside (-1, W) x (-1, H) are all off the map; clamping keeps
+  // the int casts safe
+  const bool gate = x > -1.f && y > -1.f && x < wf && y < hf;
+  x = fminf(fmaxf(x, -2.f), wf + 1.f);
+  y = fminf(fmaxf(y, -2.f), hf + 1.f);
+  const float x0 = floorf(x);
+  const float y0 = floorf(y);
+  const float fx = x - x0;
+  const float fy = y - y0;
+  const int cx = (lane >> 3) & 1;
+  const int cy = lane >> 4;
+  const int xc = (int)x0 + cx;
+  const int yc = (int)y0 + cy;
+  if (!(gate && xc >= 0 && xc < t.w && yc >= 0 && yc < t.h)) return;
+  wgt = att * (cy ? fy : 1.f - fy) * (cx ? fx : 1.f - fx);
+  const int fyc = yc - t.oy;
+  const int fxc = xc - t.ox;
+  if (t.fh > 0 && (unsigned)fyc < (unsigned)t.fh && (unsigned)fxc < (unsigned)t.fw)
+    code = -1 - (fyc * t.fw + fxc);
+  else
+    code = (t.start + yc * t.w + xc) * tok4;
+}
+
+// Word e of the chunk's geometry (3 L P words a query): its value and its index ``dst`` in
+// ``geo``. NATURAL_LOC walks a query's 2 L P location words and L P attention words (one
+// contiguous run each), the tile-major layouts row (l2, p, xy), then row (l2, p) of
+// attention, queries fastest (contiguous slots).
 template <int GEOM>
-__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK)
-ms_deform_attn_footprint_kernel(const float* __restrict__ value, const float* __restrict__ a,
+__device__ __forceinline__ void fp_geo_word(const FpBlock& k, const int* __restrict__ table,
+                                            const float* __restrict__ a,
+                                            const float* __restrict__ bt, int b, int m, int M,
+                                            int S, int P, int LP, int Sq, int e, float& val,
+                                            int& dst) {
+  int q, w;
+  if (GEOM == NATURAL_LOC) {
+    q = e / (3 * LP);
+    w = e - q * 3 * LP;
+  } else {
+    w = e / k.nq;
+    q = e - w * k.nq;
+  }
+  int r = 0, c = 0;
+  const bool valid =
+      GEOM == TM_OFF_CELLS || tile_cell(k.q0 + q, k.ty0, k.tx0, k.tx, k.H1, k.W1, r, c);
+  if (w >= 2 * LP) {  // attention of (level, point) i
+    const int i = w - 2 * LP;
+    dst = (i * 3 + 2) * FP_GEO_STRIDE + q;
+    int64_t at;
+    if (GEOM == NATURAL_LOC) {
+      at = (((int64_t)b * S + k.start1 + r * k.W1 + c) * M + m) * LP + i;
+    } else if (GEOM == TM_LOC) {
+      at = (((int64_t)b * M + m) * LP + i) * Sq + k.slot0 + q;
+    } else {
+      const int l2 = i / P;
+      at = ((int64_t)b * LP * M + (l2 * M + m) * P + (i - l2 * P)) * Sq + k.slot0 + q;
+    }
+    val = valid ? __ldg(bt + at) : 0.f;
+    return;
+  }
+  const int i = w >> 1;  // coordinate xy of (level, point) i
+  const int xy = w & 1;
+  const int l2 = i / P;
+  dst = (i * 3 + xy) * FP_GEO_STRIDE + q;
+  const float size = (float)__ldg(table + 4 * l2 + 1 - xy);  // W for x, H for y
+  if (GEOM == NATURAL_LOC) {
+    const int64_t bsm = ((int64_t)b * S + k.start1 + r * k.W1 + c) * M + m;
+    val = valid ? __ldg(a + bsm * 2 * LP + w) * size - 0.5f : -4.f;
+  } else if (GEOM == TM_LOC) {
+    val = valid ? __ldg(a + (((int64_t)b * M + m) * 2 * LP + w) * Sq + k.slot0 + q) * size - 0.5f
+                : -4.f;
+  } else {
+    // the reference point in target pixels, as _kernel_v3 :763-764, plus the offset
+    const int p = i - l2 * P;
+    const int qt = k.q0 + q;
+    const int row = qt / k.tx;
+    const float sc = size / (float)(xy ? k.H1 : k.W1);
+    const float ref = ((float)(xy ? k.ty0 : k.tx0) + 0.5f) * sc - 0.5f +
+                      (float)(xy ? row : qt - row * k.tx) * sc;
+    const int64_t orow = (int64_t)b * 2 * LP * M + ((l2 * 2 + xy) * M + m) * P + p;
+    val = ref + __ldg(a + orow * Sq + k.slot0 + q);
+  }
+}
+
+// value (B,S,M,32); a/bt the layout's locations (or offsets) and attention; table as
+// Footprints (ops/deform_attn_vmem.py); out (B,S,M*32) natural or, for TM_OFF_CELLS,
+// (B,Sq,M*32) tile-major. fp_bytes: one footprint buffer (a multiple of 128).
+template <int GEOM>
+__global__ void __launch_bounds__(32 * FP_WARPS, FP_WARPS == 8 ? 4 : 1)
+ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
+                                const float* __restrict__ value, const float* __restrict__ a,
                                 const float* __restrict__ bt, const int* __restrict__ table,
-                                float* __restrict__ out, int S, int M, int L, int P, int Sq) {
-  extern __shared__ float4 smem4[];
-  float* geo = reinterpret_cast<float*>(smem4);
+                                float* __restrict__ out, int S, int M, int L, int P, int Sq,
+                                int fp_bytes) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  float4* part = reinterpret_cast<float4*>(sm);  // (FP_QCHUNK, 8)
+  float* geo = reinterpret_cast<float*>(sm + FP_PART_BYTES);
   const int LP = L * P;
-  float* fp = geo + ((3 * LP * FP_GEO_STRIDE + 3) & ~3);
+  unsigned char* bufs = sm + FP_PART_BYTES + FP_GEO_BYTES(LP);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bufs + FP_NBUF * fp_bytes);
   const int b = blockIdx.y;
   const int m = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int* rec = table + 4 * L + (int64_t)blockIdx.x * (FP_REC_HEAD + 4 * L);
-  const int l1 = __ldg(rec);
-  const int ty0 = __ldg(rec + 1);
-  const int tx0 = __ldg(rec + 2);
-  const int tx = __ldg(rec + 3);
-  const int q0 = __ldg(rec + 4);
-  const int nq = __ldg(rec + 5);
-  const int slot0 = __ldg(rec + 6) + q0;  // slot of the chunk's first query
-  const int H1 = __ldg(table + 4 * l1);
-  const int W1 = __ldg(table + 4 * l1 + 1);
-  const int start1 = __ldg(table + 4 * l1 + 2);
-  const int64_t tok_stride = (int64_t)M * 32;
+  FpBlock k;
+  k.rec = table + 4 * L + (int64_t)blockIdx.x * (FP_REC_HEAD + 4 * L);
+  k.l1 = __ldg(k.rec);
+  k.ty0 = __ldg(k.rec + 1);
+  k.tx0 = __ldg(k.rec + 2);
+  k.tx = __ldg(k.rec + 3);
+  k.q0 = __ldg(k.rec + 4);
+  k.nq = __ldg(k.rec + 5);
+  k.slot0 = __ldg(k.rec + 6) + k.q0;  // slot of the chunk's first query
+  k.H1 = __ldg(table + 4 * k.l1);
+  k.W1 = __ldg(table + 4 * k.l1 + 1);
+  k.start1 = __ldg(table + 4 * k.l1 + 2);
+  const int tok4 = M * 8;
+  const int magic = level_magic(P);
+  const float4* gbase =
+      reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) + (lane & 7);
+  const int grp = lane & 24;
 
-  // 1. the chunk's geometry: row (l2*P + p)*3 + {x, y, attention}, queries minor
-  if (GEOM == NATURAL_LOC) {
-    for (int q = warp; q < nq; q += MSDA_WARPS_PER_BLOCK) {
-      int r, c;
-      if (!tile_cell(q0 + q, ty0, tx0, tx, H1, W1, r, c)) continue;
-      const int64_t bsm = ((int64_t)b * S + start1 + r * W1 + c) * M + m;
-      for (int w = lane; w < 2 * LP; w += 32) {
-        const int i = w >> 1;
-        const int xy = w & 1;
-        const float size = (float)__ldg(table + 4 * (i / P) + 1 - xy);  // W for x, H for y
-        geo[(i * 3 + xy) * FP_GEO_STRIDE + q] = __ldg(a + bsm * 2 * LP + w) * size - 0.5f;
-      }
-      for (int i = lane; i < LP; i += 32)
-        geo[(i * 3 + 2) * FP_GEO_STRIDE + q] = __ldg(bt + bsm * LP + i);
+  // thread 0 copies the staged levels in order, copy n into buffer n % FP_NBUF: the first
+  // FP_NBUF now, each next one when a buffer is free
+  const CUtensorMap* pair_maps = &maps.pair[k.l1 * L];
+  int issued = 0, scan = 0;  // thread 0: copies issued, next level to look at
+  if (tid == 0) {
+#pragma unroll
+    for (int n = 0; n < FP_NBUF; ++n) mbar_init(&bars[n]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (; issued < FP_NBUF; ++issued) {
+      scan = fp_next_staged(k.rec, scan, L);
+      if (scan == L) break;
+      fp_issue(k.rec, scan++, issued, pair_maps, bufs, fp_bytes, bars, m, b);
     }
-  } else {
-    const int64_t bm = (int64_t)b * M + m;
-    for (int k = tid; k < 2 * LP * nq; k += blockDim.x) {
-      const int w = k / nq;  // (l2, p, xy)
-      const int q = k - w * nq;
-      const int i = w >> 1;
-      const int xy = w & 1;
-      const int l2 = i / P;
-      const float size = (float)__ldg(table + 4 * l2 + 1 - xy);
-      float g;
-      if (GEOM == TM_LOC) {
-        g = __ldg(a + (bm * 2 * LP + w) * Sq + slot0 + q) * size - 0.5f;
-      } else {
-        // the reference point in target pixels, as _kernel_v3 :763-764, plus the offset
-        const int p = i - l2 * P;
-        const int qt = q0 + q;
-        const int row = qt / tx;
-        const float s = size / (float)(xy ? H1 : W1);
-        const float ref = ((float)(xy ? ty0 : tx0) + 0.5f) * s - 0.5f + (float)(xy ? row : qt - row * tx) * s;
-        const int64_t orow = (int64_t)b * 2 * LP * M + ((l2 * 2 + xy) * M + m) * P + p;
-        g = ref + __ldg(a + orow * Sq + slot0 + q);
-      }
-      geo[(i * 3 + xy) * FP_GEO_STRIDE + q] = g;
+  }
+
+  // the chunk's geometry, while the first copies are in flight: row (l2*P + p)*3 +
+  // {x, y, attention}, queries minor; x and y in target-level pixels; a padding slot past
+  // its level's edge (NATURAL_LOC, TM_LOC) gets x = y = -4 and attention 0 (off the map).
+  // Each thread loads FP_GEO_BATCH words before it stores any, so that many loads are in
+  // flight (one at a time, the pass waited on a device-memory round trip per query)
+  const int n_el = 3 * LP * k.nq;
+  for (int e0 = tid; e0 < n_el; e0 += FP_GEO_BATCH * 32 * FP_WARPS) {
+    float val[FP_GEO_BATCH];
+    int dst[FP_GEO_BATCH];
+#pragma unroll
+    for (int u = 0; u < FP_GEO_BATCH; ++u) {
+      const int e = e0 + u * 32 * FP_WARPS;
+      val[u] = 0.f;
+      dst[u] = -1;
+      if (e < n_el) fp_geo_word<GEOM>(k, table, a, bt, b, m, M, S, P, LP, Sq, e, val[u], dst[u]);
     }
-    for (int k = tid; k < LP * nq; k += blockDim.x) {
-      const int i = k / nq;  // (l2, p)
-      const int q = k - i * nq;
-      int64_t arow;
-      if (GEOM == TM_LOC) {
-        arow = bm * LP + i;
-      } else {
-        const int l2 = i / P;
-        arow = (int64_t)b * LP * M + (l2 * M + m) * P + (i - l2 * P);
-      }
-      geo[(i * 3 + 2) * FP_GEO_STRIDE + q] = __ldg(bt + arow * Sq + slot0 + q);
-    }
+#pragma unroll
+    for (int u = 0; u < FP_GEO_BATCH; ++u)
+      if (dst[u] >= 0) geo[dst[u]] = val[u];
   }
   __syncthreads();
 
-  // 2. per target level: stage the footprint if it has one, then sample
-  float acc[FP_QPW];
-#pragma unroll
-  for (int j = 0; j < FP_QPW; ++j) acc[j] = 0.f;
+  // this warp's queries: w, w + 8, ... of the chunk
+  const int nqw = k.nq > warp ? (k.nq - warp + FP_WARPS - 1) / FP_WARPS : 0;
+  const int n_s = nqw * P;
+  int n_staged = 0;  // staged levels sampled so far
   for (int l2 = 0; l2 < L; ++l2) {
-    const int h = __ldg(table + 4 * l2);
-    const int w = __ldg(table + 4 * l2 + 1);
-    const int start = __ldg(table + 4 * l2 + 2);
-    const int* f = rec + FP_REC_HEAD + 4 * l2;
-    const int oy = __ldg(f);
-    const int ox = __ldg(f + 1);
-    const int fh = __ldg(f + 2);
-    const int fw = __ldg(f + 3);
-    const float* vb = value + (((int64_t)b * S + start) * M + m) * 32;
-    if (fh > 0) {
-      __syncthreads();  // every warp is done with the previous footprint
-      for (int k = tid; k < fh * fw * 8; k += blockDim.x) {
-        const int cell = k >> 3;
-        const int fy = cell / fw;
-        const int y = oy + fy;
-        const int x = ox + cell - fy * fw;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (y < h && x < w)
-          v = __ldg(reinterpret_cast<const float4*>(vb + ((int64_t)y * w + x) * tok_stride) + (k & 7));
-        reinterpret_cast<float4*>(fp)[k] = v;
-      }
-      __syncthreads();
+    const int* f = k.rec + FP_REC_HEAD + 4 * l2;
+    FpLevel t;
+    t.l2 = l2;
+    t.h = __ldg(table + 4 * l2);
+    t.w = __ldg(table + 4 * l2 + 1);
+    t.start = __ldg(table + 4 * l2 + 2);
+    t.oy = __ldg(f);
+    t.ox = __ldg(f + 1);
+    t.fh = __ldg(f + 2);
+    t.fw = __ldg(f + 3);
+    const int buf = n_staged % FP_NBUF;
+    if (t.fh > 0) {
+      // a copy that never completes (a tensor map the hardware refuses) traps after 2^37 SM
+      // cycles (~70 s at 1.98 GHz) instead of holding the card; far above any wait of a
+      // copy that completes, preemption and time-slicing with other contexts included
+      const long long t0 = clock64();
+      while (!mbar_try_wait(&bars[buf], (uint32_t)((n_staged / FP_NBUF) & 1)))
+        if (clock64() - t0 > (1ll << 37)) __trap();
     }
+    const float4* fbase = reinterpret_cast<const float4*>(bufs + buf * fp_bytes) + (lane & 7);
+    // the warp's samples of this level in batches of 8; at the last sample of query j
+    // (index qend), its corners are summed into the query's row
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    int j = 0, qend = P - 1;
+    int code;
+    float wgt;
+    fp_corner(t, geo, P, magic, warp, n_s, 0, lane, tok4, code, wgt);
+    for (int i0 = 0; i0 < n_s; i0 += 8) {
+      int code_n = 0;
+      float wgt_n = 0.f;
+      if (i0 + 8 < n_s)
+        fp_corner(t, geo, P, magic, warp, n_s, i0 + 8, lane, tok4, code_n, wgt_n);
+      // two halves of 4 loads in flight (8 at once cost the 8-warp blocks their 64 registers)
 #pragma unroll
-    for (int j = 0; j < FP_QPW; ++j) {
-      const int q = j * MSDA_WARPS_PER_BLOCK + warp;
-      int r, c;
-      if (q < nq && (GEOM == TM_OFF_CELLS || tile_cell(q0 + q, ty0, tx0, tx, H1, W1, r, c))) {
-        for (int p = 0; p < P; ++p) {
-          const float* g = geo + (l2 * P + p) * 3 * FP_GEO_STRIDE + q;
-          acc[j] += g[2 * FP_GEO_STRIDE] * fp_tap(fp + lane, vb + lane, h, w, tok_stride, oy, ox,
-                                                  fh, fw, g[0], g[FP_GEO_STRIDE]);
+      for (int h = 0; h < 8; h += 4) {
+        float4 v[4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int ck = __shfl_sync(MSDA_FULL, code, grp | (h + s));
+          v[s] = ck >= 0 ? __ldg(gbase + ck) : fbase[(-1 - ck) * 8];
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const float w = __shfl_sync(MSDA_FULL, wgt, grp | (h + s));
+          acc.x = fmaf(w, v[s].x, acc.x);
+          acc.y = fmaf(w, v[s].y, acc.y);
+          acc.z = fmaf(w, v[s].z, acc.z);
+          acc.w = fmaf(w, v[s].w, acc.w);
+          if (i0 + h + s == qend && j < nqw) {  // warp-uniform
+#pragma unroll
+            for (int x = 8; x <= 16; x <<= 1) {
+              acc.x += __shfl_xor_sync(MSDA_FULL, acc.x, x);
+              acc.y += __shfl_xor_sync(MSDA_FULL, acc.y, x);
+              acc.z += __shfl_xor_sync(MSDA_FULL, acc.z, x);
+              acc.w += __shfl_xor_sync(MSDA_FULL, acc.w, x);
+            }
+            if (lane < 8) {
+              float4* row = part + (j * FP_WARPS + warp) * 8 + lane;
+              if (l2 > 0) {
+                const float4 o = *row;
+                acc.x += o.x;
+                acc.y += o.y;
+                acc.z += o.z;
+                acc.w += o.w;
+              }
+              *row = acc;
+            }
+            acc = make_float4(0.f, 0.f, 0.f, 0.f);
+            ++j;
+            qend += P;
+          }
+        }
+      }
+      code = code_n;
+      wgt = wgt_n;
+    }
+    if (t.fh > 0) {
+      ++n_staged;
+      __syncthreads();  // every warp is done with this buffer
+      if (tid == 0) {
+        scan = fp_next_staged(k.rec, scan, L);
+        if (scan < L) {
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          fp_issue(k.rec, scan++, issued++, pair_maps, bufs, fp_bytes, bars, m, b);
         }
       }
     }
   }
 
-  // 3. one 128-byte row per query: natural token, or the slot (TM_OFF_CELLS)
-#pragma unroll
-  for (int j = 0; j < FP_QPW; ++j) {
-    const int q = j * MSDA_WARPS_PER_BLOCK + warp;
-    if (q >= nq) continue;
+  // one 128-byte row per query: natural token, or the slot (TM_OFF_CELLS)
+  __syncwarp();
+  const float* part_f = reinterpret_cast<const float*>(part);
+  const int64_t tok_stride = (int64_t)M * 32;
+  for (int jj = 0; jj < nqw; ++jj) {
+    const int q = jj * FP_WARPS + warp;
     int64_t row;
     if (GEOM == TM_OFF_CELLS) {
-      row = (int64_t)b * Sq + slot0 + q;
+      row = (int64_t)b * Sq + k.slot0 + q;
     } else {
       int r, c;
-      if (!tile_cell(q0 + q, ty0, tx0, tx, H1, W1, r, c)) continue;
-      row = (int64_t)b * S + start1 + r * W1 + c;
+      if (!tile_cell(k.q0 + q, k.ty0, k.tx0, k.tx, k.H1, k.W1, r, c)) continue;
+      row = (int64_t)b * S + k.start1 + r * k.W1 + c;
     }
-    out[row * tok_stride + m * 32 + lane] = acc[j];
+    out[row * tok_stride + m * 32 + lane] = part_f[q * 32 + lane];
   }
 }
 
@@ -1080,11 +1274,7 @@ static LevelInfo make_levels(const int* shapes, int L) {
   return lv;
 }
 
-static unsigned int n_blocks(int64_t n_warps) {
-  return (unsigned int)((n_warps + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK);
-}
-
-// The limits of the lane-layout kernels B1, B2 and B4 (ops/deform_attn.py check_lane_layout
+// The limits of the lane-layout kernels B1-B4 (ops/deform_attn.py check_lane_layout
 // raises on the same): D == 32, one float4 per lane and corner; at most two samples a lane;
 // the (batch, head) pairs within gridDim.y; the float4 index of every token row of one batch
 // item in int.
@@ -1117,22 +1307,35 @@ extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
   return (int)cudaGetLastError();
 }
 
-// What the runtime made of a lane-layout kernel (which: 0 B1, 1 B2, 2 B4, 3 B5): info[0]
-// registers a thread, info[1] local memory a thread in bytes (stack and spills), info[2]
-// resident blocks of 32 * MSDA_WARPS_PER_BLOCK threads per SM.
-extern "C" int ms_deform_attn_kernel_info(int which, int* info) {
+// What the runtime made of a kernel (which: 0 B1, 1 B2, 2 B4, 3 B5, 4 B3; 5, 6, 7 the
+// footprint kernel's NATURAL_LOC, TM_LOC and TM_OFF_CELLS instantiations, at ``smem_bytes``
+// of dynamic shared memory a block; 0 for the others): info[0] registers a thread, info[1]
+// local memory a thread in bytes (stack and spills), info[2] resident warps per SM.
+extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) {
   const void* fns[] = {(const void*)ms_deform_attn_queries_kernel,
                        (const void*)ms_deform_attn_encoder_kernel,
                        (const void*)ms_deform_attn_encoder_bwd_kernel,
-                       (const void*)ms_deform_attn_merged_kernel};
-  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+                       (const void*)ms_deform_attn_merged_kernel,
+                       (const void*)ms_deform_attn_queries_bwd_kernel,
+                       (const void*)ms_deform_attn_footprint_kernel<NATURAL_LOC>,
+                       (const void*)ms_deform_attn_footprint_kernel<TM_LOC>,
+                       (const void*)ms_deform_attn_footprint_kernel<TM_OFF_CELLS>};
+  if (which < 0 || which > 7 || smem_bytes < 0 || smem_bytes > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e;
+  if (which >= 5) {
+    e = cudaFuncSetAttribute(fns[which], cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fns[which]);
+  e = cudaFuncGetAttributes(&attr, fns[which]);
   if (e != cudaSuccess) return (int)e;
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], fns[which],
-                                                    32 * MSDA_WARPS_PER_BLOCK, 0);
+  const int warps = which >= 5 ? FP_WARPS : MSDA_WARPS_PER_BLOCK;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which], 32 * warps, smem_bytes);
+  info[2] = blocks * warps;
   return (int)e;
 }
 
@@ -1167,13 +1370,11 @@ extern "C" int ms_deform_attn_queries_bwd(const float* value, const float* loc,
                                           float* dloc, float* dattn, const int* shapes, int B,
                                           int S, int Lq, int M, int D, int L, int P,
                                           void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  const int64_t n_warps = (int64_t)B * Lq * M;
-  if (n_warps == 0) return (int)cudaSuccess;
-  ms_deform_attn_queries_bwd_kernel<<<n_blocks(n_warps), 32 * MSDA_WARPS_PER_BLOCK, 0,
-                                      (cudaStream_t)stream>>>(
-      value, loc, attn, dout, dvalue, dloc, dattn, make_levels(shapes, L), S, Lq, M, D, L, P,
-      n_warps);
+  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
+  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  ms_deform_attn_queries_bwd_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      value, loc, attn, dout, dvalue, dloc, dattn, make_levels(shapes, L), S, Lq, M, L, P);
   return (int)cudaGetLastError();
 }
 
@@ -1191,43 +1392,105 @@ extern "C" int ms_deform_attn_encoder_bwd(const float* value, const float* off,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda at link time).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The tensor maps of a call: for each staged (source, target) pair (boxes[2 * pair] = (Fh,
+// Fw), 0 for a direct pair), value's target-level slice viewed innermost first as (32, M,
+// W, H, B) with a box of (32, 1, Fw, Fh, 1); cells past the map read as zeros.
+static int encode_maps(FootprintMaps& maps, const float* value, const int* shapes,
+                       const int* boxes, int B, int S, int M, int L) {
+  memset(&maps, 0, sizeof(maps));
+  const EncodeTiledFn encode = encode_tiled();
+  int start = 0;
+  for (int l2 = 0; l2 < L; ++l2) {
+    const int h = shapes[2 * l2], w = shapes[2 * l2 + 1];
+    for (int l1 = 0; l1 < L; ++l1) {
+      const int fh = boxes[2 * (l1 * L + l2)], fw = boxes[2 * (l1 * L + l2) + 1];
+      if (fh == 0) continue;
+      if (encode == nullptr) return (int)cudaErrorNotSupported;
+      const cuuint64_t dims[5] = {32, (cuuint64_t)M, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)B};
+      const cuuint64_t strides[4] = {128, (cuuint64_t)M * 128, (cuuint64_t)M * w * 128,
+                                     (cuuint64_t)M * S * 128};
+      const cuuint32_t box[5] = {32, 1, (cuuint32_t)fw, (cuuint32_t)fh, 1};
+      const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+      const CUresult r = encode(
+          &maps.pair[l1 * L + l2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
+          (void*)(value + (int64_t)start * M * 32), dims, strides, box, elem,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+    }
+    start += h * w;
+  }
+  return (int)cudaSuccess;
+}
+
 template <int GEOM>
-static int launch_footprint(const float* value, const float* a, const float* b, const int* table,
-                            float* out, dim3 grid, int S, int M, int L, int P, int Sq,
-                            int smem_bytes, cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
+static int launch_footprint(const FootprintMaps& maps, const float* value, const float* a,
+                            const float* b, const int* table, float* out, dim3 grid, int S, int M,
+                            int L, int P, int Sq, int fp_bytes, cudaStream_t stream) {
+  const int smem = FP_SMEM_BYTES(fp_bytes, L * P);
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(ms_deform_attn_footprint_kernel<GEOM>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_bytes);
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ms_deform_attn_footprint_kernel<GEOM><<<grid, 32 * MSDA_WARPS_PER_BLOCK, smem_bytes, stream>>>(
-      value, a, b, table, out, S, M, L, P, Sq);
+  ms_deform_attn_footprint_kernel<GEOM><<<grid, 32 * FP_WARPS, smem, stream>>>(
+      maps, value, a, b, table, out, S, M, L, P, Sq, fp_bytes);
   return (int)cudaGetLastError();
 }
 
-// geometry: a FootprintGeometry; table (device int32) and smem_bytes from the wrapper's
-// Footprints; n_items blocks per (batch, head); Sq the token axis of a and b.
+// geometry: a FootprintGeometry; table (device int32), boxes (host, (Fh, Fw) per (source,
+// target) pair, 0 for a direct pair) and fp_bytes (one footprint buffer, a multiple of 128)
+// from the wrapper's Footprints; shapes (host) the level (H, W); n_items blocks per (batch,
+// head); Sq the token axis of a and b.
 extern "C" int ms_deform_attn_footprint_fwd(int geometry, const float* value, const float* a,
-                                            const float* b, const int* table, float* out, int B,
-                                            int S, int M, int D, int L, int P, int n_items,
-                                            int Sq, int smem_bytes, void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES || B > 65535 ||
-      M > 65535)
+                                            const float* b, const int* table, float* out,
+                                            const int* shapes, const int* boxes, int B, int S,
+                                            int M, int D, int L, int P, int n_items, int Sq,
+                                            int fp_bytes, void* stream) {
+  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || P < 1 || L * P > MSDA_MAX_SAMPLES ||
+      B > 65535 || M > 65535 || (int64_t)S * M * 8 > INT32_MAX || fp_bytes < 0 ||
+      fp_bytes % 128 || FP_SMEM_BYTES(fp_bytes, L * P) > 232448)
     return (int)cudaErrorInvalidValue;
   if (n_items == 0 || B == 0 || M == 0) return (int)cudaSuccess;
+  FootprintMaps maps;
+  const int rc = encode_maps(maps, value, shapes, boxes, B, S, M, L);
+  if (rc != (int)cudaSuccess) return rc;
   const dim3 grid(n_items, B, M);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (geometry) {
     case NATURAL_LOC:
-      return launch_footprint<NATURAL_LOC>(value, a, b, table, out, grid, S, M, L, P, Sq,
-                                           smem_bytes, st);
+      return launch_footprint<NATURAL_LOC>(maps, value, a, b, table, out, grid, S, M, L, P, Sq,
+                                           fp_bytes, st);
     case TM_LOC:
-      return launch_footprint<TM_LOC>(value, a, b, table, out, grid, S, M, L, P, Sq, smem_bytes,
-                                      st);
+      return launch_footprint<TM_LOC>(maps, value, a, b, table, out, grid, S, M, L, P, Sq,
+                                      fp_bytes, st);
     case TM_OFF_CELLS:
-      return launch_footprint<TM_OFF_CELLS>(value, a, b, table, out, grid, S, M, L, P, Sq,
-                                            smem_bytes, st);
+      return launch_footprint<TM_OFF_CELLS>(maps, value, a, b, table, out, grid, S, M, L, P, Sq,
+                                            fp_bytes, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

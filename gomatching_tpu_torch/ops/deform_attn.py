@@ -31,9 +31,10 @@ backward is a kernel too:
     ``_v2_bwd_impl``), exact over the whole level.
 
 The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through the plain
-forwards; the tests and ``chip_smoke.py`` hold the kernels against them. B1, B2 and B4
-take D == 32 channels per head (one float4 per lane and corner) within the limits that
-``check_lane_layout`` names; B3 any D. The source note in the .cu file gives each
+forwards; the tests and ``chip_smoke.py`` hold the kernels against them. B1-B4 take
+D == 32 channels per head (one float4 per lane and corner) within the limits that
+``check_lane_layout`` names (through autograd B3 meets only what B1's forward already
+took). The source note in the .cu file gives each
 kernel's design and what bounds it on an H100. Each
 launch adds one to ``launch_counts[name]``, which also counts the
 launches of B5 and of its table build (``ms_deform_attn_merged``,
@@ -83,14 +84,14 @@ _SIGNATURES = {
     "ms_deform_attn_merged_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I),
                                   _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_merged_table": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
-    "ms_deform_attn_footprint_fwd": [_I, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "ms_deform_attn_kernel_info": [_I, ctypes.POINTER(_I)],
+    "ms_deform_attn_footprint_fwd": [_I, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _P],
+    "ms_deform_attn_kernel_info": [_I, _I, ctypes.POINTER(_I)],
 }
 _MAX_LEVELS = 8
 _MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)
-_WARPS_PER_BLOCK = 8  # MSDA_WARPS_PER_BLOCK of the .cu file
-KERNEL_D = 32  # channels per head of B1, B2, B4 and B5: one float4 per lane and corner
+KERNEL_D = 32  # channels per head of B1-B5: one float4 per lane and corner
 _MAX_GRID_Y = 65535  # (batch, head) pairs: the grid's y extent
 _INT32_MAX = 2**31 - 1
 
@@ -273,7 +274,7 @@ def _encoder_dims(value, spatial_shapes, offsets, attn_logits, name=ENCODER):
 
 def check_lane_layout(name: str, B: int, S: int, M: int, D: int, L: int, P: int) -> None:
     """Raise ValueError, naming the limit, for value (B, S, M, D) and L levels of P points
-    that the lane-layout kernels (B1, B2, B4) do not take; their C entries refuse the same."""
+    that the lane-layout kernels (B1-B4) do not take; their C entries refuse the same."""
     if D != KERNEL_D:
         raise ValueError(f"{name}: the kernel takes D == {KERNEL_D} channels per head, got D={D}")
     if not 1 <= P or L * P > _MAX_SAMPLES:
@@ -299,6 +300,7 @@ def ms_deform_attn_queries_backward(value, spatial_shapes, sampling_locations,
     _require_cuda(QUERIES_BWD, value, sampling_locations, attention_weights, grad_out)
     B, S, Lq, M, D, L, P = _queries_dims(value, spatial_shapes, sampling_locations,
                                          attention_weights, QUERIES_BWD)
+    check_lane_layout(QUERIES_BWD, B, S, M, D, L, P)
     _check_grad_out(QUERIES_BWD, grad_out, (B, Lq, M * D))
     return tuple(_launch(
         QUERIES_BWD, "ms_deform_attn_queries_bwd",
@@ -366,21 +368,24 @@ class _EncoderFunction(torch.autograd.Function):
                                                  *ctx.saved_tensors[1:], grad_out), None)
 
 
-def kernel_info() -> Dict[str, Dict[str, int]]:
-    """Registers and local memory a thread, and resident warps per SM, of the lane-layout
-    kernels B1, B2, B4 and B5 as the CUDA runtime reports them for the loaded library
-    (needs a card)."""
+def _kernel_info(name: str, which: int, smem_bytes: int = 0) -> Dict[str, int]:
+    """Registers and local memory a thread, and resident warps per SM at ``smem_bytes`` of
+    dynamic shared memory a block, of kernel ``which`` of ``ms_deform_attn_kernel_info``
+    as the CUDA runtime reports them for the loaded library (needs a card)."""
     from ._build import load
 
     fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_kernel_info
-    out = {}
-    for which, name in enumerate((QUERIES, ENCODER, ENCODER_BWD, MERGED)):
-        info = (_I * 3)()
-        rc = fn(which, info)
-        if rc != 0:
-            raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with cudaError {rc}")
-        out[name] = {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2] * _WARPS_PER_BLOCK}
-    return out
+    info = (_I * 3)()
+    rc = fn(which, smem_bytes, info)
+    if rc != 0:
+        raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with cudaError {rc}")
+    return {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2]}
+
+
+def kernel_info() -> Dict[str, Dict[str, int]]:
+    """``_kernel_info`` of the lane-layout kernels B1, B2, B4, B5 and B3."""
+    return {name: _kernel_info(name, which)
+            for which, name in enumerate((QUERIES, ENCODER, ENCODER_BWD, MERGED, QUERIES_BWD))}
 
 
 def _shape_key(spatial_shapes: Shapes) -> Tuple[Tuple[int, int], ...]:

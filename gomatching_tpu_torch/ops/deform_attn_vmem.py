@@ -37,6 +37,11 @@ entries are forward only, as in JAX (only v2 has a VJP there): each raises when 
 is enabled and an input requires grad. Launches count in ``deform_attn.launch_counts``
 under the entry's name. ``staged_share`` counts, per (source, target) level pair, the
 corner taps that the kernel reads from shared memory.
+
+The kernel copies each staged footprint into one of two shared-memory buffers with one
+TMA copy (a tensor map per (source, target) pair, encoded per call by the C entry), the
+next level's copy in flight while a level is sampled, and samples on B1's lane layout.
+``SMEM_BLOCK_BYTES`` sets which pairs are staged.
 """
 
 from __future__ import annotations
@@ -50,13 +55,17 @@ import torch
 
 from ._build import load
 from .deform_attn import (
+    _I,
+    _INT32_MAX,
     _MAX_LEVELS,
     _MAX_SAMPLES,
     _SIGNATURES,
+    FUSED,
     VMEM,
     VMEM_TM,
     VMEM_V3,
     Shapes,
+    _kernel_info,
     _on_cpu,
     _queries_dims,
     _shape_key,
@@ -64,16 +73,29 @@ from .deform_attn import (
     ms_deform_attn_queries_plain,
 )
 
-KERNEL_D = 32  # channels per head the kernel takes: one lane per channel
+KERNEL_D = 32  # channels per head the kernel takes: a float4 of one corner per lane
 # The kernel's layout codes (``FootprintGeometry`` of the .cu file)
 NATURAL_LOC, TM_LOC, TM_OFF_CELLS = 0, 1, 2
 QCHUNK = 128  # queries of one block (FP_QCHUNK): a tile with more is split into chunks
+NBUF = 2  # footprint buffers of a block (FP_NBUF): one copy in flight while one is sampled
+MAX_BOX = 256  # a TMA box's largest extent per dimension (Fh, Fw)
+SMEM_MAX_BYTES = 232448  # dynamic shared memory one block may have on an H100 (227 KB)
 GEO_STRIDE = QCHUNK + 1  # FP_GEO_STRIDE
-# A block's dynamic shared memory stays within 112 KB so that two blocks share one SM
-# (228 KB, 1 KB of it reserved per block): the geometry of its queries, then one
-# footprint at a time. A footprint larger than what is left (88 KB at L*P = 16) takes
-# the direct route: every corner of that (source, target) pair from device memory.
-SMEM_BLOCK_BYTES = 112 * 1024
+# A block's dynamic shared memory (FP_SMEM_BYTES): 128 bytes of alignment slack, the chunk's
+# partial outputs (QCHUNK rows of 128 bytes), its geometry (x, y and attention per (level,
+# point) and query), NBUF footprint buffers of the largest staged footprint, NBUF 8-byte
+# mbarriers. SMEM_BLOCK_BYTES caps it: a (source, target) pair whose footprint does not
+# fit a buffer of (SMEM_BLOCK_BYTES - the rest) / NBUF takes the direct route (every
+# corner from device memory). The kernel's block (16 warps) is one an SM, so the cap is
+# all a block may have (buffers of up to 86 KB at L*P = 16); a cap of 0 stages nothing.
+SMEM_BLOCK_BYTES = SMEM_MAX_BYTES
+
+
+def smem_bytes(fp_bytes: int, L: int, P: int) -> int:
+    """A block's dynamic shared memory for footprint buffers of ``fp_bytes`` each."""
+    geo = _round_up(3 * L * P * GEO_STRIDE * 4, 128)
+    return 128 + QCHUNK * 128 + geo + NBUF * fp_bytes + 8 * NBUF
+
 
 # ---------------------------------------------------------------------------
 # geometry: copies of deform_attn_tiled.py :45-130 and deform_attn_vmem.py :81-176
@@ -223,21 +245,19 @@ class Footprints(NamedTuple):
     L rows (H, W, first token, 0), then one record per block, ``8 + 4 L`` ints:
     (source level, tile row origin, tile column origin, tile width, first query of
     the chunk, queries in the chunk, tile's first slot, 0) and per target level (oy,
-    ox, Fh, Fw), all four 0 when the pair takes the direct route."""
+    ox, Fh, Fw), all four 0 when the pair takes the direct route. ``boxes`` (int32,
+    (L, L, 2)): (Fh, Fw) of each staged pair, the box of its tensor map, 0 for a direct
+    pair. ``fp_bytes``: one footprint buffer (the largest staged footprint, in 128-byte
+    units); ``smem_bytes``: the block's dynamic shared memory."""
 
     layout: int
     tiles: Tuple[Tuple[int, ...], ...]
     pairs: Tuple[Tuple[tuple, ...], ...]
     table: np.ndarray
+    boxes: np.ndarray
     n_items: int
-    geo_floats: int
-    fp_floats: int
-
-
-def _geo_floats(L: int, P: int) -> int:
-    """Shared floats of a block's query geometry (x, y, attention per (level, point) and
-    query), rounded up to whole float4s so that the footprint behind it is aligned."""
-    return _round_up(3 * L * P * GEO_STRIDE, 4)
+    fp_bytes: int
+    smem_bytes: int
 
 
 @functools.lru_cache(maxsize=64)
@@ -246,22 +266,24 @@ def footprints(spatial_shapes: Tuple[Tuple[int, int], ...], layout: int,
                P: int) -> Footprints:
     """Geometry and kernel table for query tiles ``tiles`` (as ``Footprints.tiles``):
     footprints from ``_footprint_bounds`` with x aligned to ``block`` and y to
-    ``fh_block`` (1 for the vmem entries, whose TPU windows have exact heights)."""
+    ``fh_block`` (1 for the vmem entries, whose TPU windows have exact heights); a pair is
+    staged when its footprint fits a buffer under ``SMEM_BLOCK_BYTES`` and a TMA box."""
     L = len(spatial_shapes)
     starts, _ = _level_starts(spatial_shapes)
-    geo_floats = _geo_floats(L, P)
-    budget = SMEM_BLOCK_BYTES // 4 - geo_floats
+    budget = (SMEM_BLOCK_BYTES - smem_bytes(0, L, P)) // NBUF
     rows = [[h, w, s, 0] for (h, w), s in zip(spatial_shapes, starts)]
-    pairs, fp_floats = [], 0
+    boxes = np.zeros((L, L, 2), np.int32)
+    pairs, fp_bytes = [], 0
     for l1, (H1, W1) in enumerate(spatial_shapes):
         pos, T, Q, ty, tx, nty, ntx = tiles[l1]
         per_l2 = []
-        for H2, W2 in spatial_shapes:
+        for l2, (H2, W2) in enumerate(spatial_shapes):
             oys, Fh = _footprint_bounds(H1, ty, nty, H2, _round_up(H2, block), halo, fh_block)
             oxs, Fw = _footprint_bounds(W1, tx, ntx, W2, _round_up(W2, block), halo, block)
-            staged = Fh * Fw * KERNEL_D <= budget
+            staged = Fh * Fw * KERNEL_D * 4 <= budget and max(Fh, Fw) <= MAX_BOX
             if staged:
-                fp_floats = max(fp_floats, Fh * Fw * KERNEL_D)
+                fp_bytes = max(fp_bytes, Fh * Fw * KERNEL_D * 4)
+                boxes[l1, l2] = (Fh, Fw)
             per_l2.append((np.repeat(np.asarray(oys, np.int64), ntx),
                            np.tile(np.asarray(oxs, np.int64), nty), Fh, Fw, staged))
         pairs.append(tuple(per_l2))
@@ -275,8 +297,8 @@ def footprints(spatial_shapes: Tuple[Tuple[int, int], ...], layout: int,
             rows.extend(np.concatenate([head, *fps], 1).tolist())
     table = np.concatenate([np.asarray(part, np.int32).reshape(-1)
                             for part in (rows[:L], rows[L:])])
-    return Footprints(layout, tuple(tiles), tuple(pairs), table, len(rows) - L, geo_floats,
-                      fp_floats)
+    return Footprints(layout, tuple(tiles), tuple(pairs), table, boxes, len(rows) - L,
+                      fp_bytes, smem_bytes(fp_bytes, L, P))
 
 
 def natural_tiles(spatial_shapes: Shapes, tiles) -> Tuple[Tuple[int, ...], ...]:
@@ -308,21 +330,35 @@ def _launch(name: str, fp: Footprints, value: torch.Tensor, a: torch.Tensor, b: 
     for key, t in (("value", value), ("locations", a), ("attention", b)):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous float32, got {t.dtype}")
+    if S * M * 8 > _INT32_MAX:
+        raise ValueError(f"{name}: the kernel takes S*M*8 <= {_INT32_MAX} (float4 rows of one "
+                         f"batch item), got S={S}, M={M}")
     fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_footprint_fwd
     key = (id(fp), str(value.device))
     if key not in _device_tables:
         _device_tables[key] = (fp, torch.from_numpy(fp.table).to(value.device))
     table = _device_tables[key][1]
     out = torch.empty(out_shape, dtype=torch.float32, device=value.device)
-    smem = (fp.geo_floats + fp.fp_floats) * 4
+    shapes = [int(x) for row in fp.table[:4 * L].reshape(L, 4) for x in row[:2]]
+    boxes = fp.boxes.reshape(-1).tolist()
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        rc = fn(fp.layout, value.data_ptr(), a.data_ptr(), b.data_ptr(), table.data_ptr(),
-                out.data_ptr(), B, S, M, D, L, P, fp.n_items, Sq, smem, stream)
+        rc = fn(fp.layout, value.data_ptr(), a.data_ptr(), b.data_ptr(),
+                table.data_ptr(), out.data_ptr(), (_I * len(shapes))(*shapes),
+                (_I * len(boxes))(*boxes),
+                B, S, M, D, L, P, fp.n_items, Sq, fp.fp_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     launch_counts[name] += 1
     return out
+
+
+def footprint_kernel_info(fp: Footprints) -> Dict[str, Dict[str, int]]:
+    """``deform_attn._kernel_info`` of the footprint kernel's three instantiations at
+    ``fp.smem_bytes`` of dynamic shared memory a block, by the entries that take each."""
+    names = {f"{VMEM}, {FUSED} (NATURAL_LOC)": 5, f"{VMEM_TM} (TM_LOC)": 6,
+             f"{VMEM_V3} (TM_OFF_CELLS)": 7}
+    return {name: _kernel_info(name, which, fp.smem_bytes) for name, which in names.items()}
 
 
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:

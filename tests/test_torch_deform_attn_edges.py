@@ -1,14 +1,16 @@
-"""The decoder sampler B1 and the encoder backward B4, as the CPU runs them (their plain
-versions), against the JAX package at the small shapes where the lane-layout kernels
-have tails: L*P = 12 (a batch of 8 samples half full), one level, and levels one cell
-wide and one tall. ``chip_smoke.py`` phases 2 and 6 hold the kernels against the same
-plain versions at these shapes on the card, so the chain kernel -> plain -> JAX stays
-closed there. Also the pre-launch guard ``check_lane_layout`` of B1, B2 and B4.
+"""The decoder sampler B1, its backward B3 and the encoder backward B4, as the CPU runs
+them (their plain versions), against the JAX package at the small shapes where the
+lane-layout kernels have tails: L*P = 12 (a batch of 8 samples half full), L*P = 64 (B3),
+one level, levels one cell wide and one tall, and B = 2 with M = 3 (B3).
+``chip_smoke.py`` phases 2 and 6 hold the kernels against the same plain versions at these
+shapes on the card, so the chain kernel -> plain -> JAX stays closed there. Also the
+pre-launch guard ``check_lane_layout`` of B1, B2 and B4 (B3's wrapper calls it on CUDA
+tensors only: ``chip_smoke.py`` phase 6 checks that it refuses D != 32 there).
 
 Tolerances: B1 atol 3e-5 against the interpret-mode TPU kernel (as
-tests/test_torch_deform_attn.py); B4 rtol 1e-4, atol 1e-5 against the TPU kernel's VJP and
-the exact gather core's grads (as tests/test_torch_deform_attn_grads.py): f32 sums in
-another order."""
+tests/test_torch_deform_attn.py); B3 and B4 rtol 1e-4, atol 1e-5 against the TPU kernels'
+VJPs and the exact gather core's grads (as tests/test_torch_deform_attn_grads.py): f32
+sums in another order."""
 
 import numpy as np
 import pytest
@@ -32,9 +34,12 @@ IDS = [c[0] for c in CASES]
 
 
 def _compiled(fn, *args):
-    """``fn`` as one XLA:CPU program compiled without LLVM's expensive passes (much
-    faster to build here than eager dispatch of an interpret-mode kernel)."""
-    opts = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+    """``fn`` as one XLA:CPU program compiled without LLVM's expensive passes and without
+    the fusion emitters (much faster to build here than eager dispatch of an
+    interpret-mode kernel: the kernels unroll over levels and points, and at L*P = 64 the
+    fusion emitters took two thirds of the compile)."""
+    opts = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True,
+            "xla_cpu_use_fusion_emitters": False}
     args = [jnp.asarray(a) for a in args]
     return jax.jit(fn).lower(*args).compile(opts)(*args)
 
@@ -151,3 +156,50 @@ def test_lane_layout_guard_names_each_limit(dims, limit):
         da.check_lane_layout("B1", **args)
     da.check_lane_layout("B1", B=3, S=37171, M=8, D=32, L=4, P=4)
     da.check_lane_layout("B4", B=1, S=34000, M=8, D=32, L=4, P=4)
+
+
+# B3's edge shapes, as chip_smoke.py's EDGE_CASES: (name, B, M, level shapes, P); L*P = 64
+# with one head, since the interpret-mode kernel unrolls over points and heads
+EDGE_LEVELS = [(6, 9), (3, 5), (2, 3), (1, 2)]
+B3_CASES = [
+    ("L*P=12", 1, M, EDGE_LEVELS, 3),
+    ("L*P=64", 1, 1, EDGE_LEVELS, 16),
+    ("L=1", 1, M, [(7, 5)], 4),
+    ("1-wide and 1-tall levels", 1, M, [(5, 1), (1, 6), (3, 3)], 4),
+    ("B=2 M=3", 2, 3, EDGE_LEVELS, 4),
+]
+
+
+@pytest.mark.parametrize("name,b,m,shapes,P", B3_CASES, ids=[c[0] for c in B3_CASES])
+def test_queries_backward_matches_jax_op_bwd_at_edge_shapes(name, b, m, shapes, P):
+    """B3's plain version (autograd through ms_deform_attn_queries_plain) against jax.grad
+    through ms_deform_attn_queries_vmem, whose custom VJP runs the TPU backward kernel
+    (_op_bwd) in interpret mode: 13 queries, locations partly outside [0, 1]. rtol 1e-4,
+    atol 1e-5 per gradient (f32 sums in another order)."""
+    from gomatching_tpu.ops.deform_attn_dec_vmem import _op_bwd
+
+    rng = np.random.RandomState(13)
+    L, S, Lq = len(shapes), sum(h * w for h, w in shapes), 13
+    value = rng.randn(b, S, m, D).astype(np.float32)
+    loc = rng.uniform(-0.15, 1.15, (b, Lq, m, L, P, 2)).astype(np.float32)
+    attn = _softmax(rng.randn(b, Lq, m, L * P).astype(np.float32)).reshape(b, Lq, m, L, P)
+    cot = rng.randn(b, Lq, m * D).astype(np.float32)
+
+    want = _compiled(lambda v, lo, a, do: _op_bwd(tuple(shapes), 8, 16, True, (v, lo, a), do),
+                     value, loc, attn, cot)
+    got = da.ms_deform_attn_queries_plain_backward(*_t(value), shapes, *_t(loc, attn, cot))
+    for g, w, n in zip(got, want, ("value", "loc", "attn")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL,
+                                   err_msg=f"d{n}")
+
+
+def test_queries_backward_refuses_cpu_tensors():
+    """The B3 wrapper takes CUDA tensors only: on the CPU, autograd differentiates the plain
+    forward (and no launch is counted)."""
+    value = torch.zeros(1, 6, 2, 32)
+    loc = torch.zeros(1, 3, 2, 1, 2, 2)
+    attn = torch.zeros(1, 3, 2, 1, 2)
+    before = dict(da.launch_counts)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        da.ms_deform_attn_queries_backward(value, [(2, 3)], loc, attn, torch.zeros(1, 3, 64))
+    assert da.launch_counts == before

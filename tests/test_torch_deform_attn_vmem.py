@@ -3,7 +3,8 @@ versions, as the CPU runs them) against the JAX package.
 
 (a) the geometry copies (``tile_major_perm``/``_inverse``, the column perms,
 ``_footprint_bounds``, ``_tile_queries``/``_untile_queries``) equal JAX's exactly, at the
-test shapes and at the ICDAR15 inference shapes with default and explicit tiles;
+test shapes and at the ICDAR15 inference shapes with default and explicit tiles, and so do
+the kernel's block tables built from them (``footprints``, under three shared-memory budgets);
 (b) ``ms_deform_attn_encoder_vmem``, ``_vmem_tm`` and ``_vmem_v3`` against the JAX entries
 in interpret mode, offsets within the halo, atol 3e-5 (test_deform_attn_vmem.py's);
 (c) the same entries with offsets of up to 6 cells at halo 2 and locations outside the
@@ -118,6 +119,73 @@ def test_geometry_matches_jax(shapes, tiles):
     assert [nty, ntx] == n
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(dav._untile_queries(got, nty, ntx, h, w, ty, tx).numpy(), x)
+
+
+@pytest.mark.parametrize("shapes,tiles", [
+    (SHAPES, TILES), (PROD, None), (PROD, ((16, 32), (16, 32), (16, 32), (16, 16))),
+    ([(12, 12), (6, 5), (1, 7)], (8, 8, 8)),
+])
+def test_footprint_records_match_jax_bounds(shapes, tiles):
+    """The kernel's block table (``footprints``): per block, the source level, tile
+    origin, width, query chunk (at most QCHUNK queries) and first slot, and per target
+    level the footprint origin and extent from JAX's ``_footprint_bounds``, or zeros where
+    the footprint does not fit a buffer under each shared-memory budget (or a TMA box):
+    the shipped one, 64 KB and 0 (every pair direct); the tensor-map boxes and the buffer
+    and block sizes."""
+    from gomatching_tpu.ops import deform_attn_tiled as jt
+    from gomatching_tpu.ops import deform_attn_vmem as jv
+
+    L, P_, halo = len(shapes), 4, 5
+    starts = dav._level_starts(shapes)[0]
+    S_tm = sum(T * Q for _, T, Q, *_ in jv.tile_major_perm(shapes, tiles)[1])
+    shipped = dav.SMEM_BLOCK_BYTES
+    try:
+        for cap in (shipped, 64 * 1024, 0):
+            dav.SMEM_BLOCK_BYTES = cap
+            dav.footprints.cache_clear()
+            budget = (cap - dav.smem_bytes(0, L, P_)) // dav.NBUF
+            for name in (da.VMEM, da.VMEM_TM):
+                fp = dav.vmem_footprints(name, shapes, P_, halo, 8, tiles,
+                                         None if name == da.VMEM else S_tm)
+                if name == da.VMEM:
+                    want_tiles = [(0, -(-h // min(ty, h)) * -(-w // min(tx, w)),
+                                   min(ty, h) * min(tx, w), min(ty, h), min(tx, w),
+                                   -(-h // min(ty, h)), -(-w // min(tx, w)))
+                                  for (h, w), (ty, tx) in zip(shapes, jv._norm_tiles(tiles, L))]
+                else:
+                    want_tiles = [tuple(i) for i in jv.tile_major_perm(shapes, tiles)[1]]
+                assert [tuple(t) for t in fp.tiles] == want_tiles
+                np.testing.assert_array_equal(
+                    fp.table[:4 * L].reshape(L, 4),
+                    [[h, w, s0, 0] for (h, w), s0 in zip(shapes, starts)])
+                recs, boxes, fp_bytes = [], np.zeros((L, L, 2), np.int32), 0
+                for l1, (H1, W1) in enumerate(shapes):
+                    pos, T, Q, ty, tx, nty, ntx = want_tiles[l1]
+                    per_l2 = []
+                    for l2, (H2, W2) in enumerate(shapes):
+                        oys, Fh = jt._footprint_bounds(H1, ty, nty, H2, -(-H2 // 8) * 8, halo, 1)
+                        oxs, Fw = jt._footprint_bounds(W1, tx, ntx, W2, -(-W2 // 8) * 8, halo, 8)
+                        staged = Fh * Fw * 128 <= budget and max(Fh, Fw) <= 256
+                        if staged:
+                            boxes[l1, l2] = (Fh, Fw)
+                            fp_bytes = max(fp_bytes, Fh * Fw * 128)
+                        per_l2.append((oys, oxs, Fh, Fw, staged))
+                    for q0 in range(0, Q, dav.QCHUNK):
+                        for t in range(T):
+                            rec = [l1, (t // ntx) * ty, (t % ntx) * tx, tx, q0,
+                                   min(dav.QCHUNK, Q - q0), pos + t * Q, 0]
+                            for oys, oxs, Fh, Fw, staged in per_l2:
+                                rec += [oys[t // ntx], oxs[t % ntx], Fh, Fw] if staged else [0] * 4
+                            recs.append(rec)
+                assert fp.n_items == len(recs)
+                np.testing.assert_array_equal(fp.table[4 * L:].reshape(len(recs), -1), recs)
+                np.testing.assert_array_equal(fp.boxes, boxes)
+                assert fp.fp_bytes == fp_bytes
+                assert fp.smem_bytes == dav.smem_bytes(fp_bytes, L, P_)
+                assert fp_bytes == 0 or fp.smem_bytes <= cap
+    finally:
+        dav.SMEM_BLOCK_BYTES = shipped
+        dav.footprints.cache_clear()
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
