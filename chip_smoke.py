@@ -9,7 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
      their registers, local memory (which must be 0; B3 at most 64 registers) and resident
      warps per SM; the same for the footprint kernel's three instantiations (B6a-c) at
      the dynamic shared memory of a block under the shipped budget, and for the
-     -DFP_WARPS=8 measurement build (blocks of 8 warps) under a budget of 0;
+     -DFP_WARPS=8 measurement build (blocks of 8 warps) under a budget of 0; ptxas's
+     report and the runtime's registers, local memory (which must be 0) and static shared
+     memory of the probe kernels (T1's passes, T2's three instantiations) and of T1's
+     earlier form in the -DT1_L2_GATHER measurement build;
   2. each hand-written kernel against its plain PyTorch version at the full-width
      ICDAR15 shapes (1000x1778 input: levels (125,223) (63,112) (32,56) (16,28),
      S=37171 tokens, M=8 heads, D=32, L=4, P=4, 100x25 decoder queries), with
@@ -81,14 +84,22 @@ Phases (any failure exits non-zero and prints no result line):
      tilesets; each within ATOL_KERNEL of the exact gather, each of the four B6 entries
      launched; every sampler's time per encoder call on the same samples (B6a-c beside B1
      and B2);
- 14. the probe kernels (``csrc/probes.cu``): T1 ``gather_rows_sum`` in the four cases of
-     the gather rate probe, on an integer-valued table (kernel, plain version and the
-     float64 sum exactly equal) and on a randn table (within RTOL_GATHER of the sum of
-     |terms|); T2 ``onehot_g`` in its three variants on coordinates in (-2, F + 1) (f32
-     within ATOL_G, the bf16-output variants bit for bit or within one bf16 ulp, the
-     count printed); kernel (CUDA events and the profiler's device time), plain, library
-     and bound times; then the path of this slice, both probe tools' ``main``
-     (``gomatching_tpu_torch.tools.bench_gather``, ``.probe_bf16_g``), each kernel launched;
+ 14. the probe kernels (``csrc/probes.cu``): an empty kernel's device time (the launch
+     floor); T1 ``gather_rows_sum`` in the four cases of the gather rate probe, its slice
+     plan and its scratch sizes (the C entry's against ``gather_probe.scratch_sizes``), on
+     an integer-valued table (kernel, plain version and the float64 sum exactly equal)
+     and on a randn table (within RTOL_GATHER of the sum of |terms|, the same bits
+     twice); its device time by pass, beside the byte bound and the shared-memory bound
+     (gathered bytes at SMEM_BYTES_PER_CLOCK an SM at the card's SM clock); the earlier
+     form (the -DT1_L2_GATHER build) against the shipped one in turns, and both on
+     all-zero indices (every gathered row the same); its pass B against the
+     -DT1_NO_SLICE_COPY build's (no slice copies; timing only) in turns; T2 ``onehot_g`` in its three
+     variants on coordinates in (-2, F + 1), at the probe's Q and at G_LARGE_Q (f32
+     within ATOL_G, the bf16-output variants bit for bit or within one bf16 ulp; the
+     count of elements that differ from plain printed); kernel (CUDA events and the
+     profiler's device time), plain, library and bound times; then the path of this
+     slice, both probe tools' ``main`` (``gomatching_tpu_torch.tools.bench_gather``,
+     ``.probe_bf16_g``), each kernel launched;
  15. B1 (decoder and encoder shapes), B2 and B5 from a measurement build of
      ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0: every gathered row is row 0 of its
      base, an L1 hit) against the real build on the same inputs, in turns: how much of
@@ -143,14 +154,19 @@ TILESETS = "8x16,8x16,8x16,8x16;16x16,16x16,16x16,16x16"  # phase 13's tile swee
 # T1 on a randn table, kernel vs plain: |k - p| <= RTOL_GATHER * sum |terms|. Each f32
 # addition rounds by at most 2**-24 of its result, so a sum in which no term passes
 # through more than h additions is within h * 2**-24 * sum |terms| of the exact one. The
-# kernel's deepest chain at the probe's shapes is 276 additions (at (32768, 32, 64): 256
-# rows a lane in series, 5 shuffle and 3 block levels, 12 in the final pass); torch's
-# reduction is taken to be no deeper, so the two differ by at most 2 * 276 * 2**-24.
+# kernel's deepest chain at the probe's shapes is at most 152 additions (128 a lane's
+# accumulator before a flush, 2 + 5 to the warp's sum, <= 3 flushes, 5 block levels, 9
+# in the final pass; csrc/probes.cu), its earlier form's 276; torch's reduction is taken
+# to be no deeper than 276, so the two differ by at most 2 * 276 * 2**-24.
 RTOL_GATHER = 2 * 276 * 2.0 ** -24
 ATOL_G = 1e-6  # T2 in f32: the kernel does _g_kernel's ops in its order, without FMAs
 ROW0_FLAGS = ("-DMSDA_GATHER_ROW0",)  # phase 15's measurement builds
 NO_SCATTER_FLAGS = ("-DMSDA_NO_SCATTER",)
 FP_WARPS8_FLAGS = ("-DFP_WARPS=8",)  # phases 1 and 12: footprint blocks of 8 warps
+T1_L2_FLAGS = ("-DT1_L2_GATHER",)  # phases 1 and 14: T1's earlier form, from L1/L2
+T1_NO_COPY_FLAGS = ("-DT1_NO_SLICE_COPY",)  # phase 14: T1's pass B without its slice copies
+SMEM_BYTES_PER_CLOCK = 128  # an SM's shared memory (H100)
+G_LARGE_Q = 256 * 132  # phase 14: T2 at a Q where the output bytes (138 MB f32) dominate
 # The small shapes phases 2 and 6 also run B1 and B4 at (tests/test_torch_deform_attn_edges.py
 # holds the plain versions against JAX at the same): (name, B, M, level shapes, P)
 EDGE_LEVELS = [(6, 9), (3, 5), (2, 3), (1, 2)]
@@ -944,17 +960,123 @@ def fmt_us(us):
     return "not measured" if us is None else f"{us:.2f} us"
 
 
-def phase_probes(torch, gp, og):
-    """T1 and T2 against their plain versions at the probe tools' shapes; returns the
-    kernels-line records (sans launches): T1 at (32768, 32, 64) f32, T2 in f32."""
+def probes_lib(_build, gp, flags=()):
+    """``csrc/probes.cu`` built with ``flags`` added (a measurement build, which the
+    wrappers never load), typed as the wrappers type it, with ``probes_kernel_info`` and,
+    in the ``T1_L2_FLAGS`` build, ``probe_empty``."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(_build.build("probes.cu", flags=_build.NVCC_FLAGS + flags)))
+    sigs = {**gp._SIGNATURES, "probes_kernel_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]}
+    if flags == T1_L2_FLAGS:
+        sigs["probe_empty"] = [ctypes.c_void_p]
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+# probes_kernel_info's kernels: (index, name, a substring of the mangled name)
+PROBE_KERNELS = [
+    (0, "T1 pass A: count", "gather_rows_sum_count_kernel"),
+    (1, "T1 pass A: scan", "gather_rows_sum_scan_kernel"),
+    (2, "T1 pass A: scatter", "gather_rows_sum_scatter_kernel"),
+    (3, "T1 pass B, f32 C=32", "gather_rows_sum_slices_kernelIfLi8E"),
+    (4, "T1 pass B, f32 C=128 (chunks a row at run time)", "gather_rows_sum_slices_kernelIfLi0E"),
+    (5, "T1 pass B, bf16 C=32", "gather_rows_sum_slices_kernelI13__nv_bfloat16Li4E"),
+    (6, "T1 last pass", "gather_rows_sum_final_kernel"),
+    (7, "T2 f32/f32", "onehot_g_kernelILb0EfE"),
+    (8, "T2 bf16/bf16", "onehot_g_kernelILb1E13__nv_bfloat16E"),
+    (9, "T2 f32/bf16", "onehot_g_kernelILb0E13__nv_bfloat16E"),
+]
+# the T1_L2_GATHER build's earlier T1 (its kernels 3-5)
+PROBE_KERNELS_L2 = [
+    (3, "earlier T1, f32 C=32", "gather_rows_sum_kernelIfLi1E"),
+    (4, "earlier T1, f32 C=128", "gather_rows_sum_kernelIfLi4E"),
+    (5, "earlier T1, bf16 C=32", "gather_rows_sum_kernelI13__nv_bfloat16Li1E"),
+]
+
+
+def phase_probe_resources(_build, gp):
+    """What ptxas and the runtime made of the probe kernels (T1's passes, T2's three
+    instantiations) and of the earlier T1 in the measurement build: registers, stack and
+    spills from nvcc's report, and registers, local memory and static shared memory a
+    block from the CUDA runtime. None may keep anything in local memory."""
+    import ctypes
+
+    for flags, kernels in (((), PROBE_KERNELS), (T1_L2_FLAGS, PROBE_KERNELS_L2)):
+        lib = probes_lib(_build, gp, flags)
+        report = ptxas_report(_build.build_log("probes.cu", _build.NVCC_FLAGS + flags),
+                              {name: key for _, name, key in kernels})
+        for which, name, key in kernels:
+            info = (ctypes.c_int * 3)()
+            rc = lib.probes_kernel_info(which, info)
+            check(rc == 0, f"probes_kernel_info({which}) {' '.join(flags)}: cudaError {rc}")
+            check(report[name], f"{name}: no ptxas report for {key}")
+            print(f"[1] {name} ({key}{', ' + ' '.join(flags) if flags else ''}): ptxas: "
+                  f"{'; '.join(report[name])}; runtime: {info[0]} registers, {info[1]} bytes of "
+                  f"local memory a thread, {info[2]} bytes of static shared memory a block")
+            check(info[1] == 0, f"{name}: {info[1]} bytes of local memory a thread")
+
+
+def device_split(torch, fn, marker, n=20):
+    """Device time per call of ``fn`` (us) of each kernel whose name contains ``marker``,
+    by kernel (its name up to the argument list), from torch.profiler over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for t, _, key in device_rows(torch, prof):
+        if marker in key:
+            name = key.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + t / n
+    return out
+
+
+def sm_clock_mhz():
+    """The SM clock the card reports as its maximum (MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def phase_probes(torch, gp, og, _build):
+    """T1 and T2 against their plain versions at the probe tools' shapes; T1's earlier form
+    (the T1_L2_GATHER build) against the shipped one in turns, and both on all-zero
+    indices; T2 at G_LARGE_Q; an empty kernel. Returns the kernels-line records (sans
+    launches): T1 at (32768, 32, 64) f32, T2 in f32."""
+    import ctypes
+
     from gomatching_tpu_torch.tools import bench_gather, probe_bf16_g
 
     dev = "cuda"
     rng = np.random.RandomState(5)
     records = {}
+    libs = {"earlier": probes_lib(_build, gp, T1_L2_FLAGS), "shipped": probes_lib(_build, gp)}
+    no_copy = probes_lib(_build, gp, T1_NO_COPY_FLAGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_mhz()
+    smem_rate = SMEM_BYTES_PER_CLOCK * n_sms * clock * 1e6  # bytes/s
+    empty_us = device_us(torch, lambda: libs["earlier"].probe_empty(stream), "probe_empty", n=100)
+    print(f"[14] an empty kernel (one block of 32 threads): device {fmt_us(empty_us)} a launch "
+          f"(the launch floor); SM clock {clock:.0f} MHz, {n_sms} SMs: shared memory "
+          f"{smem_rate / 1e12:.2f} TB/s at {SMEM_BYTES_PER_CLOCK} bytes a clock an SM")
     for R, C, n, dtype in bench_gather.CASES:
         idx = torch.from_numpy(rng.randint(0, R, (n, R)).astype(np.int32)).to(dev)
         flat = idx.flatten()
+        rows_per_slice, n_slices = gp.slice_plan(R, C, 2 if dtype == torch.bfloat16 else 4)
+        sizes = (ctypes.c_int64 * 5)()
+        check(libs["shipped"].gather_rows_sum_scratch(idx.numel(), n_slices, n_sms, sizes) == 0,
+              "gather_rows_sum_scratch refused the plan")
+        check(tuple(sizes) == gp.scratch_sizes(idx.numel(), n_slices, n_sms),
+              f"{gp.GATHER}: the C scratch sizes {tuple(sizes)} differ from scratch_sizes' "
+              f"{gp.scratch_sizes(idx.numel(), n_slices, n_sms)}")
         # integer entries in -3..3 (exact in bf16): every partial sum is an integer far
         # below 2**24, so the kernel, the plain version and the f64 sum agree exactly
         v = torch.from_numpy(rng.randint(-3, 4, (R, C)).astype(np.float32)).to(dtype).to(dev)
@@ -975,68 +1097,105 @@ def phase_probes(torch, gp, og):
               f"{gp.GATHER} {R}x{C} x{n} {dtype}: |kernel - plain| {err} > {RTOL_GATHER} * {scale}")
         check(torch.equal(got, again), f"{gp.GATHER}: two runs differ")
         ms = cuda_time_ms(lambda: gp.gather_rows_sum(v, idx))
-        us = device_us(torch, lambda: gp.gather_rows_sum(v, idx), "gather_rows_sum")
+        split = device_split(torch, lambda: gp.gather_rows_sum(v, idx), "gather_rows_sum")
+        us = sum(split.values())
         plain_ms = cuda_time_ms(lambda: gp.gather_rows_sum_plain(v, idx))
         lib_ms = cuda_time_ms(lambda: bench_gather.library_sum(v, idx))
         select_ms = cuda_time_ms(lambda: torch.index_select(v, 0, flat))  # its first half
         # the table and the indices read once, one float written; the adds in f32
         b_ms, b_by = bound(nbytes(v, idx) + 4, n * R * C)
         rows, gathered = n * R, n * R * C * v.element_size()
-        print(f"[14] {gp.GATHER} R={R} C={C} x{n} {str(dtype)[6:]}: exact on integers; randn "
-              f"|kernel-plain| {err:.3e} = {err / scale:.2e} of sum|terms| (rtol {RTOL_GATHER:.2e}), "
-              f"kernel-exact {abs(got.item() - exact) / scale:.2e}, plain-exact "
-              f"{abs(want.item() - exact) / scale:.2e}, same bits twice; kernel {ms:.4f} ms "
-              f"(device {fmt_us(us)}) -> {rows / ms / 1e3:.0f}M rows/s, {gathered / ms / 1e6:.1f} GB/s "
-              f"gathered; plain {plain_ms:.4f} ms, index_select+sum {lib_ms:.4f} ms "
-              f"({rows / lib_ms / 1e3:.0f}M rows/s; index_select alone {select_ms:.4f} ms); "
-              f"bound {b_ms:.4f} ms ({b_by}: "
-              f"{nbytes(v, idx) / 1e6:.2f} MB)")
+        smem_ms = gathered / smem_rate * 1e3  # every gathered row read from shared memory
+        print(f"[14] {gp.GATHER} R={R} C={C} x{n} {str(dtype)[6:]}: {n_slices} slices of "
+              f"{rows_per_slice} rows; exact on integers; randn |kernel-plain| {err:.3e} = "
+              f"{err / scale:.2e} of sum|terms| (rtol {RTOL_GATHER:.2e}), kernel-exact "
+              f"{abs(got.item() - exact) / scale:.2e}, plain-exact {abs(want.item() - exact) / scale:.2e}, "
+              f"same bits twice; kernel {ms:.4f} ms (device {us:.2f} us: "
+              + ", ".join(f"{k.replace('gather_rows_sum_', '')} {t:.2f}" for k, t in split.items())
+              + f") -> {rows / ms / 1e3:.0f}M rows/s, {gathered / ms / 1e6:.1f} GB/s gathered "
+              f"({gathered / us / 1e3:.1f} GB/s of device time); plain {plain_ms:.4f} ms, "
+              f"index_select+sum {lib_ms:.4f} ms ({rows / lib_ms / 1e3:.0f}M rows/s; index_select "
+              f"alone {select_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}: {nbytes(v, idx) / 1e6:.2f} "
+              f"MB), shared-memory bound {smem_ms:.4f} ms ({gathered / 1e6:.1f} MB gathered)")
         if (R, C, n, dtype) == (32768, 32, 64, torch.float32):
             records[gp.GATHER] = dict(
                 name=gp.GATHER, route="cuda", source="gomatching_tpu_torch/csrc/probes.cu",
                 replaces="tools/bench_pallas_gather.py:49", max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             )
-        del v, idx, flat, got, want, again
+
+        # the earlier form (the measurement build) and the shipped one on the same inputs,
+        # in turns (earlier, shipped, shipped, earlier), then both on all-zero indices
+        scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+        out = torch.empty(1, dtype=torch.float32, device=dev)
+
+        def raw(lib, i=idx):
+            return lib.gather_rows_sum(v.data_ptr(), i.data_ptr(), scratch.data_ptr(),
+                                       out.data_ptr(), i.numel(), R, C,
+                                       int(dtype == torch.bfloat16), rows_per_slice, n_slices,
+                                       n_sms, stream)
+
+        times = {k: [] for k in libs}
+        for k in ("earlier", "shipped", "shipped", "earlier"):
+            check(raw(libs[k]) == 0, f"{gp.GATHER}: the {k} build refused the launch")
+            times[k].append(device_us(torch, lambda: raw(libs[k]), "gather_rows_sum"))
+        zeros = torch.zeros_like(idx)
+        floor = {k: device_us(torch, lambda: raw(libs[k], zeros), "gather_rows_sum") for k in libs}
+        # pass B alone, shipped and without its slice copies, in turns (the copies' cost)
+        pass_b = {"shipped": [], "no copies": []}
+        for k in ("shipped", "no copies", "no copies", "shipped"):
+            lib = libs["shipped"] if k == "shipped" else no_copy
+            check(raw(lib) == 0, f"{gp.GATHER}: the {k} build refused the launch")
+            pass_b[k].append(device_us(torch, lambda: raw(lib), "gather_rows_sum_slices"))
+        print(f"[14] {gp.GATHER} R={R} C={C} x{n} {str(dtype)[6:]} in turns, device us: "
+              + "; ".join(f"{k} {', '.join(fmt_us(t) for t in ts)}" for k, ts in times.items())
+              + "; all-zero indices (every row the same): "
+              + ", ".join(f"{k} {fmt_us(t)}" for k, t in floor.items())
+              + "; pass B alone in turns: "
+              + "; ".join(f"{k} {', '.join(fmt_us(t) for t in ts)}" for k, ts in pass_b.items()))
+        del v, idx, flat, got, want, again, scratch, zeros
 
     P, FH, FW, Q = probe_bf16_g.P, probe_bf16_g.FH, probe_bf16_g.FW, probe_bf16_g.Q
-    x = torch.from_numpy(rng.uniform(-2, FW + 1, (P, Q)).astype(np.float32)).to(dev)
-    y = torch.from_numpy(rng.uniform(-2, FH + 1, (P, Q)).astype(np.float32)).to(dev)
-    a = torch.from_numpy(rng.uniform(0, 1, (P, Q)).astype(np.float32)).to(dev)
-    for dtype, out_dtype in og.VARIANTS:
-        def call():
-            return og.onehot_g(x, y, a, FH, FW, dtype, out_dtype)
+    for q in (Q, G_LARGE_Q):
+        x = torch.from_numpy(rng.uniform(-2, FW + 1, (P, q)).astype(np.float32)).to(dev)
+        y = torch.from_numpy(rng.uniform(-2, FH + 1, (P, q)).astype(np.float32)).to(dev)
+        a = torch.from_numpy(rng.uniform(0, 1, (P, q)).astype(np.float32)).to(dev)
+        for dtype, out_dtype in og.VARIANTS:
+            def call():
+                return og.onehot_g(x, y, a, FH, FW, dtype, out_dtype)
 
-        before = og.launch_counts[og.ONEHOT]
-        got = call()
-        check(og.launch_counts[og.ONEHOT] == before + 1, f"{og.ONEHOT}: the kernel did not launch")
-        want = og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype)
-        err = (got.float() - want.float()).abs().max().item()
-        tag = f"{og.ONEHOT} {str(dtype)[6:]} arithmetic, {str(out_dtype)[6:]} out"
-        if out_dtype == torch.float32:
-            check(math.isfinite(err) and err <= ATOL_G, f"{tag}: max err {err}")
-            how = f"max|kernel-plain| {err:.3e} (atol {ATOL_G})"
-        else:
+            before = og.launch_counts[og.ONEHOT]
+            got = call()
+            check(og.launch_counts[og.ONEHOT] == before + 1, f"{og.ONEHOT}: the kernel did not launch")
+            want = og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype)
+            err = (got.float() - want.float()).abs().max().item()
             differ = int((got != want).sum().item())
-            # G >= 0 here, so adjacent bf16 values have adjacent bit patterns
-            ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
-            check(ulps <= 1, f"{tag}: {differ} elements differ, by up to {ulps} bf16 ulps")
-            how = ("bit for bit" if differ == 0 else
-                   f"{differ} of {got.numel()} elements differ by 1 bf16 ulp (max {err:.3e})")
-        ms = cuda_time_ms(call)
-        us = device_us(torch, call, "onehot_g_kernel")
-        plain_ms = cuda_time_ms(lambda: og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype))
-        # G written once, x, y, a read once; 2 P flops per element
-        b_ms, b_by = bound(nbytes(got, x, y, a), 2 * P * FH * FW * Q)
-        print(f"[14] {tag} (P={P}, {FH}x{FW}x{Q}): {how}; kernel {ms:.4f} ms per call "
-              f"(device {fmt_us(us)}), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
-              f"no single PyTorch call computes it")
-        if out_dtype == torch.float32:
-            records[og.ONEHOT] = dict(
-                name=og.ONEHOT, route="cuda", source="gomatching_tpu_torch/csrc/probes.cu",
-                replaces="tools/probe_bf16_g.py:35", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            )
+            tag = f"{og.ONEHOT} {str(dtype)[6:]} arithmetic, {str(out_dtype)[6:]} out"
+            if out_dtype == torch.float32:
+                check(math.isfinite(err) and err <= ATOL_G, f"{tag}: max err {err}")
+                how = f"max|kernel-plain| {err:.3e} (atol {ATOL_G}), {differ} elements differ"
+            else:
+                # G >= 0 here, so adjacent bf16 values have adjacent bit patterns
+                ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
+                check(ulps <= 1, f"{tag}: {differ} elements differ, by up to {ulps} bf16 ulps")
+                how = (f"{differ} of {got.numel()} elements differ from plain"
+                       + (f" by 1 bf16 ulp (max {err:.3e})" if differ else ""))
+            ms = cuda_time_ms(call)
+            us = device_us(torch, call, "onehot_g_kernel")
+            plain_ms = cuda_time_ms(lambda: og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype))
+            # G written once, x, y, a read once; 2 P flops per element
+            b_ms, b_by = bound(nbytes(got, x, y, a), 2 * P * FH * FW * q)
+            print(f"[14] {tag} (P={P}, {FH}x{FW}x{q}): {how}; kernel {ms:.4f} ms per call "
+                  f"(device {fmt_us(us)}), plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}: "
+                  f"{nbytes(got, x, y, a) / 1e6:.2f} MB); no single PyTorch call computes it")
+            if out_dtype == torch.float32 and q == Q:
+                records[og.ONEHOT] = dict(
+                    name=og.ONEHOT, route="cuda", source="gomatching_tpu_torch/csrc/probes.cu",
+                    replaces="tools/probe_bf16_g.py:35", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                )
+            del got, want
+        del x, y, a
     return records
 
 
@@ -1696,12 +1855,14 @@ def main():
     print(f"[1] torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.time()
     builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS),
-              ("ms_deform_attn.cu", NO_SCATTER_FLAGS), ("ms_deform_attn.cu", FP_WARPS8_FLAGS))
+              ("ms_deform_attn.cu", NO_SCATTER_FLAGS), ("ms_deform_attn.cu", FP_WARPS8_FLAGS),
+              ("probes.cu", T1_L2_FLAGS), ("probes.cu", T1_NO_COPY_FLAGS))
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda sf: _build.build(sf[0], flags=_build.NVCC_FLAGS + sf[1]), builds))
     print(f"[1] kernels built in {time.time() - t0:.1f} s ("
           + ", ".join(" ".join((src, *flags)) for src, flags in builds) + " in parallel)")
     phase_resources(da, dav, _build)
+    phase_probe_resources(_build, gp)
 
     records = phase_kernels(torch, da)
     cfg = setup_eval_cfg(CONFIG, ["MODEL.WEIGHTS", "''",
@@ -1741,7 +1902,7 @@ def main():
     bench_counts = phase_bench(torch, da)
 
     # the probe kernels (T1, T2) behind the port's probe tools
-    probe_records = phase_probes(torch, gp, og)
+    probe_records = phase_probes(torch, gp, og, _build)
     probe_counts = phase_probe_tools(torch, gp, og)
     phase_gather_floor(torch, da, dam, _build)
 

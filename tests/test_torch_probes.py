@@ -7,9 +7,17 @@ shape, coordinates uniform in (-2, F + 1) so that taps fall off both edges: f32 
 1e-6, the two bf16-output variants bit for bit. T1: ``gather_rows_sum_plain`` against
 a copy of ``tools/bench_pallas_gather.py``'s kernel body (:49-54 and :82-87, the second
 with the bf16 upcast) in that tool's ``pallas_call`` (VMEM in, SMEM out), and against
-its XLA formula on f32 tables: exact on integer-valued tables, rtol 1e-5 on randn."""
+its XLA formula on f32 tables: exact on integer-valued tables, rtol 1e-5 on randn.
+
+The kernels' own orders, ahead of any card: a model of T2's sparse-tile order (a zeroed
+tile, the <= 4 taps of each (p, q) added in p order) equals ``onehot_g_plain`` in all
+three variants; T1's slice plan puts every table row in exactly one slice within the
+shared-memory budget, and its constants and scratch sizes are those of
+``csrc/probes.cu``."""
 
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -77,6 +85,103 @@ def test_onehot_g_wrapper_runs_plain_on_cpu():
         og.onehot_g(x.double(), y, a, 32, 32)
     with pytest.raises(ValueError, match="P, Q"):
         og.onehot_g(x[None], y, a, 32, 32)
+
+
+def _sparse_tile_g(x, y, a, fh, fw, dtype, out_dtype):
+    """T2's kernel order in torch: G starts at zero, and for p in order each (p, q) adds
+    only its <= 4 taps that fall on the map, term = rnd(rnd(yw * a) * xw), G = rnd(G +
+    term), every op in f32 and, for bf16 arithmetic, rounded to bf16 after it."""
+    P, Q = x.shape
+    rnd = ((lambda t: t.to(torch.bfloat16).float()) if dtype == torch.bfloat16
+           else (lambda t: t))
+    g = torch.zeros(fh, fw, Q, dtype=torch.float32)
+    q = torch.arange(Q)
+    for p in range(P):
+        xv, yv, av = rnd(x[p]), rnd(y[p]), rnd(a[p])
+        x0, y0 = torch.floor(xv), torch.floor(yv)
+        dx, dy = rnd(xv - x0), rnd(yv - y0)
+        xi, yi = x0.long(), y0.long()
+        for h, yw in ((yi, rnd(1 - dy)), (yi + 1, dy)):
+            for w, xw in ((xi, rnd(1 - dx)), (xi + 1, dx)):
+                on = (h >= 0) & (h < fh) & (w >= 0) & (w < fw)
+                term = rnd(rnd(yw * av) * xw)
+                hh, ww, qq = h[on], w[on], q[on]
+                g[hh, ww, qq] = rnd(g[hh, ww, qq] + term[on])
+    return g.to(out_dtype)
+
+
+@pytest.mark.parametrize("shape", [(8, 32, 32, 256), (3, 5, 7, 37)], ids=["probe", "odd"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_onehot_g_sparse_tile_order_matches_plain(variant, shape):
+    P, FH, FW, Q = shape
+    dtype, out_dtype = (TORCH[t] for t in VARIANTS[variant])
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.uniform(-2, FW + 1, (P, Q)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-2, FH + 1, (P, Q)).astype(np.float32))
+    a = torch.from_numpy(rng.uniform(0, 1, (P, Q)).astype(np.float32))
+    assert (x < 0).any() and (x >= FW - 1).any() and (y < 0).any() and (y >= FH - 1).any()
+    want = og.onehot_g_plain(x, y, a, FH, FW, dtype, out_dtype)
+    got = _sparse_tile_g(x, y, a, FH, FW, dtype, out_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _cu_defines():
+    src = (Path(gp.__file__).resolve().parent.parent / "csrc" / "probes.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"^#define (T1_\w+) (\d+)", src, re.M)}
+
+
+# (R, C, element bytes): the probe's four cases, then C = 1, C = 33, a table smaller
+# than one slice, and a bf16 table with an odd C
+SLICE_CASES = [(8192, 32, 4), (8192, 128, 4), (32768, 32, 4), (32768, 32, 2),
+               (5000, 1, 4), (9000, 33, 4), (100, 32, 4), (20000, 33, 2)]
+
+
+@pytest.mark.parametrize("R,C,size", SLICE_CASES)
+def test_gather_slice_plan_covers_every_row_once(R, C, size):
+    rows, n_slices = gp.slice_plan(R, C, size)
+    row_bytes = C * size
+    assert rows % gp.SLICE_ALIGN_ROWS == 0 and rows * row_bytes % 16 == 0
+    assert rows * row_bytes <= gp.SLICE_BYTES < (rows + gp.SLICE_ALIGN_ROWS) * row_bytes
+    assert 1 <= n_slices <= gp.MAX_SLICES
+    covered = np.concatenate([np.arange(s * rows, min(R, (s + 1) * rows))
+                              for s in range(n_slices)])
+    assert np.array_equal(covered, np.arange(R))  # each row in exactly one slice, in order
+    assert all(min(R, (s + 1) * rows) > s * rows for s in range(n_slices))  # none empty
+    if R <= rows:
+        assert n_slices == 1
+
+
+def test_gather_slice_plan_constants_and_scratch_match_the_kernel():
+    d = _cu_defines()
+    assert (gp.SLICE_BYTES, gp.SLICE_ALIGN_ROWS, gp.MAX_SLICES, gp.SORT_WARPS, gp.WARP_ELEMS) == (
+        d["T1_SLICE_BYTES"], d["T1_SLICE_ALIGN_ROWS"], d["T1_MAX_SLICES"], d["T1_SORT_WARPS"],
+        d["T1_WARP_ELEMS"])
+    assert d["T1_SLICE_BYTES"] + 1024 == d["T1_SMEM_BYTES"] == 232448  # sm_90's opt-in limit
+    # the probe's main case, f32 and bf16: 1808 rows of 128 B (19 slices), 3616 of 64 B (10)
+    assert gp.slice_plan(32768, 32, 4) == (1808, 19)
+    assert gp.slice_plan(32768, 32, 2) == (3616, 10)
+    # gather_rows_sum_scratch's formula: 8192 indices a block of pass A
+    assert gp.scratch_sizes(64 * 32768, 19, 132) == (2097152, 256 * 16 * 19, 19 * 256 + 1, 20, 132)
+    assert gp.scratch_sizes(16 * 8192, 5, 132) == (131072, 16 * 16 * 5, 5 * 16 + 1, 6, 132)
+    assert gp.scratch_sizes(0, 1, 132) == (0, 16, 2, 2, 132)
+    with pytest.raises(ValueError, match="no slice plan"):
+        gp.slice_plan(100, gp.SLICE_BYTES // 8 // 4 + 1, 4)  # 8 rows do not fit
+    with pytest.raises(ValueError, match="slices"):
+        gp.slice_plan(gp.MAX_SLICES * 1808 + 1, 32, 4)
+
+
+@pytest.mark.parametrize("R,C,size", SLICE_CASES + [(32 * 57856, 1, 4), (32 * 115712, 1, 2)])
+def test_gather_slice_of_reciprocal_is_exact(R, C, size):
+    """The kernel's slice number (probes.cu:slice_of): r * (1 / rps) in f32, truncated,
+    then one correction step each way, equals r // rps for every row of the plan."""
+    rows, n_slices = gp.slice_plan(R, C, size)
+    r = np.arange(R, dtype=np.int64)
+    inv = np.float32(1) / np.float32(rows)
+    s = np.trunc(r.astype(np.float32) * inv).astype(np.int64)
+    assert np.abs(s - r // rows).max() <= 1
+    s -= s * rows > r
+    s += (s + 1) * rows <= r
+    assert np.array_equal(s, r // rows) and s.max() == n_slices - 1
 
 
 def _jax_gather_sum(v, idx):
