@@ -105,7 +105,22 @@ Phases (any failure exits non-zero and prints no result line):
      base, an L1 hit) against the real build on the same inputs, in turns: how much of
      each kernel's time the memory system adds; and B4 and B3 from a build without their
      dValue atomics (-DMSDA_NO_SCATTER) against the real build at the pretraining shape,
-     in turns: what the scatter costs beside the gather.
+     in turns: what the scatter costs beside the gather;
+ 16. the tracker-training path: ``gomatching_tpu_torch.train_net.main`` (--task tracker) on
+     configs/GoMatching_ICDAR15.yaml at full width, seeded random weights and both
+     proposal thresholds at TRACK_THRESH, over a synthetic dataset of two 12-frame
+     720x1280 videos with 8 drifting text instances each and a still image (a
+     GEN_IMAGE_MOTION clip): N_TRACK_STEPS iterations with finite losses, proposals and
+     matched tracks in each; B1 launched (ENC_LAYERS + DEC_LAYERS) times a clip (the
+     padded clips' masked encoder and the decoder) and no other sampler; the rescore
+     checkpoint loads back strictly and only roi_heads moved; ms/iter, its data stage,
+     frames per clip, host wall by stage (spot / host / update) and peak memory; 2
+     iterations of configs/GoMatching_PP_ICDAR15.yaml; one with TPU.TRAIN_UPLOAD_UINT8
+     False (no masks: B2 in the encoder, B1 in the decoder); one step on one clip with the
+     kernels and with the plain samplers (thresholds in a gap of the fused scores): the
+     same proposals, matches and targets, losses and the updated roi_heads within
+     RTOL_LOSS; one profiled step (device time, busy share, B1's share); the peak memory
+     of a 12-frame 1280x1280 spot.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1 and T2); the last is {"ok": true, "device": {...}}.
 """
@@ -142,6 +157,19 @@ RTOL_GRAD_MAX = 5e-2
 TRAIN_SHAPES = [(160, 160), (80, 80), (40, 40), (20, 20)]  # 1280x1280 at strides 8..64
 TRAIN_SIZE = 1280
 N_TRAIN_STEPS, N_TRAIN_WARMUP = 8, 3
+N_TRACK_STEPS, N_TRACK_WARMUP = 8, 3  # phase 16's tracker-training iterations
+TRACK_VIDEO_FRAMES = 12  # frames per synthetic training video: room for 2 * TRAIN_LEN
+# Phase 16's proposal thresholds (INFERENCE_TH_TRAIN and ASSO_THRESH, 0.3 in the config):
+# seeded random heads score ~0.01 (the classifier's prior bias), so at 0.3 no proposal
+# would pass and the association losses would be empty; at 0.001 every proposal passes
+TRACK_THRESH = 0.001
+# Phase 16's kernel-vs-plain step: the weights' and the clip's seed. With SEED 1 (the CLI
+# run's) two of the encoder's proposal scores near the top-100 cut are within the
+# samplers' last-bit differences, so the two steps decode other queries; with SEED 5 the
+# top-101 scores of every frame are >= 1.2e-6 apart and both steps pick the same
+# (NVIDIA H100 80GB HBM3, 700 W; seeds 2-5 all agree)
+TRACK_AB_SEED = 5
+ADAMW_EPS = 1e-8  # engine/optim.py's AdamW
 SHAPES = [(125, 223), (63, 112), (32, 56), (16, 28)]
 B, M, D, L, P = 3, 8, 32, 4, 4  # B = TPU.SPOT_BATCH, the main path's batch
 NQ, NPTS = 100, 25
@@ -1826,6 +1854,320 @@ def phase_train(torch, da):
     return counts
 
 
+def write_tracker_dataset(root, n_videos=2, n_frames=TRACK_VIDEO_FRAMES):
+    """``n_videos`` synthetic videos of ``n_frames`` 720x1280 frames, each with 8 tracked
+    text instances drifting a few pixels a frame over a panning background, and one still
+    image with 8 instances (a GEN_IMAGE_MOTION clip), COCO-style with video and instance
+    ids."""
+    import cv2
+
+    rng = np.random.RandomState(7)
+    images, annotations = [], []
+
+    def add(img_id, x0, y0, w, h, inst):
+        annotations.append({
+            "id": len(annotations) + 1, "image_id": img_id, "category_id": 1,
+            "bbox": [x0, y0, w, h], "poly": [x0, y0, x0 + w, y0 + 2, x0 + w, y0 + h, x0, y0 + h - 2],
+            "transcription": "".join(rng.choice(list("abcdefgh0123"), rng.randint(1, 9))),
+            "instance_id": inst})
+
+    for v in range(n_videos):
+        base = rng.randint(0, 255, (720, 1280, 3)).astype(np.uint8)
+        boxes = [(rng.randint(60, 900), rng.randint(60, 560), rng.randint(80, 240),
+                  rng.randint(24, 60), rng.randint(-6, 7), rng.randint(-3, 4)) for _ in range(8)]
+        for f in range(n_frames):
+            img_id = 1000 * (v + 1) + f
+            fn = f"v{v}_{f}.jpg"
+            cv2.imwrite(os.path.join(root, fn), np.roll(base, 4 * f, axis=1))
+            images.append({"id": img_id, "file_name": fn, "height": 720, "width": 1280,
+                           "video_id": v + 1})
+            for k, (x0, y0, w, h, dx, dy) in enumerate(boxes):
+                add(img_id, x0 + dx * f, y0 + dy * f, w, h, 100 * (v + 1) + k)
+    cv2.imwrite(os.path.join(root, "still.jpg"), rng.randint(0, 255, (720, 1280, 3), np.uint8))
+    images.append({"id": 1, "file_name": "still.jpg", "height": 720, "width": 1280})
+    for k in range(8):
+        add(1, rng.randint(60, 900), rng.randint(60, 560), rng.randint(80, 240),
+            rng.randint(24, 60), 900 + k)
+    path = os.path.join(root, "train.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "text"}]}, f)
+    return root, path
+
+
+def tracker_argv(config, out_dir, steps, extra=()):
+    return ["--config-file", config, "--task", "tracker", "--max-iter", str(steps), "--opts",
+            "MODEL.WEIGHTS", "''", "SEED", "1", "DATASETS.TRAIN", "('chip_smoke_tracker',)",
+            "OUTPUT_DIR", out_dir, "SOLVER.CHECKPOINT_PERIOD", str(steps),
+            "MODEL.TRANSFORMER.INFERENCE_TH_TRAIN", str(TRACK_THRESH),
+            "MODEL.ASSO_HEAD.ASSO_THRESH", str(TRACK_THRESH), *extra]
+
+
+def phase_tracker(torch, da):
+    """The tracker-training path through its entry point at full width (phase 16)."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.config import setup_train_cfg
+    from gomatching_tpu_torch.data.datasets import register_dataset
+    from gomatching_tpu_torch.engine.checkpoint import latest_train_state, load_checkpoint
+    from gomatching_tpu_torch.models.gomatching import build_model
+    from gomatching_tpu_torch.weights import init_state_dict, load_weights
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        register_dataset("chip_smoke_tracker", *write_tracker_dataset(data_dir))
+        out_dir = os.path.join(tmp, "out")
+        argv = tracker_argv(CONFIG, out_dir, N_TRACK_STEPS)
+        cfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:])
+        t = cfg.MODEL.TRANSFORMER
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.reset_launch_counts()
+        history = train_net.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(da.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        check(len(history) == N_TRACK_STEPS, f"phase 16: {len(history)} steps ran")
+        for i, h in enumerate(history):
+            check(all(math.isfinite(h[k]) for k in ("loss_res", "loss_long_asso",
+                                                     "loss_short_asso", "total_loss")),
+                  f"phase 16: non-finite loss at step {i + 1}: {h}")
+            check(h["proposals"] > 0 and h["matched"] > 0,
+                  f"phase 16: step {i + 1} has {h['proposals']} proposals, {h['matched']} "
+                  "matched to a GT track")
+        # the masked encoder and the decoder sample through B1, once per layer per clip
+        want = {name: 0 for name in counts}
+        want[da.QUERIES] = (t.ENC_LAYERS + t.DEC_LAYERS) * N_TRACK_STEPS
+        check(counts == want, f"phase 16: launches {counts}, expected {want}")
+        ckpt_dir = os.path.join(out_dir, "checkpoints")
+        sd = load_checkpoint(os.path.join(ckpt_dir, f"model_{N_TRACK_STEPS:07d}_rescore.pth"))
+        load_weights(build_model(cfg), sd)
+        check(latest_train_state(ckpt_dir)[1] == N_TRACK_STEPS, "phase 16: no train state")
+        init = train_net.init_rescoring_from_classifier(
+            init_state_dict(cfg, torch.Generator().manual_seed(1)))
+        moved = {k for k in init if not torch.equal(sd[k], init[k])}
+        check(set(sd) == set(init) and moved and all(k.startswith("roi_heads.") for k in moved),
+              f"phase 16: {len(moved)} tensors moved, outside roi_heads: "
+              f"{sorted(k for k in moved if not k.startswith('roi_heads.'))[:5]}")
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            check(json.loads(f.read().splitlines()[-1])["iteration"] == N_TRACK_STEPS,
+                  "phase 16: metrics.json")
+        after = history[N_TRACK_WARMUP:]
+
+        def med(xs):
+            xs = sorted(xs)
+            return xs[len(xs) // 2]
+
+        print(f"[16] tracker-training CLI ({CONFIG}, seeded random weights, both thresholds "
+              f"{TRACK_THRESH}): {N_TRACK_STEPS} iterations, losses "
+              f"{history[0]['total_loss']:.4f} -> {history[-1]['total_loss']:.4f}; proposals "
+              f"per clip {[h['proposals'] for h in history]}, matched to tracks "
+              f"{[h['matched'] for h in history]}; checkpoint loads back strict, "
+              f"{len(moved)} tensors moved, all roi_heads; launches {counts}")
+        print(f"[16] frames per clip {[h['frames'] for h in history]}, canvases "
+              f"{[h['image_hw'] for h in history]}")
+        print(f"[16] iterations {N_TRACK_WARMUP + 1}-{N_TRACK_STEPS}: median "
+              f"{med(h['step_s'] for h in after) * 1e3:.1f} ms/iter (min "
+              f"{min(h['step_s'] for h in after) * 1e3:.1f}, max "
+              f"{max(h['step_s'] for h in after) * 1e3:.1f}) from taking the clip to the losses "
+              f"after the optimizer step; data stage median {med(h['data_s'] for h in after) * 1e3:.1f}"
+              f" ms; by stage (median ms) spot {med(h['phase_t']['spot'] for h in after) * 1e3:.1f}, "
+              f"host {med(h['phase_t']['host'] for h in after) * 1e3:.1f}, update "
+              f"{med(h['phase_t']['update'] for h in after) * 1e3:.1f}; "
+              f"{sum(h['frames'] for h in after) / sum(h['step_s'] for h in after):.3f} frames/s; "
+              f"peak memory {peak / 2**30:.2f} GiB")
+
+        # TPU.TRAIN_UPLOAD_UINT8 False: host-normalized frames and, as in JAX, no sizes, so
+        # no masks: the encoder takes B2 and the decoder B1
+        da.reset_launch_counts()
+        history_f32 = train_net.main(tracker_argv(CONFIG, os.path.join(tmp, "out_f32"), 1,
+                                                  ["TPU.TRAIN_UPLOAD_UINT8", "False"]))
+        counts_f32 = dict(da.launch_counts)
+        want = {**{name: 0 for name in counts_f32}, da.ENCODER: t.ENC_LAYERS,
+                da.QUERIES: t.DEC_LAYERS}
+        check(counts_f32 == want and math.isfinite(history_f32[0]["total_loss"]),
+              f"phase 16: TRAIN_UPLOAD_UINT8 False launches {counts_f32}, expected {want}")
+        print(f"[16] TPU.TRAIN_UPLOAD_UINT8 False (no masks): 1 iteration, loss "
+              f"{history_f32[0]['total_loss']:.4f}, B2 {counts_f32[da.ENCODER]} and B1 "
+              f"{counts_f32[da.QUERIES]} launches")
+
+        # GoMatching++ (the shared matcher) through the same entry point
+        history_pp = train_net.main(tracker_argv(CONFIG_PP, os.path.join(tmp, "out_pp"), 2))
+        check(len(history_pp) == 2 and all(math.isfinite(h["total_loss"]) for h in history_pp),
+              f"phase 16: GoMatching++ losses {[h['total_loss'] for h in history_pp]}")
+        print(f"[16] GoMatching++ ({CONFIG_PP}): 2 iterations, losses "
+              f"{[round(h['total_loss'], 4) for h in history_pp]}, "
+              f"{[h['step_s'] * 1e3 for h in history_pp]} ms")
+        phase_tracker_step(torch, da, setup_train_cfg(
+            CONFIG, argv[argv.index("--opts") + 1:] + ["SEED", str(TRACK_AB_SEED)]))
+
+
+def phase_tracker_step(torch, da, cfg):
+    """One tracker step with the kernels against the same step with the plain samplers,
+    one step under the profiler, and a 12-frame 1280x1280 spot's peak memory."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+    from torch.profiler import ProfilerActivity, profile
+
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.data.loader import build_train_loader
+    from gomatching_tpu_torch.engine.train import Trainer
+    from gomatching_tpu_torch.weights import init_state_dict
+
+    sd = train_net.init_rescoring_from_classifier(
+        init_state_dict(cfg, torch.Generator().manual_seed(cfg.SEED)))
+    sample = next(iter(build_train_loader(cfg)))
+    images, frame_hw = train_net.normalize_clip(sample, cfg.MODEL.PIXEL_MEAN,
+                                                cfg.MODEL.PIXEL_STD, raw=True)
+    targets = train_net.targets_from_sample(sample)
+    trainers = {"kernels": Trainer(cfg, sd), "plain": Trainer(cfg, sd)}
+    saved = spotter_mod.ms_deform_attn_queries, spotter_mod.ms_deform_attn_encoder
+    runs, topk, moments = {}, {}, {}
+
+    def watch(tag, spotter):
+        def select(enc_class, enc_coords):
+            topk[tag] = torch.sort(enc_class, dim=1, descending=True,
+                                   stable=True).indices[:, :spotter.num_queries]
+            return type(spotter).select_proposals(spotter, enc_class, enc_coords)
+        spotter.select_proposals = select
+
+    try:
+        for tag, tr in trainers.items():
+            watch(tag, tr.model.detection_transformer)
+            if tag == "plain":
+                spotter_mod.ms_deform_attn_queries = da.ms_deform_attn_queries_plain
+                spotter_mod.ms_deform_attn_encoder = da.ms_deform_attn_encoder_plain
+            da.reset_launch_counts()
+            spot = tr.spot(images, frame_hw)
+            host = tr.host_fields(spot)
+            if tag == "kernels":
+                counts = dict(da.launch_counts)
+                # both thresholds in the widest gap of the middle fused scores, so that the
+                # steps' last-bit differences cannot move a proposal across them
+                sig = lambda x: 1 / (1 + np.exp(-x.mean(2)[..., 0]))
+                fused = np.sort(np.maximum(sig(host["pred_logits"]),
+                                           sig(host["re_pred_logits"])).ravel())
+                lo, hi = len(fused) * 3 // 10, len(fused) * 7 // 10
+                i = lo + int(np.argmax(np.diff(fused[lo:hi + 1])))
+                th, gap = float(fused[i] + fused[i + 1]) / 2, float(fused[i + 1] - fused[i])
+            tr.train_thresh = tr.asso_thresh = th
+            batch = tr.prepare_batch(host, targets)
+            metrics = tr.update(batch, spot["query_features"])
+            named = dict(tr.model.roi_heads.named_parameters())
+            moments[tag] = {k: tr.optimizer.state[p]["exp_avg"].double().clone()
+                            for k, p in named.items()}
+            runs[tag] = (batch, metrics,
+                         {k: v.detach().double().clone()
+                          for k, v in tr.model.roi_heads.state_dict().items()},
+                         {k: v.detach().double().clone() for k, v in spot.items()
+                          if torch.is_tensor(v)})
+    finally:
+        spotter_mod.ms_deform_attn_queries, spotter_mod.ms_deform_attn_encoder = saved
+    t = cfg.MODEL.TRANSFORMER
+    check(counts == {**{k: 0 for k in counts}, da.QUERIES: t.ENC_LAYERS + t.DEC_LAYERS},
+          f"phase 16 step: launches {counts}")
+    (bk, mk, pk, sk), (bp, mp, pp, sp) = runs["kernels"], runs["plain"]
+    spot_err = max((sk[k] - sp[k]).abs().max().item() for k in sp)
+    print(f"[16] tracker step (SEED {cfg.SEED}), kernels vs plain samplers: top-k proposals "
+          f"{'identical' if torch.equal(topk['kernels'], topk['plain']) else 'DIFFERENT'}; "
+          f"spot outputs max |diff| {spot_err:.3e}")
+    check(torch.equal(topk["kernels"], topk["plain"]),
+          "phase 16 step: the plain step chose other top-k proposals")
+    for k in bp:
+        same = (np.allclose(bk[k], bp[k], rtol=0, atol=ATOL_PATH) if k == "prop_boxes"
+                else np.array_equal(bk[k], bp[k]))
+        check(same, f"phase 16 step: {k} differs between the kernel and the plain step")
+    loss_err = max(abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp)
+    init = {k: v.double() for k, v in sd.items() if k.startswith("roi_heads.")}
+    moved = sum(not torch.equal(pp[k], init["roi_heads." + k].to(pp[k])) for k in pp)
+    # AdamW's first moment after one step is 0.1 x the clipped gradient
+    grad_err = {k: ((moments["kernels"][k] - m).norm() / m.norm().clamp(min=1e-30)).item()
+                for k, m in moments["plain"].items()}
+    worst = max(grad_err, key=grad_err.get)
+    # the updated head, per tensor against its largest weight (and the step's LR for
+    # tensors that start at zero). AdamW's first step moves an entry by lr * g / (|g| +
+    # eps), eps 1e-8: where the clipped gradient |g| (10 x the first moment) is below
+    # 100 eps, the update turns on g's size and not only its sign, and a gradient that is
+    # zero up to rounding (an attention key bias's) takes either sign; those entries are
+    # left out. (At the warm-up LR an update is below the float32 spacing of most
+    # weights, which rounding moves by one spacing or not at all; the largest update is
+    # printed in units of the LR.)
+    lr = float(cfg.SOLVER.BASE_LR) * float(cfg.SOLVER.WARMUP_FACTOR)
+    param_err, step_max = {}, 0.0
+    for k in pp:
+        noise = 10 * moments["plain"][k].abs() < 100 * ADAMW_EPS
+        scale = max(pp[k].abs().max().item(), lr)
+        param_err[k] = ((pk[k] - pp[k]).abs()[~noise].max().item() / scale
+                        if (~noise).any() else 0.0)
+        step_max = max(step_max,
+                       (pk[k] - init["roi_heads." + k].to(pk[k])).abs().max().item() / lr)
+    worst_p = max(param_err, key=param_err.get)
+    param_err = param_err[worst_p]
+    print(f"[16] tracker step on one clip ({len(images)} frames, canvas {images.shape[1:3]}), "
+          f"kernels vs plain samplers: proposals "
+          f"({int(bk['prop_valid'].sum())} of {bk['prop_valid'].size} at threshold {th:.6f}, in a "
+          f"gap of {gap:.2e} between fused scores), rescore matches "
+          f"({int(bk['res_match_mask'].sum())}) and association targets "
+          f"({int((bk['match_cues'] >= 0).sum())} matched slots) identical; losses max rel err "
+          f"{loss_err:.3e} (rtol {RTOL_LOSS}); updated roi_heads max rel err {param_err:.3e} "
+          f"({worst_p}; rtol {RTOL_LOSS}, {moved} of {len(pp)} tensors moved, the largest "
+          f"update {step_max:.3f} x the LR); clipped gradients (AdamW's "
+          f"first moments) |dg|_2/|g|_2 worst {grad_err[worst]:.3e} ({worst}), median "
+          f"{sorted(grad_err.values())[len(grad_err) // 2]:.3e}; launches {counts}")
+    check(loss_err <= RTOL_LOSS, f"phase 16 step: losses differ by {loss_err}")
+    check(param_err <= RTOL_LOSS, f"phase 16 step: roi_heads differ by {param_err} ({worst_p})")
+    check(bk["prop_valid"].any() and (bk["match_cues"] >= 0).any(),
+          "phase 16 step: no proposals or no matched tracks")
+
+    # one step under the profiler (the kernel trainer, warm)
+    tr = trainers["kernels"]
+    del trainers["plain"]
+    tr.step(images, frame_hw, targets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        tr.step(images, frame_hw, targets)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = device_rows(torch, prof)
+    if not rows:
+        print("[16] profiler: no device time recorded (not measured)")
+    else:
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"[16] profiled tracker step ({len(images)} frames): wall {wall * 1e3:.1f} ms, device "
+              f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall; profiler on) in "
+              f"{sum(r[1] for r in rows)} kernels and copies; phases (ms) "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in tr.phase_t.items()))
+        for t_us, n, key in rows[:12]:
+            print(f"[16]   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy:5.1f}% x{n:<5d} {key[:90]}")
+        prefix = "ms_deform_attn_queries_kernel("
+        us = sum(t_us for t_us, _, key in rows if key.startswith(prefix))
+        n = sum(c for _, c, key in rows if key.startswith(prefix))
+        print(f"[16]   B1 ({prefix[:-1]}): {us / 1e3:.3f} ms of device time in the step, {n} "
+              f"launches, {100 * us / 1e3 / busy:.2f}% of the step's device time")
+
+    # the largest spot a clip can ask for: 2 * TRAIN_LEN frames on a full 1280x1280 canvas
+    n = 2 * cfg.INPUT.VIDEO.TRAIN_LEN
+    big = np.random.RandomState(8).randint(0, 255, (n, TRAIN_SIZE, TRAIN_SIZE, 3)).astype(np.uint8)
+    hw = np.tile(np.asarray([[TRAIN_SIZE - 96, TRAIN_SIZE]], np.float32), (n, 1))
+    del prof
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    da.reset_launch_counts()
+    t0 = time.time()
+    out = tr.spot(big, hw)
+    q = out["query_features"]
+    check(bool(torch.isfinite(q).all()), "phase 16: 12-frame spot not finite")
+    torch.cuda.synchronize()
+    print(f"[16] {n}-frame {TRAIN_SIZE}x{TRAIN_SIZE} spot (the last 96 rows padding): "
+          f"{(time.time() - t0) * 1e3:.1f} ms with its first call's costs, B1 launches "
+          f"{da.launch_counts[da.QUERIES]}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB ({(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} above the model's)")
+    check(da.launch_counts[da.QUERIES] == t.ENC_LAYERS + t.DEC_LAYERS, "phase 16: 12-frame spot")
+    del out, q, tr, trainers
+
+
 def main():
     import torch
 
@@ -1905,6 +2247,9 @@ def main():
     probe_records = phase_probes(torch, gp, og, _build)
     probe_counts = phase_probe_tools(torch, gp, og)
     phase_gather_floor(torch, da, dam, _build)
+
+    # GoMatching tracker training (the spotter frozen; its sampling on B1)
+    phase_tracker(torch, da)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},

@@ -1,5 +1,5 @@
 """Text-spotting dataset loading, COCO-style JSON with video/instance ids (the port's
-own copy of ``gomatching_tpu/data/datasets.py``, without the video grouping).
+own copy of ``gomatching_tpu/data/datasets.py``).
 
 Parity: ``load_video_json`` + ``register_vts_instances``
 (gomatching/data/datasets/vts.py:24-233), without the pycocotools dependency (the
@@ -8,7 +8,8 @@ JSON is parsed directly). Per annotation we derive:
     (unknown=36, pad=37; '###'/nonalphanumeric -> [36, pad...]),
   - ``beziers`` (4, 2) centerline control points, ``boundary`` (50, 2),
     ``polyline`` (25, 2) from ``bezier_pts`` or a 4/14-point ``poly``.
-Instance ids are remapped to dense 1..K (0 = untracked).
+Instance ids are remapped to dense 1..K (0 = untracked). ``group_by_video`` groups the
+frame records into the videos the clip loader samples.
 """
 
 from __future__ import annotations
@@ -187,3 +188,20 @@ def load_video_json(json_file: str, image_root: str, num_points: int = 25,
         record["annotations"] = objs
         records.append(record)
     return records
+
+
+def group_by_video(records: List[Dict]) -> Dict[int, List[Dict]]:
+    """Group frame records by video_id; still images (video_id == -1) become singleton
+    pseudo-videos under negative keys (vts_dataset_dataloader.py:96-136)."""
+    videos: Dict[int, List[Dict]] = {}
+    next_pseudo = -1
+    for r in records:
+        vid = r["video_id"]
+        if vid == -1:
+            videos[next_pseudo] = [r]
+            next_pseudo -= 1
+        else:
+            videos.setdefault(vid, []).append(r)
+    for v in videos.values():
+        v.sort(key=lambda r: r["image_id"])
+    return videos

@@ -1,27 +1,57 @@
 """Torch checkpoints of the port: ``{"model": state_dict}`` under the reference's
-``state_dict`` keys; and the JAX package's ``.npz`` params (flat arrays under
-'/'-joined tree paths, gomatching_tpu/engine/checkpoint.py:28-53), read back into their
-tree for ``weights.params_from_jax``."""
+``state_dict`` keys; the tracker trainer's states for ``--resume``
+(``checkpoints/state_{step:07d}.pth``); and the JAX package's ``.npz`` params (flat
+arrays under '/'-joined tree paths, gomatching_tpu/engine/checkpoint.py:28-53), read
+back into their tree for ``weights.params_from_jax``. The JAX package's train states
+are orbax directories, which need JAX to read: the port resumes only from its own."""
 
 from __future__ import annotations
 
 import os
 import pickle
+import re
 import zipfile
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 
 
-def save_checkpoint(path: str, model: nn.Module) -> None:
-    """Write ``{"model": state_dict}`` (CPU tensors) to ``path``, through a temporary
-    file renamed into place."""
-    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+def _save(obj, path: str) -> None:
+    """``torch.save`` through a temporary file renamed into place."""
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": sd}, tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, model: nn.Module) -> None:
+    """Write ``{"model": state_dict}`` (CPU tensors) to ``path``."""
+    _save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)
+
+
+_STATE = re.compile(r"state_(\d{7})\.pth$")
+
+
+def save_train_state(ckpt_dir: str, step: int, state: Dict[str, Any]) -> None:
+    """Write a trainer state (tensors and plain values) as
+    ``ckpt_dir/state_{step:07d}.pth``."""
+    _save(state, os.path.join(ckpt_dir, f"state_{step:07d}.pth"))
+
+
+def latest_train_state(ckpt_dir: str) -> Tuple[Optional[str], int]:
+    """(path, step) of the newest train state in ``ckpt_dir``, or (None, 0)."""
+    found = sorted((int(m.group(1)), name) for name in
+                   (os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else [])
+                   if (m := _STATE.fullmatch(name)))
+    if not found:
+        return None, 0
+    step, name = found[-1]
+    return os.path.join(ckpt_dir, name), step
+
+
+def load_train_state(path: str) -> Dict[str, Any]:
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_checkpoint(path: str, what: str = "checkpoint") -> Dict[str, torch.Tensor]:

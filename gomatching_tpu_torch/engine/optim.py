@@ -55,11 +55,14 @@ def build_schedule(cfg) -> Callable[[int], float]:
 
 
 def param_groups(model: nn.Module, cfg) -> List[Dict]:
-    """The three LR groups (empty ones dropped), each parameter once."""
+    """The three LR groups (empty ones dropped), each parameter once. Parameters that do
+    not require grad (those a freeze partition leaves out) enter no group."""
     s = cfg.SOLVER
     custom = list(s.CUSTOM_MULTIPLIER_NAME)
     groups: Dict[str, List[nn.Parameter]] = {"backbone": [], "custom": [], "rest": []}
     for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
         if name.split(".")[0] == "backbone":
             groups["backbone"].append(p)
         elif any(k in name for k in custom):

@@ -33,6 +33,29 @@ from ..weights import init_weights_, load_weights, params_from_jax
 from .checkpoint import load_checkpoint, load_jax_params
 
 
+def model_weights(cfg):
+    """``MODEL.WEIGHTS`` as a state_dict; None (seeded random weights) only when it is
+    ''. A path ending in ``.npz`` is read as the JAX package's params (the format every
+    shipped config names) and mapped to the port's keys; any other path as a torch
+    checkpoint. A missing file, or one that holds neither, raises."""
+    path = cfg.MODEL.WEIGHTS
+    if not path:
+        return None
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"MODEL.WEIGHTS {path!r} does not exist; pass MODEL.WEIGHTS '' to run on "
+            "seeded random weights"
+        )
+    if not path.endswith(".npz"):
+        return load_checkpoint(path, "MODEL.WEIGHTS")
+    tree = load_jax_params(path, "MODEL.WEIGHTS")
+    try:
+        return params_from_jax(tree, cfg)
+    except KeyError as e:
+        raise ValueError(f"MODEL.WEIGHTS {path!r} lacks the JAX param {e} that this "
+                         "config's model needs") from e
+
+
 class VideoPredictor:
     """End-to-end per-video spotting + tracking.
 
@@ -48,7 +71,7 @@ class VideoPredictor:
         self.device = resolve_device(device)
         model = build_model(cfg)
         if state_dict is None:
-            state_dict = self._checkpoint(cfg)
+            state_dict = model_weights(cfg)
         if state_dict is None:
             gen = torch.Generator().manual_seed(max(int(cfg.SEED), 0))
             init_weights_(model, gen)
@@ -77,29 +100,6 @@ class VideoPredictor:
             use_pos_emb=use_pos,
         )
         self._orig_hw = None
-
-    @staticmethod
-    def _checkpoint(cfg):
-        """``MODEL.WEIGHTS`` as a state_dict; None (seeded random weights) only when
-        it is ''. A path ending in ``.npz`` is read as the JAX package's params (the
-        format every shipped config names) and mapped to the port's keys; any other
-        path as a torch checkpoint. A missing file, or one that holds neither, raises."""
-        path = cfg.MODEL.WEIGHTS
-        if not path:
-            return None
-        if not os.path.isfile(path):
-            raise FileNotFoundError(
-                f"MODEL.WEIGHTS {path!r} does not exist; pass MODEL.WEIGHTS '' to run on "
-                "seeded random weights"
-            )
-        if not path.endswith(".npz"):
-            return load_checkpoint(path, "MODEL.WEIGHTS")
-        tree = load_jax_params(path, "MODEL.WEIGHTS")
-        try:
-            return params_from_jax(tree, cfg)
-        except KeyError as e:
-            raise ValueError(f"MODEL.WEIGHTS {path!r} lacks the JAX param {e} that this "
-                             "config's model needs") from e
 
     @torch.no_grad()
     def associate(self, tokens: np.ndarray, valid: np.ndarray, short_term: bool,

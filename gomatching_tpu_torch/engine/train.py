@@ -1,0 +1,341 @@
+"""GoMatching tracker training: freeze partition, the three-phase step (port of
+``gomatching_tpu/engine/train.py``).
+
+Parity targets (as the JAX package realizes them):
+  - ``check_if_freeze_model`` FREEZE_TYPE ExceptROIheads / ExceptROIheadsID
+    (gomatching/modeling/freeze_layers.py:3-37): only ``roi_heads.*`` requires grad and
+    enters the optimizer (JAX ``split_params`` :77, an optimizer partition);
+  - ``build_custom_optimizer`` (costom_solver.py:20-77) through ``engine/optim.py``:
+    AdamW, WarmupCosineLR, and the full-model clip over the trainable parameters only,
+    before AdamW, as the optax chain of JAX ``build_optimizer`` :174-226 runs it;
+  - the training forward of ``GoMatching.forward`` (gom_lstmatcher.py:213-266): the
+    frozen spotter under ``torch.no_grad()`` -> rescore + loss_res -> thresholded
+    proposals -> long and short association losses.
+
+One ``Trainer.step``:
+  1. spot: the whole clip in one frozen forward (its deformable sampling on the B1/B2
+     kernels on CUDA), with ``re_pred_logits`` from the CURRENT rescoring head; the
+     fields the host phase reads come back in one copy;
+  2. host: score fusion, the two thresholds, boxes, the 4GM Hungarian
+     (``match_rescore``) and the association targets, all numpy (``prepare_batch``);
+  3. update: the losses on the spot's query features, backward into ``roi_heads``,
+     clip, AdamW and the LR schedule; the losses come back in one copy.
+``phase_t`` holds each step's host wall by phase; each phase ends in a copy to the host,
+so the device has finished its work when the phase's clock stops.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from .. import resolve_device
+from ..models.gomatching import build_model
+from ..weights import init_weights_, load_weights
+from .losses import asso_ce_loss, build_asso_targets, match_rescore, rescore_loss
+from .optim import build_optimizer, clip_by_global_norm_, clip_max_norm
+
+# FREEZE_TYPEs that train only the tracker head (freeze_layers.py:3-37; identical for
+# this architecture); every shipped config sets one of them
+ROI_HEADS_ONLY = ("ExceptROIheads", "ExceptROIheadsID")
+
+
+def freeze_partition(model: nn.Module, freeze_type: str) -> List[str]:
+    """Leave only ``roi_heads.*`` requiring grad; return the names of the trainable
+    parameters. Other policies (JAX ``split_params`` also knows ROIheads, Backbone,
+    BackboneBottomup and '') raise: the tracker losses reach only ``roi_heads``."""
+    if freeze_type not in ROI_HEADS_ONLY:
+        raise NotImplementedError(
+            f"MODEL.FREEZE_TYPE={freeze_type!r} is not ported: tracker training takes "
+            f"{' or '.join(ROI_HEADS_ONLY)} (only roi_heads trains)")
+    names = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(name.startswith("roi_heads."))
+        if p.requires_grad:
+            names.append(name)
+    return names
+
+
+def check_train_keys(cfg) -> None:
+    """Refuse the training-wire keys the port does not read: ``TPU.TRAIN_UPLOAD_FORMAT``
+    yuv420 (JAX: a lossy I420 round trip of every training frame)."""
+    if cfg.TPU.TRAIN_UPLOAD_FORMAT != "rgb":
+        raise NotImplementedError(
+            f"TPU.TRAIN_UPLOAD_FORMAT={cfg.TPU.TRAIN_UPLOAD_FORMAT!r} is not ported yet "
+            "(ROADMAP A13); the port runs 'rgb'")
+
+
+def normalize_wire_frames(images: torch.Tensor, pixel_mean: Sequence[float],
+                          pixel_std: Sequence[float],
+                          image_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 frames (B, H, W, 3) -> normalized float32 on their device, the padding of
+    the canvas zeroed again from ``image_hw`` (B, 2) true (h, w): the reference's order,
+    normalize per image then zero-pad (gom_lstmatcher.py:159-169; JAX train.py:41)."""
+    x = images.float()
+    mean = torch.tensor(pixel_mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(pixel_std, dtype=torch.float32, device=x.device)
+    x = (x - mean) / std
+    if image_hw is not None:
+        _, h, w = x.shape[:3]
+        hw = image_hw.float()
+        rows = torch.arange(h, dtype=torch.float32, device=x.device)[None, :, None]
+        cols = torch.arange(w, dtype=torch.float32, device=x.device)[None, None, :]
+        valid = (rows < hw[:, 0, None, None]) & (cols < hw[:, 1, None, None])
+        x = x * valid[..., None].float()
+    return x
+
+
+# the spot fields the host phase reads, in their order on the packed copy's last axis
+_HOST_FIELDS = ("pred_logits", "re_pred_logits", "pred_ctrl_points", "pred_bd_points")
+
+
+class Trainer:
+    """GoMatching tracker training on one device, the spotter frozen.
+
+    ``device``: None runs on the current CUDA device and raises when there is none; pass
+    ``"cpu"`` to run on the CPU. ``state_dict``: reference-keyed weights of the whole
+    model; by default seeded random weights (``SEED``, 0 when negative).
+    """
+
+    def __init__(self, cfg, state_dict=None, device=None):
+        check_train_keys(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        model = build_model(cfg)
+        if state_dict is None:
+            init_weights_(model, torch.Generator().manual_seed(max(int(cfg.SEED), 0)))
+        else:
+            load_weights(model, state_dict)
+        self.trainable_names = freeze_partition(model, cfg.MODEL.FREEZE_TYPE)
+        # the frozen spotter runs in eval mode; the head in train mode (its dropout)
+        self.model = model.to(self.device).eval()
+        self.model.roi_heads.train()
+        named = dict(self.model.named_parameters())
+        self.trainable = [named[n] for n in self.trainable_names]
+        self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
+        self.max_norm = clip_max_norm(cfg)
+        a, t = cfg.MODEL.ASSO_HEAD, cfg.MODEL.TRANSFORMER
+        self.asso_thresh = a.ASSO_THRESH
+        self.train_thresh = t.INFERENCE_TH_TRAIN
+        self.asso_weight = a.ASSO_WEIGHT
+        self.asso_weight_local = a.ASSO_WEIGHT_LOCAL
+        self.neg_unmatched = a.NEG_UNMATCHED
+        self.focal_alpha = t.LOSS.FOCAL_ALPHA
+        self.focal_gamma = t.LOSS.FOCAL_GAMMA
+        self.with_rescore = cfg.MODEL.ROI_HEADS.WITH_RESR
+        # with NO_POS_EMB False the reference applies the interpolated box (+ temporal)
+        # embeddings in forward_train too (_forward_transformer, lstmatcher.py:338-346)
+        self.use_pos_emb = not a.NO_POS_EMB
+        self.with_temp_emb = a.WITH_TEMP_EMB
+        self.pixel_mean = list(cfg.MODEL.PIXEL_MEAN)
+        self.pixel_std = list(cfg.MODEL.PIXEL_STD)
+        self.step_count = 0
+        self.phase_t: Dict[str, float] = {}  # the last step's host wall by phase
+        self.last_batch: Optional[Dict[str, np.ndarray]] = None  # its host-built batch
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def spot(self, images: np.ndarray, image_hw: Optional[np.ndarray] = None
+             ) -> Dict[str, Optional[torch.Tensor]]:
+        """The frozen spot forward of a clip (T, H, W, 3) on the device: uint8 frames
+        are normalized there and their padding zeroed from ``image_hw`` (T, 2); float
+        frames are taken as normalized. ``image_hw`` None: no padding masks."""
+        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        hw = None if image_hw is None else torch.from_numpy(
+            np.asarray(image_hw, np.float32)).to(self.device)
+        if x.dtype == torch.uint8:
+            x = normalize_wire_frames(x, self.pixel_mean, self.pixel_std, hw)
+        return self.model.spot(x, hw)
+
+    def host_fields(self, spot_out: Dict) -> Dict[str, Optional[np.ndarray]]:
+        """The fields ``prepare_batch`` reads, copied to the host in one transfer."""
+        fields = [f for f in _HOST_FIELDS if spot_out.get(f) is not None]
+        packed = torch.cat([spot_out[f].float() for f in fields], -1).cpu().numpy()
+        out: Dict[str, Optional[np.ndarray]] = dict.fromkeys(_HOST_FIELDS)
+        pos = 0
+        for f in fields:
+            n = spot_out[f].shape[-1]
+            out[f] = packed[..., pos:pos + n]
+            pos += n
+        return out
+
+    def prepare_batch(self, spot_out: Dict[str, Optional[np.ndarray]], targets: Dict
+                      ) -> Dict[str, np.ndarray]:
+        """Host phase (JAX train.py:456): score fusion, the proposal thresholds, boxes,
+        the rescore Hungarian and the association targets."""
+        logits = np.asarray(spot_out["pred_logits"], np.float32)  # (T, nq, npts, 1)
+        T, nq = logits.shape[:2]
+        scores = 1 / (1 + np.exp(-logits.mean(2)[..., 0]))
+        re = None
+        fused = scores
+        if self.with_rescore and spot_out["re_pred_logits"] is not None:
+            re = np.asarray(spot_out["re_pred_logits"], np.float32)
+            fused = np.maximum(scores, 1 / (1 + np.exp(-re.mean(2)[..., 0])))
+        # the detection threshold then the association threshold (gom_lstmatcher.py:608,
+        # lstmatcher.py:276-278)
+        prop_valid = (fused > self.train_thresh) & (fused > self.asso_thresh)
+        # boxes from the boundary points' extremes, normalized
+        pts = np.asarray(spot_out["pred_bd_points"], np.float32).reshape(T, nq, -1, 2)
+        boxes = np.stack([pts[..., 0].min(-1), pts[..., 1].min(-1), pts[..., 0].max(-1),
+                          pts[..., 1].max(-1)], axis=-1)
+        num_inst = max(sum(len(g) for g in targets["gt_ctrl"]), 1)
+
+        res_match_mask = np.zeros((T, nq), np.float32)
+        if re is not None:
+            # the 4GM matcher cost with the configured weights (matcher.py:255-261)
+            lw = self.cfg.MODEL.TRANSFORMER.LOSS
+            matches = match_rescore(
+                re, np.asarray(spot_out["pred_ctrl_points"]), targets["gt_ctrl"],
+                class_weight=lw.POINT_CLASS_WEIGHT, coord_weight=lw.POINT_COORD_WEIGHT,
+                focal_alpha=lw.FOCAL_ALPHA, focal_gamma=lw.FOCAL_GAMMA)
+            for t, (qi, _) in enumerate(matches):
+                res_match_mask[t, qi] = 1.0
+
+        asso_gt, match_cues, track_valid = build_asso_targets(
+            boxes, prop_valid, targets["gt_boxes"], targets["gt_ids"], nq)
+        asso_gt_pairs = np.zeros((max(T - 1, 1), nq, 2), np.int64)
+        track_valid_pairs = np.zeros((max(T - 1, 1), nq), bool)
+        for t in range(T - 1):
+            asso_gt_pairs[t], _, track_valid_pairs[t] = build_asso_targets(
+                boxes[t:t + 2], prop_valid[t:t + 2], targets["gt_boxes"][t:t + 2],
+                targets["gt_ids"][t:t + 2], nq)
+        out = {
+            "prop_valid": prop_valid,
+            "res_match_mask": res_match_mask,
+            "num_inst": np.float32(num_inst),
+            "asso_gt": asso_gt,
+            "match_cues": match_cues,
+            "track_valid": track_valid,
+            "asso_gt_pairs": asso_gt_pairs,
+            "track_valid_pairs": track_valid_pairs,
+        }
+        if self.use_pos_emb:
+            # normalized xyxy proposal boxes and frame-time fractions for the
+            # interpolated positional embeddings
+            out["prop_boxes"] = np.asarray(boxes, np.float32)
+            out["prop_times"] = np.broadcast_to(
+                (np.arange(T, dtype=np.float32) / T)[:, None], (T, nq)).copy()
+        return out
+
+    def to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        out = {}
+        for k, v in batch.items():
+            v = np.asarray(v)
+            if v.dtype.kind in "iu":
+                v = v.astype(np.int64)
+            elif v.dtype.kind == "f":
+                v = v.astype(np.float32)
+            out[k] = torch.as_tensor(v).to(self.device)
+        return out
+
+    # ------------------------------------------------------------------
+    def loss(self, batch: Dict[str, torch.Tensor], query_features: torch.Tensor
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The tracker losses of one clip (JAX ``_loss_fn`` :342) on the spot's query
+        features (T, nq, npts, C): the rescore focal loss, reid over every slot, the
+        long pass over all T * nq tokens and the T - 1 adjacent-pair short passes, each
+        with ASSO_HEAD.DROPOUT in the matchers."""
+        model = self.model
+        head = model.roi_heads
+        qf = query_features
+        T, nq = qf.shape[:2]
+        pv = batch["prop_valid"]
+        losses: Dict[str, torch.Tensor] = {}
+        if self.with_rescore:
+            losses["loss_res"] = rescore_loss(head.rescore(qf), batch["res_match_mask"],
+                                              batch["num_inst"], self.focal_alpha,
+                                              self.focal_gamma)
+        reid = head.reid(qf)  # (T, nq, F)
+        boxes = batch["prop_boxes"] if self.use_pos_emb else None  # (T, nq, 4)
+        times = batch["prop_times"] if self.use_pos_emb and self.with_temp_emb else None
+
+        long_logits = model.associate(
+            reid.reshape(1, T * nq, -1), pv.reshape(1, T * nq), False,
+            None if boxes is None else boxes.reshape(1, T * nq, 4),
+            None if times is None else times.reshape(1, T * nq), train=True)
+        loss_long = asso_ce_loss(long_logits.reshape(T * nq, T, nq), pv.reshape(-1), pv,
+                                 batch["asso_gt"], batch["match_cues"].reshape(-1),
+                                 batch["track_valid"], self.neg_unmatched)
+        losses["loss_long_asso"] = self.asso_weight * loss_long
+
+        # a 2-frame pass has time fractions (0, 1/2), like the inference tracker's
+        # pos inputs over [prev, cur]
+        pair_times = None if times is None else torch.cat(
+            [qf.new_zeros(nq), qf.new_full((nq,), 0.5)]).reshape(1, 2 * nq)
+        loss_short = qf.new_zeros(())
+        for t in range(T - 1):
+            lg = model.associate(
+                reid[t:t + 2].reshape(1, 2 * nq, -1), pv[t:t + 2].reshape(1, 2 * nq), True,
+                None if boxes is None else boxes[t:t + 2].reshape(1, 2 * nq, 4),
+                pair_times, train=True)
+            loss_short = loss_short + asso_ce_loss(
+                lg.reshape(2 * nq, 2, nq), pv[t:t + 2].reshape(-1), pv[t:t + 2],
+                batch["asso_gt_pairs"][t], batch["match_cues"][t:t + 2].reshape(-1),
+                batch["track_valid_pairs"][t], self.neg_unmatched)
+        losses["loss_short_asso"] = self.asso_weight_local * loss_short / max(T - 1, 1)
+        total = sum(losses.values())
+        return total, losses
+
+    def update(self, batch: Dict[str, np.ndarray], query_features: torch.Tensor
+               ) -> Dict[str, float]:
+        """Loss, backward into roi_heads, the clip over the trainable parameters, AdamW
+        and the LR schedule; returns the losses (one copy to the host)."""
+        total, losses = self.loss(self.to_device(batch), query_features)
+        self.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        # optax updates every trainable leaf, a zero gradient included (weight decay
+        # still applies): a parameter this clip did not reach gets a zero gradient
+        for p in self.trainable:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.max_norm is not None:
+            clip_by_global_norm_(self.trainable, self.max_norm)
+        self.optimizer.step()
+        self.scheduler.step()
+        self.step_count += 1
+        losses["total_loss"] = total
+        values = torch.stack([v.detach() for v in losses.values()]).cpu().tolist()
+        return dict(zip(losses, values))
+
+    def step(self, images: np.ndarray, image_hw: Optional[np.ndarray], targets: Dict
+             ) -> Dict[str, float]:
+        """One training iteration on one clip: spot, host phase, update."""
+        t0 = time.perf_counter()
+        spot_out = self.spot(images, image_hw)
+        host = self.host_fields(spot_out)
+        t1 = time.perf_counter()
+        batch = self.prepare_batch(host, targets)
+        self.last_batch = batch
+        t2 = time.perf_counter()
+        metrics = self.update(batch, spot_out["query_features"])
+        t3 = time.perf_counter()
+        self.phase_t = {"spot": t1 - t0, "host": t2 - t1, "update": t3 - t2}
+        return metrics
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> Dict:
+        """What a resumed run needs: the trainable head, the optimizer and schedule, the
+        step and the dropout generator's state."""
+        gen = self.model.roi_heads.dropout_generator
+        return {
+            "step": self.step_count,
+            "roi_heads": {k: v.detach().cpu() for k, v in
+                          self.model.roi_heads.state_dict().items()},
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict(),
+            "dropout_rng": None if gen is None else gen.get_state(),
+        }
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.model.roi_heads.load_state_dict(state["roi_heads"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.step_count = int(state["step"])
+        if state.get("dropout_rng") is not None:
+            head = self.model.roi_heads
+            head.dropout_generator = torch.Generator(device=self.device)
+            head.dropout_generator.set_state(state["dropout_rng"])

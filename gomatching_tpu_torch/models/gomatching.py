@@ -21,7 +21,7 @@ Joiner/MaskedBackbone nesting), ``detection_transformer``, ``roi_heads``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -44,15 +44,35 @@ class MaskedBackbone(nn.Module):
         self.backbone = backbone
 
 
+def level_masks(pad_hw, image_hw: Optional[torch.Tensor]) -> Optional[List[torch.Tensor]]:
+    """Padding masks (B, ceil(H / s), ceil(W / s)) per backbone stride s, True where
+    padded, from the true (h, w) of each frame ``image_hw`` (B, 2) on a ``pad_hw``
+    canvas (MaskedBackbone.mask_out_padding, gom_lstmatcher.py:63-76; JAX
+    ``GoMatchingModel._level_masks``, gomatching.py:138). None when ``image_hw`` is."""
+    if image_hw is None:
+        return None
+    hw = image_hw.float()
+    masks = []
+    for stride in BACKBONE_STRIDES:
+        fh, fw = -(-pad_hw[0] // stride), -(-pad_hw[1] // stride)
+        vh = torch.ceil(hw[:, 0] / stride)
+        vw = torch.ceil(hw[:, 1] / stride)
+        yy = torch.arange(fh, dtype=torch.float32, device=hw.device)[None, :, None]
+        xx = torch.arange(fw, dtype=torch.float32, device=hw.device)[None, None, :]
+        masks.append(~((yy < vh[:, None, None]) & (xx < vw[:, None, None])))
+    return masks
+
+
 def backbone_features(backbone: nn.Module, images: torch.Tensor, hidden_dim: int,
-                      temperature: float):
-    """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings)."""
+                      temperature: float, masks: Optional[List[torch.Tensor]] = None):
+    """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings);
+    ``masks`` (True where padded, one per level) shape the encodings when given."""
     feats = backbone[0].backbone(images.permute(0, 3, 1, 2).contiguous())
     feats = [feats["res3"], feats["res4"], feats["res5"]]
     pos = [
         position_encoding_2d((f.shape[0], f.shape[2], f.shape[3]), hidden_dim // 2,
-                             temperature, None, device=f.device)
-        for f in feats
+                             temperature, None if masks is None else masks[i], device=f.device)
+        for i, f in enumerate(feats)
     ]
     return feats, pos
 
@@ -67,7 +87,7 @@ class GoMatchingModel(nn.Module):
                  asso_num_heads=8, asso_num_encoder_layers=1, asso_num_decoder_layers=1,
                  asso_num_weight_layers=0, asso_variant="lst", asso_no_pos_emb=True,
                  asso_with_temp_emb=False, with_rescore=True, test_score_threshold=0.3,
-                 nms_thresh=0.5, sampling_impl="vmem"):
+                 nms_thresh=0.5, sampling_impl="vmem", asso_dropout=0.0, asso_dropout_seed=0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.temperature = float(temperature)
@@ -93,17 +113,25 @@ class GoMatchingModel(nn.Module):
             num_decoder_layers=asso_num_decoder_layers,
             num_weight_layers=asso_num_weight_layers, variant=asso_variant,
             with_rescore=with_rescore, no_pos_emb=asso_no_pos_emb,
-            with_temp_emb=asso_with_temp_emb,
+            with_temp_emb=asso_with_temp_emb, dropout=asso_dropout,
+            dropout_seed=asso_dropout_seed,
         )
 
-    def features(self, images: torch.Tensor):
+    def features(self, images: torch.Tensor, masks: Optional[List[torch.Tensor]] = None):
         """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings)."""
-        return backbone_features(self.backbone, images, self.hidden_dim, self.temperature)
+        return backbone_features(self.backbone, images, self.hidden_dim, self.temperature,
+                                 masks)
 
-    def spot(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Backbone + spotter (+ rescoring head) on un-padded NHWC frames."""
-        feats, pos = self.features(images)
-        out = self.detection_transformer(feats, pos, None)
+    def spot(self, images: torch.Tensor,
+             image_hw: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Backbone + spotter (+ rescoring head) on normalized NHWC frames (JAX
+        gomatching.py:155-180). ``image_hw`` (B, 2): each frame's true (h, w) on the
+        zero-padded canvas; the level masks it gives reach the position encodings and
+        the spotter (its masked encoder samples through B1). None: the whole canvas is
+        valid and nothing is masked."""
+        masks = level_masks(images.shape[1:3], image_hw)
+        feats, pos = self.features(images, masks)
+        out = self.detection_transformer(feats, pos, masks)
         out["re_pred_logits"] = (
             self.roi_heads.rescore(out["query_features"]) if self.with_rescore else None
         )
@@ -149,9 +177,11 @@ class GoMatchingModel(nn.Module):
         hw = torch.tensor([[h, w]], dtype=torch.float32, device=images.device).expand(b, 2)
         return self.detect(out, hw, score_thresh)
 
-    def associate(self, reid_tokens, valid, short_term: bool, boxes=None, times=None):
-        """Padded association transformer pass (LSTMatcherHead.associate)."""
-        return self.roi_heads.associate(reid_tokens, valid, short_term, boxes, times)
+    def associate(self, reid_tokens, valid, short_term: bool, boxes=None, times=None,
+                  train: bool = False):
+        """Padded association transformer pass (LSTMatcherHead.associate); ``train``
+        applies ASSO_HEAD.DROPOUT when the head is in ``train()`` mode."""
+        return self.roi_heads.associate(reid_tokens, valid, short_term, boxes, times, train)
 
 
 class SpotterPretrainModel(nn.Module):
@@ -260,4 +290,5 @@ def build_model(cfg) -> GoMatchingModel:
         asso_no_pos_emb=a.NO_POS_EMB, asso_with_temp_emb=a.WITH_TEMP_EMB,
         with_rescore=cfg.MODEL.ROI_HEADS.WITH_RESR,
         test_score_threshold=t.INFERENCE_TH_TEST, nms_thresh=cfg.VIDEO_TEST.NMS_THRESH,
+        asso_dropout=a.DROPOUT, asso_dropout_seed=max(int(cfg.SEED), 0),
     )

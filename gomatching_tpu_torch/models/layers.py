@@ -9,7 +9,7 @@ softmax, as the JAX side leaves it to XLA.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -49,7 +49,10 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, query, key, value, key_mask: Optional[torch.Tensor] = None):
+    def forward(self, query, key, value, key_mask: Optional[torch.Tensor] = None,
+                dropout: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        """``dropout``: applied to the attention probabilities when given (the
+        ``dropout=`` of ``nn.MultiheadAttention``)."""
         B, Nq, C = query.shape
         Nk = key.shape[1]
         H = self.num_heads
@@ -62,7 +65,10 @@ class MultiHeadAttention(nn.Module):
         logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)  # (B, H, Nq, Nk)
         if key_mask is not None:
             logits = logits.masked_fill(key_mask[:, None, None, :], -1e9)
-        out = torch.matmul(logits.softmax(-1), v)  # (B, H, Nq, hd)
+        attn = logits.softmax(-1)
+        if dropout is not None:
+            attn = dropout(attn)
+        out = torch.matmul(attn, v)  # (B, H, Nq, hd)
         return self.out_proj(out.transpose(1, 2).reshape(B, Nq, C))
 
 

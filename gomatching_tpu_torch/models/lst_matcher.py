@@ -14,13 +14,20 @@ WITH_TEMP_EMB (lstmatcher.py:498-532). Names follow the reference ``state_dict``
 The association pass runs over a padded token axis with a validity mask and decodes
 all N rows (the decoder has no self-attention, so rows are independent); the host
 tracker slices out the query frame's rows. Every shipped config sets ASSO_HEAD.NORM
-False (norms are identity) and inference is deterministic, so neither norms nor
-dropout appear here.
+False, so the norms are identity and do not appear here.
+
+ASSO_HEAD.DROPOUT (0.1 by default) acts in training, where the reference's
+``nn.Dropout`` modules sit (roi_heads/transformer.py:166-258; JAX lst_matcher.py:72-74,
+:108): on the attention probabilities, on each attention output (``dropout1``), inside
+the FFN and on its output (``dropout2``). It is active only in an ``associate(...,
+train=True)`` call of a head in ``train()`` mode, adds no parameter, and draws its masks
+from the head's own ``torch.Generator`` seeded with ``dropout_seed``; inference stays
+deterministic. The masks are not JAX's (its bits come from ``jax.random``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -31,6 +38,12 @@ from .layers import MLP, MultiHeadAttention
 # interpolation bins of the box and temporal embedding tables: JAX's learn_pos_emb_num
 # and learn_temp_emb_num (lst_matcher.py:204-205), which no config key sets
 EMB_BINS = 16
+
+Dropout = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _drop(x: torch.Tensor, drop: Dropout) -> torch.Tensor:
+    return x if drop is None else drop(x)
 
 
 class ReidHead(nn.Module):
@@ -77,10 +90,10 @@ class MatcherEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d)
 
     def forward(self, src, key_mask: Optional[torch.Tensor] = None,
-                pos: Optional[torch.Tensor] = None):
+                pos: Optional[torch.Tensor] = None, drop: Dropout = None):
         qk = src if pos is None else src + pos  # with_pos_embed, transformer.py:196
-        src = src + self.self_attn(qk, qk, src, key_mask)
-        return src + self.linear2(F.relu(self.linear1(src)))
+        src = src + _drop(self.self_attn(qk, qk, src, key_mask, drop), drop)
+        return src + _drop(self.linear2(_drop(F.relu(self.linear1(src)), drop)), drop)
 
 
 class MatcherDecoderLayer(nn.Module):
@@ -96,13 +109,13 @@ class MatcherDecoderLayer(nn.Module):
             self.linear2 = nn.Linear(dim_feedforward, d)
 
     def forward(self, tgt, memory, key_mask: Optional[torch.Tensor] = None,
-                pos: Optional[torch.Tensor] = None):
+                pos: Optional[torch.Tensor] = None, drop: Dropout = None):
         # the queries carry no pos (query_pos is None in the matchers); the keys do
         # (transformer.py:277-279)
         keys = memory if pos is None else memory + pos
-        tgt = tgt + self.multihead_attn(tgt, keys, memory, key_mask)
+        tgt = tgt + _drop(self.multihead_attn(tgt, keys, memory, key_mask, drop), drop)
         if self.with_ffn:
-            tgt = tgt + self.linear2(F.relu(self.linear1(tgt)))
+            tgt = tgt + _drop(self.linear2(_drop(F.relu(self.linear1(tgt)), drop)), drop)
         return tgt
 
 
@@ -124,15 +137,15 @@ class MatcherTransformer(nn.Module):
                                for _ in range(num_decoder_layers))
 
     def forward(self, tokens, valid: Optional[torch.Tensor] = None,
-                pos: Optional[torch.Tensor] = None):
+                pos: Optional[torch.Tensor] = None, drop: Dropout = None):
         key_mask = None if valid is None else ~valid
         memory = tokens
         for layer in self.encoder.layers:
-            memory = layer(memory, key_mask, pos)
+            memory = layer(memory, key_mask, pos, drop)
         # decoder targets are the RAW input rows (transformer.py:80-84)
         tgt = tokens
         for layer in self.decoder.layers:
-            tgt = layer(tgt, memory, key_mask, pos)
+            tgt = layer(tgt, memory, key_mask, pos, drop)
         return tgt, memory
 
 
@@ -146,9 +159,12 @@ class LSTMatcherHead(nn.Module):
 
     def __init__(self, hidden_dim=256, num_points=25, feature_dim=1024, num_fc=2, num_heads=8,
                  num_encoder_layers=1, num_decoder_layers=1, num_weight_layers=0,
-                 variant="lst", with_rescore=True, no_pos_emb=True, with_temp_emb=False):
+                 variant="lst", with_rescore=True, no_pos_emb=True, with_temp_emb=False,
+                 dropout=0.0, dropout_seed=0):
         super().__init__()
         self.variant = variant
+        self.dropout, self.dropout_seed = float(dropout), int(dropout_seed)
+        self.dropout_generator: Optional[torch.Generator] = None  # made at first use
         self.with_rescore = with_rescore
         self.no_pos_emb, self.with_temp_emb = no_pos_emb, with_temp_emb
         self.asso_head = ReidHead(hidden_dim * num_points, feature_dim, num_fc)
@@ -204,11 +220,30 @@ class LSTMatcherHead(nn.Module):
         w_hi = (t - lo.to(t.dtype))[..., None]
         return w_hi * self.temp_emb.weight[hi] + (1.0 - w_hi) * self.temp_emb.weight[lo]
 
-    def associate(self, reid_tokens, valid, short_term: bool, boxes=None, times=None):
+    def _dropout_fn(self, device: torch.device) -> Dropout:
+        """Inverted dropout at rate ``dropout`` with masks from the head's generator
+        (on ``device``, seeded with ``dropout_seed`` when first made)."""
+        gen = self.dropout_generator
+        if gen is None or gen.device != device:
+            gen = torch.Generator(device=device).manual_seed(self.dropout_seed)
+            self.dropout_generator = gen
+        keep = 1.0 - self.dropout
+
+        def drop(x: torch.Tensor) -> torch.Tensor:
+            mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+            return x * mask / keep
+
+        return drop
+
+    def associate(self, reid_tokens, valid, short_term: bool, boxes=None, times=None,
+                  train: bool = False):
         """(B, N, F) padded reid tokens + (B, N) validity -> (B, N, N) affinity logits.
         With NO_POS_EMB False, ``boxes`` (B, N, 4 normalized xyxy) and, with
         WITH_TEMP_EMB, ``times`` (B, N in [0, 1]) feed the interpolated embeddings
-        (_forward_transformer, lstmatcher.py:338-346; JAX lst_matcher.py:299-319)."""
+        (_forward_transformer, lstmatcher.py:338-346; JAX lst_matcher.py:299-319).
+        ``train``: apply ASSO_HEAD.DROPOUT when the head is in ``train()`` mode."""
+        drop = (self._dropout_fn(reid_tokens.device)
+                if train and self.training and self.dropout > 0 else None)
         pos = None
         if not self.no_pos_emb and boxes is not None:
             pos = self.box_pe(boxes)
@@ -218,6 +253,6 @@ class LSTMatcherHead(nn.Module):
             matcher = self.short_term_matcher if short_term else self.long_term_matcher
         else:
             matcher = self.shared_matcher
-        tgt, memory = matcher(reid_tokens, valid, pos)
+        tgt, memory = matcher(reid_tokens, valid, pos, drop)
         predictor = self.local_asso_predictor if short_term else self.asso_predictor
         return predictor(tgt, memory)

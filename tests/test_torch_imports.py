@@ -108,6 +108,21 @@ def test_train_cli_refuses_gpu_run_without_cuda():
                         "MODEL.TRANSFORMER.DEC_LAYERS", "1"])
 
 
+def test_tracker_train_cli_refuses_gpu_run_without_cuda():
+    import torch
+
+    from gomatching_tpu_torch import train_net
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-GPU behaviour")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_net.main(["--config-file", os.path.join(ROOT, "configs", "GoMatching_ICDAR15.yaml"),
+                        "--task", "tracker", "--opts", "MODEL.WEIGHTS", "''",
+                        "MODEL.TRANSFORMER.ENC_LAYERS", "1", "MODEL.TRANSFORMER.DEC_LAYERS", "1",
+                        "OUTPUT_DIR", os.path.join(os.environ.get("TMPDIR", "/tmp"),
+                                                   "port_tracker_no_cuda")])
+
+
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     """A wrapper runs the plain version only for CPU tensors; anything else launches
     the kernel or raises (here: the meta device)."""

@@ -325,20 +325,27 @@ def test_train_net_cli_trains_and_writes_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--task", "tracker"),
+    ("--task", "tracker", "--opts", "TPU.TRAIN_UPLOAD_FORMAT", "yuv420"),
     ("--num-gpus", "2"),
     ("--resume",),
     ("--opts", "MODEL.META_ARCHITECTURE", "TransformerPureVideoDetector"),
     ("--opts", "MODEL.BACKBONE.NAME", "build_swin_backbone"),
+    ("--task", "tracker", "--opts", "MODEL.FREEZE_TYPE", "ROIheads"),
+    ("--task", "tracker", "--num-gpus", "2"),
 ])
 def test_train_net_refuses_what_is_not_ported(tmp_path, extra):
+    """What neither task ports yet raises NotImplementedError before any step: for
+    tracker training the yuv420 training wire (A13), a freeze policy that trains more
+    than roi_heads and data parallelism (A12); for pretraining data parallelism,
+    --resume, video pretraining (A11b) and the Swin backbone (A10)."""
     from gomatching_tpu_torch import train_net
 
-    if extra[0] == "--task":
-        args = _cli_args(tmp_path, task=extra[1])
-    elif extra[0] == "--opts":
-        args = _cli_args(tmp_path, *extra[1:])
+    task = "spotter"
+    if extra[:2] == ("--task", "tracker"):
+        task, extra = "tracker", extra[2:]
+    if extra[0] == "--opts":
+        args = _cli_args(tmp_path, *extra[1:], task=task)
     else:
-        args = list(extra) + _cli_args(tmp_path)
+        args = list(extra) + _cli_args(tmp_path, task=task)
     with pytest.raises(NotImplementedError):
         train_net.main(args)
