@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device check and kernel build (nvcc, from the sources in this checkout); ptxas's
-     registers, stack and spills of the lane-layout kernels B1-B5, and from the runtime
+     registers, stack and spills of the lane-layout kernels B1-B5 (and B1 and B2 on bf16
+     value), and from the runtime
      their registers, local memory (which must be 0; B3 at most 64 registers) and resident
      warps per SM; the same for the footprint kernel's three instantiations (B6a-c) at
      the dynamic shared memory of a block under the shipped budget, and for the
@@ -120,9 +121,31 @@ Phases (any failure exits non-zero and prints no result line):
      kernels and with the plain samplers (thresholds in a gap of the fused scores): the
      same proposals, matches and targets, losses and the updated roi_heads within
      RTOL_LOSS; one profiled step (device time, busy share, B1's share); the peak memory
-     of a 12-frame 1280x1280 spot.
+     of a 12-frame 1280x1280 spot;
+ 17. B1 and B2 on bf16 value (the production precision path) against their plain bf16
+     versions at the main path's shapes (value (3, 37171, 8, 32) bf16; B1 at the decoder's
+     2500 and the masked encoder's 37171 queries): every element within one bf16 ulp of
+     plain (ATOL_KERNEL where the value is so near 0 that its ulp is below the f32 sums'
+     reordering noise), the same bits twice; kernel times beside the f32 kernels' on the
+     same values in turns, device times, plain times, byte bounds (value and output bytes
+     halved), and registers and local memory;
+ 18. the production inference path: ``VideoPredictor`` on both shipped configs with
+     MODEL.PRECISION bfloat16, TPU.UPLOAD_FORMAT yuv420 and the default sampler, at full
+     width over phase 4's frames: frames/s (median of N_REPEATS), B2 and B1 on bf16 value
+     launched ENC_LAYERS and DEC_LAYERS times a spot batch and nothing else, XML/JSON, device
+     time per clip, busy share, peak memory, device time by class (convolutions, GEMMs,
+     elementwise, B1, B2, ...); on ICDAR15 one spot batch with the kernels and with the
+     plain bf16 samplers (the encoder memory, then the decoder from the same proposals,
+     each output within PATH_ULPS bf16 ulps of its largest magnitude), the clip's ids with
+     the plain samplers and its agreement with phase 4's f32 / RGB run (reported);
+ 19. tracker training in the production configuration: ``train_net.main`` (--task tracker)
+     with MODEL.PRECISION bfloat16 and TPU.TRAIN_UPLOAD_FORMAT yuv420 on phase 16's dataset,
+     N_PROD_TRACK_STEPS iterations with finite losses, B1 on bf16 value launched
+     (ENC_LAYERS + DEC_LAYERS) times a clip and nothing else, only roi_heads moved, an f32
+     checkpoint that loads back strictly; ms/iter, data and spot stages, peak memory; one
+     profiled step on phase 16's profiled clip against that step's device time.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
-entries, T1 and T2); the last is {"ok": true, "device": {...}}.
+entries, T1, T2, and B1 and B2 on bf16 value); the last is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -241,11 +264,11 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def value_reads(torch, loc, S, D, shapes=SHAPES):
+def value_reads(torch, loc, S, D, shapes=SHAPES, elem_bytes=4):
     """What this run's locations need of value (B, S, M, D): the distinct
-    (batch, token, head) rows that an in-range bilinear corner touches, read once,
-    and the number of corner taps (taps outside the map read nothing).
-    loc (B, Lq, M, L, P, 2) normalized; the kernel's x = loc * W - 0.5."""
+    (batch, token, head) rows that an in-range bilinear corner touches, read once
+    (D * ``elem_bytes`` bytes each), and the number of corner taps (taps outside the map
+    read nothing). loc (B, Lq, M, L, P, 2) normalized; the kernel's x = loc * W - 0.5."""
     B, _, M = loc.shape[:3]
     touched = torch.zeros(B * S * M, dtype=torch.bool, device=loc.device)
     b = torch.arange(B, device=loc.device).view(B, 1, 1, 1)
@@ -262,7 +285,7 @@ def value_reads(torch, loc, S, D, shapes=SHAPES):
                 touched[row] = True
                 taps += row.numel()
         start += h * w
-    return int(touched.sum().item()) * D * 4, taps
+    return int(touched.sum().item()) * D * elem_bytes, taps
 
 
 def ptxas_report(path, kernels):
@@ -279,8 +302,9 @@ def ptxas_report(path, kernels):
 
 
 def phase_resources(da, dav, _build):
-    """What ptxas and the runtime made of the lane-layout kernels (B1, B2, B4, B5, B3) and
-    of the footprint kernel's three instantiations (B6a-c): registers, stack and spills
+    """What ptxas and the runtime made of the lane-layout kernels (B1, B2, B4, B5, B3, and B1
+    and B2 on bf16 value) and of the footprint kernel's three instantiations (B6a-c):
+    registers, stack and spills
     from nvcc's report kept beside the library, and registers, local memory and resident
     warps per SM from the CUDA runtime (the footprint kernel's at the dynamic shared memory
     phase 12's footprints take under the shipped budget, and those of the -DFP_WARPS=8
@@ -289,7 +313,9 @@ def phase_resources(da, dav, _build):
     names = {da.QUERIES: "ms_deform_attn_queries_kernel", da.ENCODER: "ms_deform_attn_encoder_kernel",
              da.ENCODER_BWD: "ms_deform_attn_encoder_bwd_kernel",
              da.MERGED: "ms_deform_attn_merged_kernel",
-             da.QUERIES_BWD: "ms_deform_attn_queries_bwd_kernel"}
+             da.QUERIES_BWD: "ms_deform_attn_queries_bwd_kernel",
+             da.QUERIES_BF16: "ms_deform_attn_queries_bf16_kernel",
+             da.ENCODER_BF16: "ms_deform_attn_encoder_bf16_kernel"}
     fp_names = {f"ms_deform_attn_footprint_kernel<{g}>": f"ms_deform_attn_footprint_kernelILi{i}E"
                 for i, g in enumerate(("NATURAL_LOC", "TM_LOC", "TM_OFF_CELLS"))}
     report = ptxas_report(_build.build_log("ms_deform_attn.cu"), {**names, **fp_names})
@@ -553,7 +579,8 @@ def device_rows(torch, prof):
 def phase_profile(torch, predictor, tag="[5]", shares=()):
     """The main path once more under torch.profiler: device time by kernel and the
     device's busy share of the wall time (kernels run on one stream). ``shares``:
-    (label, kernel name prefix) whose share of the device time is printed."""
+    (label, kernel name prefix) whose share of the device time is printed. Returns the
+    profile's ``device_rows`` and the wall time (s)."""
     from torch.profiler import ProfilerActivity, profile
 
     frames = synthetic_frames()
@@ -567,7 +594,7 @@ def phase_profile(torch, predictor, tag="[5]", shares=()):
     total_ms = sum(r[0] for r in rows) / 1e3
     if not rows:
         print(f"{tag} profiler: no device time recorded (not measured)")
-        return
+        return rows, wall
     print(f"{tag} profiled main path: wall {wall * 1e3:.1f} ms for {N_FRAMES} frames, device busy "
           f"{total_ms:.1f} ms ({100 * total_ms / (wall * 1e3):.1f}% of wall; profiler on)")
     for t_us, n, key in rows[:15]:
@@ -577,6 +604,7 @@ def phase_profile(torch, predictor, tag="[5]", shares=()):
         n = sum(c for _, c, key in rows if key.startswith(prefix))
         print(f"{tag} {label}: {us / 1e3:.3f} ms in {n} launches, "
               f"{100 * us / 1e3 / total_ms:.1f}% of device time")
+    return rows, wall
 
 
 def phase_main(torch, predictor, da, tag, expected):
@@ -1903,103 +1931,100 @@ def tracker_argv(config, out_dir, steps, extra=()):
             "MODEL.ASSO_HEAD.ASSO_THRESH", str(TRACK_THRESH), *extra]
 
 
-def phase_tracker(torch, da):
-    """The tracker-training path through its entry point at full width (phase 16)."""
+def phase_tracker(torch, da, tmp):
+    """The tracker-training path through its entry point at full width (phase 16), on the
+    dataset ``chip_smoke_tracker``, writing under ``tmp``; returns the profiled step's
+    record (``phase_tracker_step``)."""
     from gomatching_tpu_torch import train_net
     from gomatching_tpu_torch.config import setup_train_cfg
-    from gomatching_tpu_torch.data.datasets import register_dataset
     from gomatching_tpu_torch.engine.checkpoint import latest_train_state, load_checkpoint
     from gomatching_tpu_torch.models.gomatching import build_model
     from gomatching_tpu_torch.weights import init_state_dict, load_weights
 
-    with tempfile.TemporaryDirectory() as tmp:
-        data_dir = os.path.join(tmp, "data")
-        os.makedirs(data_dir)
-        register_dataset("chip_smoke_tracker", *write_tracker_dataset(data_dir))
-        out_dir = os.path.join(tmp, "out")
-        argv = tracker_argv(CONFIG, out_dir, N_TRACK_STEPS)
-        cfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:])
-        t = cfg.MODEL.TRANSFORMER
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        da.reset_launch_counts()
-        history = train_net.main(argv)
-        torch.cuda.synchronize()
-        counts = dict(da.launch_counts)
-        peak = torch.cuda.max_memory_allocated()
-        check(len(history) == N_TRACK_STEPS, f"phase 16: {len(history)} steps ran")
-        for i, h in enumerate(history):
-            check(all(math.isfinite(h[k]) for k in ("loss_res", "loss_long_asso",
-                                                     "loss_short_asso", "total_loss")),
-                  f"phase 16: non-finite loss at step {i + 1}: {h}")
-            check(h["proposals"] > 0 and h["matched"] > 0,
-                  f"phase 16: step {i + 1} has {h['proposals']} proposals, {h['matched']} "
-                  "matched to a GT track")
-        # the masked encoder and the decoder sample through B1, once per layer per clip
-        want = {name: 0 for name in counts}
-        want[da.QUERIES] = (t.ENC_LAYERS + t.DEC_LAYERS) * N_TRACK_STEPS
-        check(counts == want, f"phase 16: launches {counts}, expected {want}")
-        ckpt_dir = os.path.join(out_dir, "checkpoints")
-        sd = load_checkpoint(os.path.join(ckpt_dir, f"model_{N_TRACK_STEPS:07d}_rescore.pth"))
-        load_weights(build_model(cfg), sd)
-        check(latest_train_state(ckpt_dir)[1] == N_TRACK_STEPS, "phase 16: no train state")
-        init = train_net.init_rescoring_from_classifier(
-            init_state_dict(cfg, torch.Generator().manual_seed(1)))
-        moved = {k for k in init if not torch.equal(sd[k], init[k])}
-        check(set(sd) == set(init) and moved and all(k.startswith("roi_heads.") for k in moved),
-              f"phase 16: {len(moved)} tensors moved, outside roi_heads: "
-              f"{sorted(k for k in moved if not k.startswith('roi_heads.'))[:5]}")
-        with open(os.path.join(out_dir, "metrics.json")) as f:
-            check(json.loads(f.read().splitlines()[-1])["iteration"] == N_TRACK_STEPS,
-                  "phase 16: metrics.json")
-        after = history[N_TRACK_WARMUP:]
+    out_dir = os.path.join(tmp, "out")
+    argv = tracker_argv(CONFIG, out_dir, N_TRACK_STEPS)
+    cfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:])
+    t = cfg.MODEL.TRANSFORMER
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    history = train_net.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(da.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(history) == N_TRACK_STEPS, f"phase 16: {len(history)} steps ran")
+    for i, h in enumerate(history):
+        check(all(math.isfinite(h[k]) for k in ("loss_res", "loss_long_asso",
+                                                 "loss_short_asso", "total_loss")),
+              f"phase 16: non-finite loss at step {i + 1}: {h}")
+        check(h["proposals"] > 0 and h["matched"] > 0,
+              f"phase 16: step {i + 1} has {h['proposals']} proposals, {h['matched']} "
+              "matched to a GT track")
+    # the masked encoder and the decoder sample through B1, once per layer per clip
+    want = {name: 0 for name in counts}
+    want[da.QUERIES] = (t.ENC_LAYERS + t.DEC_LAYERS) * N_TRACK_STEPS
+    check(counts == want, f"phase 16: launches {counts}, expected {want}")
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    sd = load_checkpoint(os.path.join(ckpt_dir, f"model_{N_TRACK_STEPS:07d}_rescore.pth"))
+    load_weights(build_model(cfg), sd)
+    check(latest_train_state(ckpt_dir)[1] == N_TRACK_STEPS, "phase 16: no train state")
+    init = train_net.init_rescoring_from_classifier(
+        init_state_dict(cfg, torch.Generator().manual_seed(1)))
+    moved = {k for k in init if not torch.equal(sd[k], init[k])}
+    check(set(sd) == set(init) and moved and all(k.startswith("roi_heads.") for k in moved),
+          f"phase 16: {len(moved)} tensors moved, outside roi_heads: "
+          f"{sorted(k for k in moved if not k.startswith('roi_heads.'))[:5]}")
+    with open(os.path.join(out_dir, "metrics.json")) as f:
+        check(json.loads(f.read().splitlines()[-1])["iteration"] == N_TRACK_STEPS,
+              "phase 16: metrics.json")
+    after = history[N_TRACK_WARMUP:]
 
-        def med(xs):
-            xs = sorted(xs)
-            return xs[len(xs) // 2]
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
 
-        print(f"[16] tracker-training CLI ({CONFIG}, seeded random weights, both thresholds "
-              f"{TRACK_THRESH}): {N_TRACK_STEPS} iterations, losses "
-              f"{history[0]['total_loss']:.4f} -> {history[-1]['total_loss']:.4f}; proposals "
-              f"per clip {[h['proposals'] for h in history]}, matched to tracks "
-              f"{[h['matched'] for h in history]}; checkpoint loads back strict, "
-              f"{len(moved)} tensors moved, all roi_heads; launches {counts}")
-        print(f"[16] frames per clip {[h['frames'] for h in history]}, canvases "
-              f"{[h['image_hw'] for h in history]}")
-        print(f"[16] iterations {N_TRACK_WARMUP + 1}-{N_TRACK_STEPS}: median "
-              f"{med(h['step_s'] for h in after) * 1e3:.1f} ms/iter (min "
-              f"{min(h['step_s'] for h in after) * 1e3:.1f}, max "
-              f"{max(h['step_s'] for h in after) * 1e3:.1f}) from taking the clip to the losses "
-              f"after the optimizer step; data stage median {med(h['data_s'] for h in after) * 1e3:.1f}"
-              f" ms; by stage (median ms) spot {med(h['phase_t']['spot'] for h in after) * 1e3:.1f}, "
-              f"host {med(h['phase_t']['host'] for h in after) * 1e3:.1f}, update "
-              f"{med(h['phase_t']['update'] for h in after) * 1e3:.1f}; "
-              f"{sum(h['frames'] for h in after) / sum(h['step_s'] for h in after):.3f} frames/s; "
-              f"peak memory {peak / 2**30:.2f} GiB")
+    print(f"[16] tracker-training CLI ({CONFIG}, seeded random weights, both thresholds "
+          f"{TRACK_THRESH}): {N_TRACK_STEPS} iterations, losses "
+          f"{history[0]['total_loss']:.4f} -> {history[-1]['total_loss']:.4f}; proposals "
+          f"per clip {[h['proposals'] for h in history]}, matched to tracks "
+          f"{[h['matched'] for h in history]}; checkpoint loads back strict, "
+          f"{len(moved)} tensors moved, all roi_heads; launches {counts}")
+    print(f"[16] frames per clip {[h['frames'] for h in history]}, canvases "
+          f"{[h['image_hw'] for h in history]}")
+    print(f"[16] iterations {N_TRACK_WARMUP + 1}-{N_TRACK_STEPS}: median "
+          f"{med(h['step_s'] for h in after) * 1e3:.1f} ms/iter (min "
+          f"{min(h['step_s'] for h in after) * 1e3:.1f}, max "
+          f"{max(h['step_s'] for h in after) * 1e3:.1f}) from taking the clip to the losses "
+          f"after the optimizer step; data stage median {med(h['data_s'] for h in after) * 1e3:.1f}"
+          f" ms; by stage (median ms) spot {med(h['phase_t']['spot'] for h in after) * 1e3:.1f}, "
+          f"host {med(h['phase_t']['host'] for h in after) * 1e3:.1f}, update "
+          f"{med(h['phase_t']['update'] for h in after) * 1e3:.1f}; "
+          f"{sum(h['frames'] for h in after) / sum(h['step_s'] for h in after):.3f} frames/s; "
+          f"peak memory {peak / 2**30:.2f} GiB")
 
-        # TPU.TRAIN_UPLOAD_UINT8 False: host-normalized frames and, as in JAX, no sizes, so
-        # no masks: the encoder takes B2 and the decoder B1
-        da.reset_launch_counts()
-        history_f32 = train_net.main(tracker_argv(CONFIG, os.path.join(tmp, "out_f32"), 1,
-                                                  ["TPU.TRAIN_UPLOAD_UINT8", "False"]))
-        counts_f32 = dict(da.launch_counts)
-        want = {**{name: 0 for name in counts_f32}, da.ENCODER: t.ENC_LAYERS,
-                da.QUERIES: t.DEC_LAYERS}
-        check(counts_f32 == want and math.isfinite(history_f32[0]["total_loss"]),
-              f"phase 16: TRAIN_UPLOAD_UINT8 False launches {counts_f32}, expected {want}")
-        print(f"[16] TPU.TRAIN_UPLOAD_UINT8 False (no masks): 1 iteration, loss "
-              f"{history_f32[0]['total_loss']:.4f}, B2 {counts_f32[da.ENCODER]} and B1 "
-              f"{counts_f32[da.QUERIES]} launches")
+    # TPU.TRAIN_UPLOAD_UINT8 False: host-normalized frames and, as in JAX, no sizes, so
+    # no masks: the encoder takes B2 and the decoder B1
+    da.reset_launch_counts()
+    history_f32 = train_net.main(tracker_argv(CONFIG, os.path.join(tmp, "out_f32"), 1,
+                                              ["TPU.TRAIN_UPLOAD_UINT8", "False"]))
+    counts_f32 = dict(da.launch_counts)
+    want = {**{name: 0 for name in counts_f32}, da.ENCODER: t.ENC_LAYERS,
+            da.QUERIES: t.DEC_LAYERS}
+    check(counts_f32 == want and math.isfinite(history_f32[0]["total_loss"]),
+          f"phase 16: TRAIN_UPLOAD_UINT8 False launches {counts_f32}, expected {want}")
+    print(f"[16] TPU.TRAIN_UPLOAD_UINT8 False (no masks): 1 iteration, loss "
+          f"{history_f32[0]['total_loss']:.4f}, B2 {counts_f32[da.ENCODER]} and B1 "
+          f"{counts_f32[da.QUERIES]} launches")
 
-        # GoMatching++ (the shared matcher) through the same entry point
-        history_pp = train_net.main(tracker_argv(CONFIG_PP, os.path.join(tmp, "out_pp"), 2))
-        check(len(history_pp) == 2 and all(math.isfinite(h["total_loss"]) for h in history_pp),
-              f"phase 16: GoMatching++ losses {[h['total_loss'] for h in history_pp]}")
-        print(f"[16] GoMatching++ ({CONFIG_PP}): 2 iterations, losses "
-              f"{[round(h['total_loss'], 4) for h in history_pp]}, "
-              f"{[h['step_s'] * 1e3 for h in history_pp]} ms")
-        phase_tracker_step(torch, da, setup_train_cfg(
-            CONFIG, argv[argv.index("--opts") + 1:] + ["SEED", str(TRACK_AB_SEED)]))
+    # GoMatching++ (the shared matcher) through the same entry point
+    history_pp = train_net.main(tracker_argv(CONFIG_PP, os.path.join(tmp, "out_pp"), 2))
+    check(len(history_pp) == 2 and all(math.isfinite(h["total_loss"]) for h in history_pp),
+          f"phase 16: GoMatching++ losses {[h['total_loss'] for h in history_pp]}")
+    print(f"[16] GoMatching++ ({CONFIG_PP}): 2 iterations, losses "
+          f"{[round(h['total_loss'], 4) for h in history_pp]}, "
+          f"{[h['step_s'] * 1e3 for h in history_pp]} ms")
+    return phase_tracker_step(torch, da, setup_train_cfg(
+        CONFIG, argv[argv.index("--opts") + 1:] + ["SEED", str(TRACK_AB_SEED)]))
 
 
 def phase_tracker_step(torch, da, cfg):
@@ -2129,6 +2154,8 @@ def phase_tracker_step(torch, da, cfg):
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = device_rows(torch, prof)
+    step_rec = {"frames": len(images), "wall_ms": wall * 1e3, "busy_ms": None,
+                "spot_ms": tr.phase_t["spot"] * 1e3}
     if not rows:
         print("[16] profiler: no device time recorded (not measured)")
     else:
@@ -2144,6 +2171,7 @@ def phase_tracker_step(torch, da, cfg):
         n = sum(c for _, c, key in rows if key.startswith(prefix))
         print(f"[16]   B1 ({prefix[:-1]}): {us / 1e3:.3f} ms of device time in the step, {n} "
               f"launches, {100 * us / 1e3 / busy:.2f}% of the step's device time")
+        step_rec["busy_ms"] = busy
 
     # the largest spot a clip can ask for: 2 * TRAIN_LEN frames on a full 1280x1280 canvas
     n = 2 * cfg.INPUT.VIDEO.TRAIN_LEN
@@ -2166,6 +2194,439 @@ def phase_tracker_step(torch, da, cfg):
           f" GiB ({(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} above the model's)")
     check(da.launch_counts[da.QUERIES] == t.ENC_LAYERS + t.DEC_LAYERS, "phase 16: 12-frame spot")
     del out, q, tr, trainers
+    return step_rec
+
+
+# ---------------------------------------------------------------------------
+# phases 17-19: the production precision path (bf16 spotter and matcher, I420 wire)
+# ---------------------------------------------------------------------------
+
+PROD_OPTS = ["MODEL.PRECISION", "bfloat16", "TPU.UPLOAD_FORMAT", "yuv420"]
+TRAIN_PROD_OPTS = ["MODEL.PRECISION", "bfloat16", "TPU.TRAIN_UPLOAD_FORMAT", "yuv420"]
+N_PROD_TRACK_STEPS = N_TRACK_STEPS  # phase 19's iterations: phase 16's clips, in bf16
+# phase 18: kernels vs plain bf16 samplers through the full-depth bf16 spotter, each output
+# within PATH_ULPS bf16 ulps of its largest magnitude. Each of the 12 sampler calls may
+# round its output one ulp the other way (phase 17); the encoder memory, the logits and the
+# text logits stay within 2 ulps, but the control points refine their own sampling
+# locations six times over (ref = sigmoid(delta + inverse_sigmoid(ref)), layer after
+# layer), as do the boundary points: 2.70 and 3.62 ulps of their max on an NVIDIA H100 80GB
+# HBM3, 700 W
+PATH_ULPS = 4
+# the device-time classes of phase 18's profile, by kernel name; the first match wins
+# (cuDNN's layout transforms around a convolution count as convolution)
+KERNEL_CLASSES = [
+    ("B1 bf16", lambda k: k.startswith("ms_deform_attn_queries_bf16_kernel(")),
+    ("B2 bf16", lambda k: k.startswith("ms_deform_attn_encoder_bf16_kernel(")),
+    ("other samplers", lambda k: k.startswith("ms_deform_attn_")),
+    ("convolutions", lambda k: any(w in k.lower() for w in (
+        "conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "nchwtonhwc", "nhwctonchw"))),
+    ("GEMMs", lambda k: any(w in k.lower() for w in ("gemm", "gemv", "cutlass", "nvjet", "xmma"))),
+    ("copies", lambda k: k.startswith(("Memcpy", "Memset"))),
+    ("elementwise", lambda k: "elementwise" in k),
+    ("other (norms, reductions, softmax, sort, gather)", lambda k: True),
+]
+
+
+def bf16_ulp(torch, x):
+    """bf16's spacing at |x|, elementwise: 2**(floor(log2 |x|) - 7) (2**-133 at 0)."""
+    _, e = torch.frexp(x.float())  # x = m 2**e, 0.5 <= |m| < 1
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, torch.full_like(ulp, 2.0**-133), ulp)
+
+
+def ulps_apart(torch, got, want):
+    """|got - want| in bf16 ulps of the larger magnitude, elementwise (float32)."""
+    g, w = got.float(), want.float()
+    return (g - w).abs() / bf16_ulp(torch, torch.maximum(g.abs(), w.abs()))
+
+
+def launch_us(torch, fn, marker, n=20):
+    """(device us per launch, launches recorded) of the kernels whose name contains
+    ``marker`` over ``n`` calls of ``fn`` under torch.profiler: per launch the profiler
+    recorded, so a launch it misses does not lower the time; (None, 0) without device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(t, c) for t, c, key in device_rows(torch, prof) if marker in key]
+    count = sum(c for _, c in rows)
+    return (sum(t for t, _ in rows) / count if count else None), count
+
+
+def class_shares(rows):
+    """{class: (device us, launches)} of ``device_rows`` by KERNEL_CLASSES."""
+    out = {name: [0.0, 0] for name, _ in KERNEL_CLASSES}
+    for t_us, n, key in rows:
+        name = next(c for c, match in KERNEL_CLASSES if match(key))
+        out[name][0] += t_us
+        out[name][1] += n
+    return out
+
+
+def phase_bf16_kernels(torch, da):
+    """Phase 17: B1 and B2 on bf16 value against their plain bf16 versions at the main
+    path's shapes, every element within one bf16 ulp; times beside the f32 kernels' on the
+    same values, in turns; registers and local memory; byte bounds. Returns the kernels-line
+    records (sans launches)."""
+    S = sum(h * w for h, w in SHAPES)
+    g = torch.Generator().manual_seed(17)
+    dev = "cuda"
+    value32 = torch.randn(B, S, M, D, generator=g).bfloat16().float().to(dev)
+    value = value32.bfloat16()
+    info = da.kernel_info()
+    wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32, device=dev)
+    cases = []
+    for label, Lq in (("decoder", NQ * NPTS), ("encoder", S)):
+        loc = (torch.rand(B, Lq, M, L, P, 2, generator=g) * 1.2 - 0.1).to(dev)
+        attn = torch.randn(B, Lq, M, L * P, generator=g).softmax(-1).view(B, Lq, M, L, P).to(dev)
+        cases.append((da.QUERIES_BF16, da.QUERIES, label, loc, (loc, attn), 20,
+                      lambda v, a=loc, b=attn: da.ms_deform_attn_queries(v, SHAPES, a, b),
+                      lambda v, a=loc, b=attn: da.ms_deform_attn_queries_plain_bf16(v, SHAPES, a, b)))
+    off = torch.randn(B, S, M, L, P, 2, generator=g) * 4.0
+    far = torch.rand(B, S, M, L, P, 2, generator=g) < 0.01
+    off = torch.where(far, off * 100.0, off).to(dev)
+    logits = torch.randn(B, S, M, L * P, generator=g).to(dev)
+    enc_loc = (da.encoder_reference_points(SHAPES, dev)[None, :, None, None, None, :]
+               + off / wh[None, None, None, :, None, :])
+    cases.append((da.ENCODER_BF16, da.ENCODER, "encoder", enc_loc, (off, logits), 27,
+                  lambda v: da.ms_deform_attn_encoder(v, SHAPES, off, logits),
+                  lambda v: da.ms_deform_attn_encoder_plain_bf16(v, SHAPES, off, logits)))
+    records = {}
+    for name, name32, label, loc, small, per_sample, call, plain in cases:
+        before = da.launch_counts[name]
+        got = call(value)
+        check(got.dtype == torch.bfloat16 and da.launch_counts[name] == before + 1,
+              f"{name} {label}: not launched in bf16")
+        want = plain(value)
+        torch.cuda.synchronize()
+        # one bf16 ulp, or ATOL_KERNEL where the value is so near 0 that its ulp is below
+        # the f32 sums' own reordering noise (the f32 kernels' bound against plain)
+        ulps = ulps_apart(torch, got, want)
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        n_diff = int((got != want).sum().item())
+        n_over = int((ulps > 1).sum().item())
+        near0 = diff[ulps > 1].max().item() if n_over else 0.0
+        worst = ulps[diff > ATOL_KERNEL].max().item() if (diff > ATOL_KERNEL).any() else 0.0
+        check(math.isfinite(err) and bool(((ulps <= 1) | (diff <= ATOL_KERNEL)).all()),
+              f"{name} {label}: {worst} bf16 ulps from plain where |diff| > {ATOL_KERNEL}")
+        same_bits(torch, name, lambda: call(value), got)
+        # in turns with the f32 kernel on the same values: f32, bf16, bf16, f32
+        t32a = cuda_time_ms(lambda: call(value32))
+        t16a = cuda_time_ms(lambda: call(value))
+        t16b = cuda_time_ms(lambda: call(value))
+        t32b = cuda_time_ms(lambda: call(value32))
+        marker = name + "_kernel("
+        dev16, n16 = launch_us(torch, lambda: call(value), marker)
+        dev32, n32 = launch_us(torch, lambda: call(value32), name32 + "_kernel(")
+        plain_ms = cuda_time_ms(lambda: plain(value), iters=5, warmup=1)
+        v_bytes, taps = value_reads(torch, loc, S, D, elem_bytes=2)
+        samples = loc.shape[0] * loc.shape[1] * M * L * P
+        b_ms, b_by = bound(v_bytes + nbytes(*small, got),
+                           samples * (per_sample + 2 * D) + taps * (2 * D + 1))
+        v32_bytes, _ = value_reads(torch, loc, S, D)
+        b32_ms, _ = bound(v32_bytes + nbytes(*small, got.float()),
+                          samples * (per_sample + 2 * D) + taps * (2 * D + 1))
+        ms = (t16a + t16b) / 2
+        print(f"[17] {name} at the {label} shape (value ({B}, {S}, {M}, {D}) bf16, Lq "
+              f"{loc.shape[1]}): within one bf16 ulp of plain ({n_diff} of {got.numel()} "
+              f"elements differ, max |diff| {err:.3e}; {n_over} elements more than an ulp apart, "
+              f"all within {near0:.2e} <= ATOL_KERNEL of plain), same bits twice; kernel "
+              f"{t16a:.4f} / {t16b:.4f} ms a call (device {fmt_us(dev16)} a launch over {n16} "
+              f"recorded) against f32's {t32a:.4f} / {t32b:.4f} ms (device {fmt_us(dev32)} over "
+              f"{n32}) on the same values in turns; "
+              f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {v_bytes / 1e6:.1f} MB of bf16 "
+              f"value rows touched) against f32's {b32_ms:.4f} ms; {info[name]['registers']} "
+              f"registers, {info[name]['local_bytes']} bytes of local memory a thread")
+        if label == "decoder" or name == da.ENCODER_BF16:
+            src = ("gomatching_tpu/ops/deform_attn_dec_vmem.py:208" if name == da.QUERIES_BF16
+                   else "gomatching_tpu/ops/deform_attn_vmem.py:428")
+            records[name] = dict(
+                name=name, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+                replaces=src, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+    return records
+
+
+def production_frames(torch, predictor):
+    """The first spot batch of the synthetic clip as ``spot_batch_packed`` feeds the model:
+    the I420 wire decoded and preprocessed on the card."""
+    from gomatching_tpu_torch.data.preprocess import (compute_test_size, decode_i420,
+                                                      device_preprocess)
+
+    cfg = predictor.cfg
+    frames = np.stack(synthetic_frames()[:predictor.spot_batch])
+    wire = predictor.encode_frames(frames)
+    check(wire.ndim == 3, "phase 18: the frames did not go as I420")
+    hw = compute_test_size(*frames.shape[1:3], cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+    raw = decode_i420(torch.from_numpy(wire).cuda())
+    return device_preprocess(raw, hw, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, cfg.INPUT.FORMAT)
+
+
+def plain_bf16_samplers(da):
+    """The bf16 spotter's samplers replaced by their plain bf16 versions, for the block."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+
+    return patched(spotter_mod, ms_deform_attn_encoder=da.ms_deform_attn_encoder_plain_bf16,
+                   ms_deform_attn_queries=da.ms_deform_attn_queries_plain_bf16)
+
+
+def bf16_spot_vs_plain(torch, predictor, da):
+    """Phase 18: one spot batch through the bf16 spotter with the kernels and with the plain
+    bf16 samplers: the encoder memory, then the decoder from the kernels' proposals (so a
+    near-tie in the top-k cannot send the two to other queries), every output within
+    PATH_ULPS bf16 ulps of its largest magnitude; whether the two top-k agree (reported)."""
+    model = predictor.model
+    spotter = model.detection_transformer
+    dtype = model.compute_dtype
+    imgs = production_frames(torch, predictor)
+
+    def run(plain, enc=None, refs=None):
+        with (plain_bf16_samplers(da) if plain else contextlib.nullcontext()), torch.no_grad():
+            if enc is None:
+                feats, pos = model.features(imgs.to(dtype))
+                return spotter.encode(feats, [p.to(dtype) for p in pos], None)
+            return spotter.decode(enc, refs)
+
+    enc_k, enc_p = run(False), run(True)
+    with torch.no_grad():
+        topk = [torch.sort(spotter.encoder_proposals(e)[0], dim=1, descending=True,
+                           stable=True).indices[:, :spotter.num_queries] for e in (enc_k, enc_p)]
+        refs = spotter.select_proposals(*spotter.encoder_proposals(enc_k))
+    out_k, out_p = run(False, enc_k, refs), run(True, enc_k, refs)
+    outs = {"encoder memory": (enc_k["memory"], enc_p["memory"]),
+            **{k: (v, out_p[k]) for k, v in out_k.items() if torch.is_tensor(v)}}
+    over = []
+    for k, (a, b) in outs.items():
+        check(bool(torch.isfinite(a.float()).all()), f"phase 18: non-finite {k}")
+        top = a.float().abs().max()
+        err = (a.float() - b.float()).abs().max().item()
+        ulp = bf16_ulp(torch, top).item()
+        print(f"[18] bf16 spotter {k} ({a.dtype}): max|kernels-plain| {err:.3e} "
+              f"({err / ulp:.2f} bf16 ulps of its max {top.item():.3e}; limit {PATH_ULPS})")
+        if not (math.isfinite(err) and err <= PATH_ULPS * ulp):
+            over.append(f"{k} by {err / ulp:.2f} ulps")
+    check(not over, f"phase 18: kernels and plain differ beyond {PATH_ULPS} ulps: {over}")
+    print(f"[18] top-{spotter.num_queries} proposals of the kernels' and the plain encoder "
+          f"memory: {'identical' if torch.equal(*topk) else 'DIFFERENT'} "
+          f"({int((topk[0] != topk[1]).sum().item())} of {topk[0].numel()} slots differ)")
+
+
+def match_iou(a, b):
+    """(Na, 4) x (Nb, 4) xyxy IoU."""
+    area_a = np.maximum(a[:, 2] - a[:, 0], 0) * np.maximum(a[:, 3] - a[:, 1], 0)
+    area_b = np.maximum(b[:, 2] - b[:, 0], 0) * np.maximum(b[:, 3] - b[:, 1], 0)
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.maximum(rb - lt, 0), -1)
+    return inter / np.maximum(area_a[:, None] + area_b[None, :] - inter, 1e-9)
+
+
+def track_agreement(ref_frames, frames, iou=0.5, tight=0.9):
+    """(coverage, id consistency over all IoU-matched pairs, over pairs at IoU >= ``tight``,
+    pairs), counted as tests/test_production_parity.py's ``track_agreement`` counts them:
+    greedy IoU >= ``iou`` matches of the boxes around each detection's control points,
+    coverage per frame over the larger count, and the share of pairs whose (ref id, id)
+    agrees with the majority one-to-one map."""
+    def boxes(det):
+        pts = det.ctrl_points.reshape(len(det.ctrl_points), -1, 2)
+        if len(pts) == 0:
+            return np.zeros((0, 4))
+        return np.concatenate([pts.min(1), pts.max(1)], 1).astype(np.float64)
+
+    votes, pairs, cov = {}, [], []
+    for rf, pf in zip(ref_frames, frames):
+        ra, pa = boxes(rf), boxes(pf)
+        if max(len(ra), len(pa)) == 0:
+            continue
+        m = match_iou(ra, pa)
+        used_r, used_p, n = set(), set(), 0
+        for i, j in np.dstack(np.unravel_index(np.argsort(-m, axis=None), m.shape))[0]:
+            if m[i, j] < iou or i in used_r or j in used_p:
+                continue
+            used_r.add(i)
+            used_p.add(j)
+            n += 1
+            key = (int(rf.track_ids[i]), int(pf.track_ids[j]))
+            votes[key] = votes.get(key, 0) + 1
+            pairs.append((key, float(m[i, j])))
+        cov.append(n / max(len(ra), len(pa)))
+    bij, taken = {}, set()
+    for (r, q), _ in sorted(votes.items(), key=lambda kv: -kv[1]):
+        if r not in bij and q not in taken:
+            bij[r] = q
+            taken.add(q)
+
+    def consistency(sel):
+        return sum(1 for (r, q), _ in sel if bij.get(r) == q) / max(len(sel), 1)
+
+    return (float(np.mean(cov)) if cov else 0.0, consistency(pairs),
+            consistency([kv for kv in pairs if kv[1] >= tight]), len(pairs))
+
+
+def phase_production(torch, da, ref_tracked):
+    """Phase 18: VideoPredictor in the production configuration (MODEL.PRECISION bfloat16,
+    TPU.UPLOAD_FORMAT yuv420, the default sampler, the matcher following MODEL.PRECISION)
+    on both shipped configs at full width over phase 4's frames: frames/s, device time per
+    clip, busy share, peak memory, the device time by class; on ICDAR15 the kernels against
+    the plain bf16 samplers, and the clip against phase 4's f32 / RGB run ``ref_tracked``
+    (reported). Returns the ICDAR15 run's launch counts."""
+    from gomatching_tpu_torch.config import setup_eval_cfg
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor
+
+    counts = None
+    for config in (CONFIG, CONFIG_PP):
+        cfg = setup_eval_cfg(config, ["MODEL.WEIGHTS", "''", "MODEL.TRANSFORMER.INFERENCE_TH_TEST",
+                                      "0.05", "SEED", "0", *PROD_OPTS])
+        predictor = VideoPredictor(cfg)
+        check(predictor.model.compute_dtype == torch.bfloat16
+              and predictor.assoc_dtype == torch.bfloat16 and predictor.upload_format == "yuv420"
+              and cfg.TPU.SAMPLING_IMPL == "vmem", f"phase 18: {config} is not the production path")
+        print(f"[18] {config} with {' '.join(PROD_OPTS)} (sampler {cfg.TPU.SAMPLING_IMPL}, "
+              f"matcher {predictor.assoc_dtype})")
+        t = cfg.MODEL.TRANSFORMER
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_counts = phase_main(torch, predictor, da, "[18]",
+                                {da.ENCODER_BF16: t.ENC_LAYERS, da.QUERIES_BF16: t.DEC_LAYERS})
+        peak = torch.cuda.max_memory_allocated()
+        rows, wall = phase_profile(torch, predictor, "[18]")
+        if rows:
+            busy = sum(r[0] for r in rows) / 1e3
+            print(f"[18] device time per {N_FRAMES}-frame clip {busy:.1f} ms, busy "
+                  f"{100 * busy / (wall * 1e3):.1f}% of the profiled wall; peak memory "
+                  f"{peak / 2**30:.2f} GiB over the main path's runs")
+            for name, (us, n) in class_shares(rows).items():
+                print(f"[18]   {name}: {us / 1e3:.3f} ms in {n} launches, "
+                      f"{100 * us / 1e3 / busy:.1f}% of device time")
+        if config == CONFIG:
+            counts = run_counts
+            bf16_spot_vs_plain(torch, predictor, da)
+            frames = synthetic_frames()
+            prod = predictor.process_video([f.copy() for f in frames])
+            with plain_bf16_samplers(da):
+                plain = predictor.process_video([f.copy() for f in frames])
+            same = sum(np.array_equal(a.track_ids, b.track_ids) for a, b in zip(prod, plain))
+            cov, cons, cons_t, n = track_agreement(prod, plain)
+            print(f"[18] the clip with the kernels and with the plain bf16 samplers: ids "
+                  f"identical in {same} of {len(prod)} frames; coverage {cov:.3f}, id consistency "
+                  f"{cons:.3f} (tight {cons_t:.3f}) over {n} matched pairs")
+            cov, cons, cons_t, n = track_agreement(ref_tracked, prod)
+            print(f"[18] production against phase 4's f32 / RGB run on the same frames "
+                  f"(random weights): {sum(len(f) for f in prod)} against "
+                  f"{sum(len(f) for f in ref_tracked)} detections, coverage {cov:.3f}, id "
+                  f"consistency {cons:.3f} over all {n} IoU-matched pairs, {cons_t:.3f} over "
+                  "tight ones")
+        del predictor
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_tracker_production(torch, da, tmp, f32_step):
+    """Phase 19: tracker training through ``train_net.main`` in the production configuration
+    (MODEL.PRECISION bfloat16, TPU.TRAIN_UPLOAD_FORMAT yuv420) on phase 16's dataset:
+    finite losses, B1 on bf16 value alone, only roi_heads moved, an f32 checkpoint that loads
+    back strictly, ms/iter and stages; one profiled step against phase 16's ``f32_step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.config import setup_train_cfg
+    from gomatching_tpu_torch.data.loader import build_train_loader
+    from gomatching_tpu_torch.engine.checkpoint import load_checkpoint
+    from gomatching_tpu_torch.engine.train import Trainer, encode_train_clip
+    from gomatching_tpu_torch.models.gomatching import build_model
+    from gomatching_tpu_torch.weights import init_state_dict, load_weights
+
+    out_dir = os.path.join(tmp, "out_prod")
+    argv = tracker_argv(CONFIG, out_dir, N_PROD_TRACK_STEPS, TRAIN_PROD_OPTS)
+    cfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:])
+    t = cfg.MODEL.TRANSFORMER
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    history = train_net.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(da.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(history) == N_PROD_TRACK_STEPS, f"phase 19: {len(history)} steps ran")
+    for i, h in enumerate(history):
+        check(all(math.isfinite(h[k]) for k in ("loss_res", "loss_long_asso", "loss_short_asso",
+                                                 "total_loss")),
+              f"phase 19: non-finite loss at step {i + 1}: {h}")
+        check(h["proposals"] > 0, f"phase 19: step {i + 1} has no proposals")
+    want = {**{name: 0 for name in counts},
+            da.QUERIES_BF16: (t.ENC_LAYERS + t.DEC_LAYERS) * N_PROD_TRACK_STEPS}
+    check(counts == want, f"phase 19: launches {counts}, expected {want}")
+    sd = load_checkpoint(os.path.join(out_dir, "checkpoints",
+                                      f"model_{N_PROD_TRACK_STEPS:07d}_rescore.pth"))
+    check(all(v.dtype == torch.float32 for v in sd.values()), "phase 19: a bf16 checkpoint tensor")
+    load_weights(build_model(cfg), sd)
+    init = train_net.init_rescoring_from_classifier(
+        init_state_dict(cfg, torch.Generator().manual_seed(1)))
+    moved = {k for k in init if not torch.equal(sd[k], init[k])}
+    check(set(sd) == set(init) and moved and all(k.startswith("roi_heads.") for k in moved),
+          f"phase 19: {len(moved)} tensors moved, outside roi_heads: "
+          f"{sorted(k for k in moved if not k.startswith('roi_heads.'))[:5]}")
+    after = history[N_TRACK_WARMUP:]  # as phase 16: each new canvas's first step is slow
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    print(f"[19] tracker-training CLI ({CONFIG}, {' '.join(TRAIN_PROD_OPTS)}): "
+          f"{N_PROD_TRACK_STEPS} iterations, losses {[round(h['total_loss'], 4) for h in history]}; "
+          f"proposals {[h['proposals'] for h in history]}, matched {[h['matched'] for h in history]};"
+          f" launches {counts}; the checkpoint f32 and strict, {len(moved)} tensors moved, all "
+          "roi_heads")
+    print(f"[19] iterations {N_TRACK_WARMUP + 1}-{N_PROD_TRACK_STEPS}: median "
+          f"{med(h['step_s'] for h in after) * 1e3:.1f}"
+          f" ms/iter (min {min(h['step_s'] for h in after) * 1e3:.1f}, max "
+          f"{max(h['step_s'] for h in after) * 1e3:.1f}); data stage median "
+          f"{med(h['data_s'] for h in after) * 1e3:.1f} ms; by stage (median ms) spot "
+          f"{med(h['phase_t']['spot'] for h in after) * 1e3:.1f}, host "
+          f"{med(h['phase_t']['host'] for h in after) * 1e3:.1f}, update "
+          f"{med(h['phase_t']['update'] for h in after) * 1e3:.1f}; frames per clip "
+          f"{[h['frames'] for h in history]}; peak memory {peak / 2**30:.2f} GiB")
+
+    # one profiled step on phase 16's profiled clip (its config and seed), on the I420 wire
+    scfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:] + ["SEED", str(TRACK_AB_SEED)])
+    sample = next(iter(build_train_loader(scfg)))
+    images, frame_hw = train_net.normalize_clip(sample, scfg.MODEL.PIXEL_MEAN,
+                                                scfg.MODEL.PIXEL_STD, raw=True)
+    wire = encode_train_clip(images, scfg.INPUT.FORMAT)
+    check(wire.ndim == 3, "phase 19: the clip did not go as I420")
+    targets = train_net.targets_from_sample(sample)
+    tr = Trainer(scfg, train_net.init_rescoring_from_classifier(
+        init_state_dict(scfg, torch.Generator().manual_seed(scfg.SEED))))
+    tr.step(wire, frame_hw, targets)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        tr.step(wire, frame_hw, targets)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = device_rows(torch, prof)
+    if not rows:
+        print("[19] profiler: no device time recorded (not measured)")
+        return
+    busy = sum(r[0] for r in rows) / 1e3
+    b1 = sum(t_us for t_us, _, key in rows if key.startswith("ms_deform_attn_queries_bf16_kernel("))
+    f32_busy = f32_step["busy_ms"]
+    print(f"[19] profiled production step ({len(images)} frames, I420, bf16 spotter): wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of "
+          f"wall; profiler on), B1 bf16 {b1 / 1e3:.3f} ms; phases (ms) "
+          + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in tr.phase_t.items())
+          + f"; phase 16's f32 step on the same clip: device busy "
+          + ("not measured" if f32_busy is None else f"{f32_busy:.1f} ms")
+          + f", spot {f32_step['spot_ms']:.1f} ms ({f32_step['frames']} frames)")
+    for name, (us, n) in class_shares(rows).items():
+        print(f"[19]   {name}: {us / 1e3:.3f} ms in {n} launches, {100 * us / 1e3 / busy:.1f}%")
+    del tr
+
 
 
 def main():
@@ -2218,6 +2679,7 @@ def main():
                         {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS})
     phase_profile(torch, predictor, shares=[("B2", "ms_deform_attn_encoder_kernel("),
                                             ("B1", "ms_deform_attn_queries_kernel(")])
+    ref_tracked = predictor.process_video(synthetic_frames())  # phase 18's f32 / RGB reference
     del predictor
     bwd_records = phase_backward(torch, da)
     phase_train_step(torch, da)
@@ -2248,19 +2710,31 @@ def main():
     probe_counts = phase_probe_tools(torch, gp, og)
     phase_gather_floor(torch, da, dam, _build)
 
-    # GoMatching tracker training (the spotter frozen; its sampling on B1)
-    phase_tracker(torch, da)
+    from gomatching_tpu_torch.data.datasets import register_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        register_dataset("chip_smoke_tracker", *write_tracker_dataset(data_dir))
+        # GoMatching tracker training (the spotter frozen; its sampling on B1)
+        f32_step = phase_tracker(torch, da, tmp)
+
+        # the production precision path: bf16 B1/B2, then inference and tracker training
+        bf16_records = phase_bf16_kernels(torch, da)
+        prod_counts = phase_production(torch, da, ref_tracked)
+        phase_tracker_production(torch, da, tmp, f32_step)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},
                 **{n: pp_counts[n] for n in merged_records},
                 **{n: bench_counts[n] for n in fp_records},
-                **{n: probe_counts[n] for n in probe_records}}
+                **{n: probe_counts[n] for n in probe_records},
+                **{n: prod_counts[n] for n in bf16_records}}
     for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items(),
-                      *fp_records.items(), *probe_records.items()]:
+                      *fp_records.items(), *probe_records.items(), *bf16_records.items()]:
         # each kernel's launches are those of the path that runs it: inference, the
         # pretraining's for the backwards, the sampler benchmark's for B6a-c, the probe
-        # tools' for T1 and T2
+        # tools' for T1 and T2, production inference's for B1 and B2 on bf16 value
         rec = dict(rec, launches=launches[name])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",

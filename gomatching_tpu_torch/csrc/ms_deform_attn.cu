@@ -72,6 +72,20 @@
 // faster than gathering them all at the same occupancy and 26% slower than gathering them
 // at twice its resident warps (the -DFP_WARPS=8 build; chip_smoke.py phase 12).
 //
+// The production precision path (MODEL.PRECISION bfloat16) runs B1 and B2 on bf16 value:
+//
+//   ms_deform_attn_queries_fwd_bf16, ms_deform_attn_encoder_fwd_bf16  -- the same bodies
+//       (queries_fwd<T>, encoder_fwd<T>) instantiated for __nv_bfloat16 value and output;
+//       locations, offsets, attention and logits stay f32. Replace the bf16 runs of
+//       gomatching_tpu/ops/deform_attn_dec_vmem.py:_fwd_impl and
+//       gomatching_tpu/ops/deform_attn_vmem.py:_v2_impl (value and output in the value
+//       dtype there too). A bf16 head row is 64 bytes: lane l reads channels 4(l%8)..+3
+//       as one 8-byte word and widens them exactly, so the lane layout, the row offsets
+//       (8 words a head row) and the sums are the f32 kernels'; the weights, the softmax
+//       and the sums are f32, and the output is rounded once to nearest even. The TPU
+//       kernels round each one-hot weight G (bilinear weight x attention) to bf16 before
+//       their MXU product; these keep it f32, which is more exact.
+//
 // Their backwards (the VJPs the training path needs) recompute the taps:
 //
 //   ms_deform_attn_queries_bwd  -- B3: B1's VJP: dValue, dLoc, dAttn from dOut.
@@ -186,6 +200,7 @@
 // stream and the function returns cudaGetLastError().
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes through the runtime
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -236,19 +251,58 @@ __device__ __forceinline__ void level_dims(const LevelInfo& lv, int l, int& h, i
 __device__ int msda_row_mask = 0;
 #endif
 
-__device__ __forceinline__ void load8(const float4* __restrict__ base, int row, int lane,
+// A lane's 4 channels of a head row are one word: a float4 of f32 value, or 8 bytes of 4
+// bf16 (a bf16 head row is 64 bytes, 8 lanes x 8 B, so the lane layout and the row
+// offsets in words are the same for both types). ``as_float4`` widens a word exactly;
+// ``store_row`` rounds a lane's 4 f32 sums to the output type, to nearest even for bf16.
+template <typename T>
+struct RowWord {
+  using type = float4;
+};
+template <>
+struct RowWord<__nv_bfloat16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 as_float4(float4 w) { return w; }
+
+__device__ __forceinline__ float4 as_float4(uint2 w) {
+  // little-endian: channel 2k is the low half of word k
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ void store_row(float* __restrict__ out, int lane, float4 v) {
+  reinterpret_cast<float4*>(out)[lane] = v;
+}
+
+__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ out, int lane, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 w;
+  memcpy(&w.x, &lo, 4);
+  memcpy(&w.y, &hi, 4);
+  reinterpret_cast<uint2*>(out)[lane] = w;
+}
+
+template <typename Word>
+__device__ __forceinline__ void load8(const Word* __restrict__ base, int row, int lane,
                                       float4 (&v)[8]) {
   const int grp = lane & 24;
 #ifdef MSDA_GATHER_ROW0
   row &= *(volatile int*)&msda_row_mask;
 #endif
+  Word w[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) v[k] = __ldg(base + __shfl_sync(MSDA_FULL, row, grp | k));
+  for (int k = 0; k < 8; ++k) w[k] = __ldg(base + __shfl_sync(MSDA_FULL, row, grp | k));
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = as_float4(w[k]);
 }
 
 // The forwards' gather: load8, then each lane scales its corner's rows by that corner's
 // weight ``wgt`` (attention folded in, 0 for a corner off the map), one shuffle each.
-__device__ __forceinline__ void gather8(const float4* __restrict__ base, int row, float wgt,
+template <typename Word>
+__device__ __forceinline__ void gather8(const Word* __restrict__ base, int row, float wgt,
                                         int lane, float4& acc) {
   const int grp = lane & 24;
   float4 v[8];
@@ -264,8 +318,9 @@ __device__ __forceinline__ void gather8(const float4* __restrict__ base, int row
 }
 
 // Sum the four corners (lanes l, l^8, l^16, l^24 hold the same channels) and store the
-// head's 32 channels from lanes 0-7 as one 128-byte row.
-__device__ __forceinline__ void store_corners(float4 acc, int lane, float* __restrict__ out) {
+// head's 32 channels from lanes 0-7 as one row (128 bytes of f32, 64 of bf16).
+template <typename T>
+__device__ __forceinline__ void store_corners(float4 acc, int lane, T* __restrict__ out) {
 #pragma unroll
   for (int k = 8; k <= 16; k <<= 1) {
     acc.x += __shfl_xor_sync(MSDA_FULL, acc.x, k);
@@ -273,7 +328,7 @@ __device__ __forceinline__ void store_corners(float4 acc, int lane, float* __res
     acc.z += __shfl_xor_sync(MSDA_FULL, acc.z, k);
     acc.w += __shfl_xor_sync(MSDA_FULL, acc.w, k);
   }
-  if (lane < 8) reinterpret_cast<float4*>(out)[lane] = acc;
+  if (lane < 8) store_row(out, lane, acc);
 }
 
 // The level table on the lanes: lane k holds level (k & 7)'s (h, w, start), read from
@@ -409,8 +464,8 @@ __device__ __forceinline__ float corner_weight(const Corner& c, int lane) {
 // The sampling loop of the forwards: batches of 8 samples, the next batch's geometry
 // computed while this batch's loads are in flight; ``geometry(i0, row, wgt)`` gives this
 // lane's corner of sample i0 + (lane & 7).
-template <typename Geometry>
-__device__ __forceinline__ float4 sample_loop(const float4* __restrict__ base, int LP, int lane,
+template <typename Word, typename Geometry>
+__device__ __forceinline__ float4 sample_loop(const Word* __restrict__ base, int LP, int lane,
                                               Geometry geometry) {
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   int row;
@@ -427,14 +482,19 @@ __device__ __forceinline__ float4 sample_loop(const float4* __restrict__ base, i
   return acc;
 }
 
-// value (B, S, M, 32); loc (B, Lq, M, L, P, 2) normalized; attn (B, Lq, M, L*P) softmaxed;
-// out (B, Lq, M*32). B2's design on normalized locations: blockIdx.y is the (batch, head)
-// pair and warp w of block x takes query 8x + w, so the warps of a block sample one head
-// around neighbouring queries (the 25 points of one text instance are neighbours). L*P <= 64.
-__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
-ms_deform_attn_queries_kernel(const float* __restrict__ value, const float* __restrict__ loc,
-                              const float* __restrict__ attn, float* __restrict__ out,
-                              LevelInfo lv, int S, int Lq, int M, int L, int P) {
+// value (B, S, M, 32) of type T (float or __nv_bfloat16); loc (B, Lq, M, L, P, 2)
+// normalized; attn (B, Lq, M, L*P) softmaxed; out (B, Lq, M*32) of type T. B2's design on
+// normalized locations: blockIdx.y is the (batch, head) pair and warp w of block x takes
+// query 8x + w, so the warps of a block sample one head around neighbouring queries (the
+// 25 points of one text instance are neighbours). L*P <= 64. Locations, weights and the
+// sums are f32 for either T; a bf16 output is rounded once, at the store.
+template <typename T>
+__device__ __forceinline__ void queries_fwd(const T* __restrict__ value,
+                                            const float* __restrict__ loc,
+                                            const float* __restrict__ attn, T* __restrict__ out,
+                                            const LevelInfo& lv, int S, int Lq, int M, int L,
+                                            int P) {
+  using Word = typename RowWord<T>::type;
   const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (q >= Lq) return;
@@ -444,10 +504,10 @@ ms_deform_attn_queries_kernel(const float* __restrict__ value, const float* __re
   const int LP = L * P;
   const int64_t bqm = ((int64_t)b * Lq + q) * M + m;
   const Samples sm = load_samples(loc + bqm * LP * 2, attn + bqm * LP, LP, lane, 0.f);
-  const int tok4 = M * 8;  // float4s per token
+  const int tok4 = M * 8;  // row words per token
   const int magic = level_magic(P);
-  const float4* base = reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) +
-                       (lane & 7);
+  const Word* base = reinterpret_cast<const Word*>(value + ((int64_t)b * S * M + m) * 32) +
+                     (lane & 7);
   const float4 acc = sample_loop(base, LP, lane, [&](int i0, int& row, float& wgt) {
     float a;
     const Corner c =
@@ -458,15 +518,19 @@ ms_deform_attn_queries_kernel(const float* __restrict__ value, const float* __re
   store_corners(acc, lane, out + bqm * 32);
 }
 
-// value (B, S, M, 32); off (B, S, M, L, P, 2) raw target-level cells;
-// logits (B, S, M, L*P); out (B, S, M*32). blockIdx.y is the (batch, head) pair and
-// warp w of block x takes token 8x + w: warps in (b, m, s) order, tokens fastest, so
+// value (B, S, M, 32) of type T; off (B, S, M, L, P, 2) raw target-level cells;
+// logits (B, S, M, L*P); out (B, S, M*32) of type T. blockIdx.y is the (batch, head) pair
+// and warp w of block x takes token 8x + w: warps in (b, m, s) order, tokens fastest, so
 // the warps of one block sample one head around neighbouring tokens, and no lane
-// divides 64-bit indices. L*P <= 64.
-__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
-ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __restrict__ off,
-                              const float* __restrict__ logits, float* __restrict__ out,
-                              LevelInfo lv, int S, int M, int L, int P) {
+// divides 64-bit indices. L*P <= 64. Offsets, the softmax, the weights and the sums are
+// f32 for either T; a bf16 output is rounded once, at the store.
+template <typename T>
+__device__ __forceinline__ void encoder_fwd(const T* __restrict__ value,
+                                            const float* __restrict__ off,
+                                            const float* __restrict__ logits,
+                                            T* __restrict__ out, const LevelInfo& lv, int S,
+                                            int M, int L, int P) {
+  using Word = typename RowWord<T>::type;
   const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (s >= S) return;
@@ -481,8 +545,8 @@ ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __re
   lane_softmax(sm, LP, lane);
   const int tok4 = M * 8;
   const int magic = level_magic(P);
-  const float4* base = reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) +
-                       (lane & 7);
+  const Word* base = reinterpret_cast<const Word*>(value + ((int64_t)b * S * M + m) * 32) +
+                     (lane & 7);
   const float4 acc = sample_loop(base, LP, lane, [&](int i0, int& row, float& wgt) {
     float a;
     const Corner c = sample_corner<true>(i0, lane, LP, magic, levels, sm, ref, tok4, a);
@@ -490,6 +554,39 @@ ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __re
     wgt = c.in ? a * corner_weight(c, lane) : 0.f;
   });
   store_corners(acc, lane, out + bsm * 32);
+}
+
+// B1 and B2 on f32 value, and their bf16-value variants (the production precision path):
+// one body each, instantiated by value type.
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_queries_kernel(const float* __restrict__ value, const float* __restrict__ loc,
+                              const float* __restrict__ attn, float* __restrict__ out,
+                              LevelInfo lv, int S, int Lq, int M, int L, int P) {
+  queries_fwd(value, loc, attn, out, lv, S, Lq, M, L, P);
+}
+
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_queries_bf16_kernel(const __nv_bfloat16* __restrict__ value,
+                                   const float* __restrict__ loc, const float* __restrict__ attn,
+                                   __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int Lq,
+                                   int M, int L, int P) {
+  queries_fwd(value, loc, attn, out, lv, S, Lq, M, L, P);
+}
+
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __restrict__ off,
+                              const float* __restrict__ logits, float* __restrict__ out,
+                              LevelInfo lv, int S, int M, int L, int P) {
+  encoder_fwd(value, off, logits, out, lv, S, M, L, P);
+}
+
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_encoder_bf16_kernel(const __nv_bfloat16* __restrict__ value,
+                                   const float* __restrict__ off,
+                                   const float* __restrict__ logits,
+                                   __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int M,
+                                   int L, int P) {
+  encoder_fwd(value, off, logits, out, lv, S, M, L, P);
 }
 
 // Lane 8c + j holds p[k] = its channels' share of corner c's dot for sample k of the batch
@@ -1275,42 +1372,82 @@ static LevelInfo make_levels(const int* shapes, int L) {
 }
 
 // The limits of the lane-layout kernels B1-B4 (ops/deform_attn.py check_lane_layout
-// raises on the same): D == 32, one float4 per lane and corner; at most two samples a lane;
-// the (batch, head) pairs within gridDim.y; the float4 index of every token row of one batch
-// item in int.
+// raises on the same): D == 32, one row word per lane and corner; at most two samples a
+// lane; the (batch, head) pairs within gridDim.y; the word index of every token row of one
+// batch item in int (8 words a head row for either value type: float4s of f32, 8-byte
+// words of bf16).
 static bool lane_layout_ok(int B, int S, int M, int D, int L, int P) {
   return L >= 1 && L <= MSDA_MAX_LEVELS && D == 32 && P >= 1 && L * P <= MSDA_MAX_SAMPLES &&
          (int64_t)B * M <= 65535 && (int64_t)S * M * 8 <= INT32_MAX;
+}
+
+template <typename T>
+static int launch_queries(void (*kernel)(const T*, const float*, const float*, T*, LevelInfo,
+                                         int, int, int, int, int),
+                          const T* value, const float* loc, const float* attn, T* out,
+                          const int* shapes, int B, int S, int Lq, int M, int D, int L, int P,
+                          void* stream) {
+  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
+  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      value, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_encoder(void (*kernel)(const T*, const float*, const float*, T*, LevelInfo,
+                                         int, int, int, int),
+                          const T* value, const float* off, const float* logits, T* out,
+                          const int* shapes, int B, int S, int M, int D, int L, int P,
+                          void* stream) {
+  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
+  if (B * M == 0 || S == 0) return (int)cudaSuccess;
+  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      value, off, logits, out, make_levels(shapes, L), S, M, L, P);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ms_deform_attn_queries_fwd(const float* value, const float* loc,
                                           const float* attn, float* out, const int* shapes,
                                           int B, int S, int Lq, int M, int D, int L, int P,
                                           void* stream) {
-  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
-  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
-  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
-  ms_deform_attn_queries_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      value, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
-  return (int)cudaGetLastError();
+  return launch_queries(ms_deform_attn_queries_kernel, value, loc, attn, out, shapes, B, S, Lq,
+                        M, D, L, P, stream);
+}
+
+// B1 on bf16 value: value and out __nv_bfloat16, loc and attn f32.
+extern "C" int ms_deform_attn_queries_fwd_bf16(const __nv_bfloat16* value, const float* loc,
+                                               const float* attn, __nv_bfloat16* out,
+                                               const int* shapes, int B, int S, int Lq, int M,
+                                               int D, int L, int P, void* stream) {
+  return launch_queries(ms_deform_attn_queries_bf16_kernel, value, loc, attn, out, shapes, B, S,
+                        Lq, M, D, L, P, stream);
 }
 
 extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
                                           const float* logits, float* out, const int* shapes,
                                           int B, int S, int M, int D, int L, int P,
                                           void* stream) {
-  if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
-  if (B * M == 0 || S == 0) return (int)cudaSuccess;
-  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
-  ms_deform_attn_encoder_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      value, off, logits, out, make_levels(shapes, L), S, M, L, P);
-  return (int)cudaGetLastError();
+  return launch_encoder(ms_deform_attn_encoder_kernel, value, off, logits, out, shapes, B, S, M,
+                        D, L, P, stream);
+}
+
+// B2 on bf16 value: value and out __nv_bfloat16, offsets and logits f32.
+extern "C" int ms_deform_attn_encoder_fwd_bf16(const __nv_bfloat16* value, const float* off,
+                                               const float* logits, __nv_bfloat16* out,
+                                               const int* shapes, int B, int S, int M, int D,
+                                               int L, int P, void* stream) {
+  return launch_encoder(ms_deform_attn_encoder_bf16_kernel, value, off, logits, out, shapes, B,
+                        S, M, D, L, P, stream);
 }
 
 // What the runtime made of a kernel (which: 0 B1, 1 B2, 2 B4, 3 B5, 4 B3; 5, 6, 7 the
 // footprint kernel's NATURAL_LOC, TM_LOC and TM_OFF_CELLS instantiations, at ``smem_bytes``
-// of dynamic shared memory a block; 0 for the others): info[0] registers a thread, info[1]
-// local memory a thread in bytes (stack and spills), info[2] resident warps per SM.
+// of dynamic shared memory a block; 0 for the others; 8 B1 and 9 B2 on bf16 value):
+// info[0] registers a thread, info[1] local memory a thread in bytes (stack and spills),
+// info[2] resident warps per SM.
 extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) {
   const void* fns[] = {(const void*)ms_deform_attn_queries_kernel,
                        (const void*)ms_deform_attn_encoder_kernel,
@@ -1319,11 +1456,14 @@ extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) 
                        (const void*)ms_deform_attn_queries_bwd_kernel,
                        (const void*)ms_deform_attn_footprint_kernel<NATURAL_LOC>,
                        (const void*)ms_deform_attn_footprint_kernel<TM_LOC>,
-                       (const void*)ms_deform_attn_footprint_kernel<TM_OFF_CELLS>};
-  if (which < 0 || which > 7 || smem_bytes < 0 || smem_bytes > 232448)
+                       (const void*)ms_deform_attn_footprint_kernel<TM_OFF_CELLS>,
+                       (const void*)ms_deform_attn_queries_bf16_kernel,
+                       (const void*)ms_deform_attn_encoder_bf16_kernel};
+  if (which < 0 || which > 9 || smem_bytes < 0 || smem_bytes > 232448)
     return (int)cudaErrorInvalidValue;
+  const bool footprint = which >= 5 && which <= 7;
   cudaError_t e;
-  if (which >= 5) {
+  if (footprint) {
     e = cudaFuncSetAttribute(fns[which], cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (e != cudaSuccess) return (int)e;
   }
@@ -1332,7 +1472,7 @@ extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) 
   if (e != cudaSuccess) return (int)e;
   info[0] = attr.numRegs;
   info[1] = (int)attr.localSizeBytes;
-  const int warps = which >= 5 ? FP_WARPS : MSDA_WARPS_PER_BLOCK;
+  const int warps = footprint ? FP_WARPS : MSDA_WARPS_PER_BLOCK;
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which], 32 * warps, smem_bytes);
   info[2] = blocks * warps;

@@ -25,9 +25,11 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def save_checkpoint(path: str, model: nn.Module) -> None:
-    """Write ``{"model": state_dict}`` (CPU tensors) to ``path``."""
-    _save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)
+def save_checkpoint(path: str, model) -> None:
+    """Write ``{"model": state_dict}`` (CPU tensors) of ``model``, a module or a state_dict,
+    to ``path``."""
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    _save({"model": {k: v.detach().cpu() for k, v in sd.items()}}, path)
 
 
 _STATE = re.compile(r"state_(\d{7})\.pth$")

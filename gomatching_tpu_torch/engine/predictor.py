@@ -4,10 +4,16 @@
 Replaces ``GoMBatchPredictor`` (gomatching/text_track_visualizer.py:295-335) and the
 driver loop of the reference ``eval.py``:
 
-  - frames go to the device as uint8 in batches of ``TPU.SPOT_BATCH``; resize,
-    normalize, backbone, spotter, rescoring, fusion, threshold, NMS and reid run
+  - frames go to the device as uint8 in batches of ``TPU.SPOT_BATCH`` (BGR, or planar
+    I420 under ``TPU.UPLOAD_FORMAT`` yuv420 when both sides are even, decoded there);
+    resize, normalize, backbone, spotter, rescoring, fusion, threshold, NMS and reid run
     there, and each batch's per-slot outputs come back in ONE packed (B, nq, K) f32
     copy (``unpack_spot`` inverts the packing);
+  - ``MODEL.PRECISION`` bfloat16 runs the frozen spotter in bf16 (its deformable
+    sampling on B1's and B2's bf16 kernels) and, unless ``TPU.ASSOC_PRECISION`` says
+    otherwise ('' follows ``MODEL.PRECISION``), the association matchers too, with their
+    tokens cast to bf16 and their logits back to f32; reid and rescore stay f32
+    (JAX predictor.py:113-114, :143-153, :171-176);
   - the host extracts dense per-frame instances and the sequential tracker runs
     the association transformer back on the device with bucket-padded tokens.
 
@@ -25,8 +31,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..data.preprocess import compute_test_size, device_preprocess
-from ..models.gomatching import build_model
+from ..data.preprocess import compute_test_size, decode_i420, device_preprocess, encode_i420
+from ..models.gomatching import PRECISIONS, build_model, compute_dtype
 from ..tracking.tracker import FrameDetections, Tracker
 from ..utils.ctc import ctc_decode, load_char_table
 from ..weights import init_weights_, load_weights, params_from_jax
@@ -78,6 +84,19 @@ class VideoPredictor:
         else:
             load_weights(model, state_dict)
         self.model = model.to(self.device).eval()
+        # weights load f32 and are cast after loading (JAX predictor.py:113-114)
+        self.model.cast_frozen_(compute_dtype(cfg))
+        # the bf16 matcher is gated off for the pos-emb matcher, whose f32 embeddings
+        # would promote its products back to f32 anyway (JAX predictor.py:143-153)
+        use_pos = not cfg.MODEL.ASSO_HEAD.NO_POS_EMB
+        assoc = cfg.TPU.ASSOC_PRECISION or cfg.MODEL.PRECISION
+        if assoc not in PRECISIONS:
+            raise ValueError(f"TPU.ASSOC_PRECISION={cfg.TPU.ASSOC_PRECISION!r}: expected '' or "
+                             f"one of {sorted(PRECISIONS)}")
+        self.assoc_dtype = (torch.bfloat16 if assoc == "bfloat16" and not use_pos
+                            else torch.float32)
+        self.model.cast_matcher_(self.assoc_dtype)
+        self.upload_format = cfg.TPU.UPLOAD_FORMAT
         self.spot_batch = int(cfg.TPU.SPOT_BATCH)
         self.score_thresh = float(cfg.MODEL.TRANSFORMER.INFERENCE_TH_TEST)
         self.char_table = load_char_table(
@@ -87,7 +106,6 @@ class VideoPredictor:
         v = cfg.VIDEO_TEST
         # NO_POS_EMB False: the tracker passes each token's normalized box and frame
         # time to ``associate`` (JAX predictor.py:142, :202-253)
-        use_pos = not cfg.MODEL.ASSO_HEAD.NO_POS_EMB
         self.tracker = Tracker(
             self.associate,
             test_len=cfg.INPUT.VIDEO.TEST_LEN,
@@ -112,14 +130,28 @@ class VideoPredictor:
             return None if a is None else torch.from_numpy(
                 np.ascontiguousarray(a, dtype)).to(self.device)
 
-        return self.model.associate(dev(tokens, np.float32), dev(valid, bool), short_term,
-                                    dev(boxes, np.float32), dev(times, np.float32)).cpu().numpy()
+        toks = dev(tokens, np.float32).to(self.assoc_dtype)
+        out = self.model.associate(toks, dev(valid, bool), short_term, dev(boxes, np.float32),
+                                   dev(times, np.float32))
+        return out.float().cpu().numpy()
+
+    def encode_frames(self, frames_u8: np.ndarray) -> np.ndarray:
+        """uint8 BGR frames -> what goes to the device: planar I420 (B, H*3//2, W) under
+        ``TPU.UPLOAD_FORMAT`` yuv420 when H and W are even, else the frames as they are
+        (JAX predictor.py:426-437)."""
+        h, w = frames_u8.shape[1:3]
+        if self.upload_format == "yuv420" and h % 2 == 0 and w % 2 == 0:
+            return encode_i420(frames_u8)
+        return frames_u8
 
     @torch.no_grad()
     def spot_batch_packed(self, frames_u8: np.ndarray, target_hw) -> np.ndarray:
         """uint8 BGR frames (B, H, W, 3) -> packed (B, nq, K) f32 detections."""
         cfg = self.cfg
-        raw = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        wire = self.encode_frames(frames_u8)
+        raw = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
+        if raw.ndim == 3:  # I420: decoded to BGR in [0, 255] on the device
+            raw = decode_i420(raw)
         imgs = device_preprocess(raw, target_hw, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
                                  cfg.INPUT.FORMAT)
         out = self.model.spot_and_detect(imgs, self.score_thresh)

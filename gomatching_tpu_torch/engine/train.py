@@ -15,7 +15,11 @@ Parity targets (as the JAX package realizes them):
 One ``Trainer.step``:
   1. spot: the whole clip in one frozen forward (its deformable sampling on the B1/B2
      kernels on CUDA), with ``re_pred_logits`` from the CURRENT rescoring head; the
-     fields the host phase reads come back in one copy;
+     fields the host phase reads come back in one copy. Under ``MODEL.PRECISION``
+     bfloat16 the frozen spotter runs in bf16, exactly as in production inference, and
+     ``roi_heads`` trains in f32 (JAX train.py:246-260); a clip on the I420 wire
+     (``TPU.TRAIN_UPLOAD_FORMAT`` yuv420, ``encode_train_clip``) is decoded, put in
+     ``INPUT.FORMAT``'s channel order and normalized on the device (:295-312);
   2. host: score fusion, the two thresholds, boxes, the 4GM Hungarian
      (``match_rescore``) and the association targets, all numpy (``prepare_batch``);
   3. update: the losses on the spot's query features, backward into ``roi_heads``,
@@ -34,7 +38,8 @@ import torch
 import torch.nn as nn
 
 from .. import resolve_device
-from ..models.gomatching import build_model
+from ..data.preprocess import decode_i420, encode_i420
+from ..models.gomatching import FROZEN_SUBMODULES, build_model, compute_dtype
 from ..weights import init_weights_, load_weights
 from .losses import asso_ce_loss, build_asso_targets, match_rescore, rescore_loss
 from .optim import build_optimizer, clip_by_global_norm_, clip_max_norm
@@ -60,13 +65,16 @@ def freeze_partition(model: nn.Module, freeze_type: str) -> List[str]:
     return names
 
 
-def check_train_keys(cfg) -> None:
-    """Refuse the training-wire keys the port does not read: ``TPU.TRAIN_UPLOAD_FORMAT``
-    yuv420 (JAX: a lossy I420 round trip of every training frame)."""
-    if cfg.TPU.TRAIN_UPLOAD_FORMAT != "rgb":
-        raise NotImplementedError(
-            f"TPU.TRAIN_UPLOAD_FORMAT={cfg.TPU.TRAIN_UPLOAD_FORMAT!r} is not ported yet "
-            "(ROADMAP A13); the port runs 'rgb'")
+def encode_train_clip(images_u8: np.ndarray, input_format: str = "RGB") -> np.ndarray:
+    """HOST: a uint8 clip (T, H, W, 3) in ``input_format``'s channel order -> planar I420
+    (T, H*3//2, W) for the ``TPU.TRAIN_UPLOAD_FORMAT`` yuv420 wire (JAX train.py:63-75).
+    The clip comes back unchanged when a side is odd; ``Trainer.spot`` tells the two
+    apart by their rank."""
+    h, w = images_u8.shape[1:3]
+    if h % 2 or w % 2:
+        return images_u8
+    x = images_u8[..., ::-1] if input_format == "RGB" else images_u8
+    return encode_i420(np.ascontiguousarray(x))
 
 
 def normalize_wire_frames(images: torch.Tensor, pixel_mean: Sequence[float],
@@ -89,6 +97,19 @@ def normalize_wire_frames(images: torch.Tensor, pixel_mean: Sequence[float],
     return x
 
 
+def decode_wire(images: torch.Tensor, input_format: str, pixel_mean: Sequence[float],
+                pixel_std: Sequence[float], image_hw: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """A planar I420 training clip (T, H*3//2, W) uint8 -> normalized float32 frames
+    (T, H, W, 3) on its device: decoded to BGR, put in ``input_format``'s channel order,
+    then normalized with the padding zeroed again (JAX ``Trainer._decode_wire``,
+    train.py:295-305)."""
+    x = decode_i420(images)
+    if input_format == "RGB":
+        x = x.flip(-1)
+    return normalize_wire_frames(x, pixel_mean, pixel_std, image_hw)
+
+
 # the spot fields the host phase reads, in their order on the packed copy's last axis
 _HOST_FIELDS = ("pred_logits", "re_pred_logits", "pred_ctrl_points", "pred_bd_points")
 
@@ -102,7 +123,6 @@ class Trainer:
     """
 
     def __init__(self, cfg, state_dict=None, device=None):
-        check_train_keys(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         model = build_model(cfg)
@@ -114,6 +134,17 @@ class Trainer:
         # the frozen spotter runs in eval mode; the head in train mode (its dropout)
         self.model = model.to(self.device).eval()
         self.model.roi_heads.train()
+        # a bf16 spotter keeps its f32 originals, which checkpoints hold (JAX frozen_f32,
+        # train.py:253-255); the trainer reads none of the inference keys
+        # (TPU.ASSOC_PRECISION, TPU.UPLOAD_FORMAT), as JAX's does not
+        dtype = compute_dtype(cfg)
+        self.frozen_f32: Optional[Dict[str, torch.Tensor]] = None
+        if dtype != torch.float32:
+            self.frozen_f32 = {k: v.detach().cpu().clone()
+                               for k, v in self.model.state_dict().items()
+                               if k.split(".")[0] in FROZEN_SUBMODULES}
+        self.model.cast_frozen_(dtype)
+        self.input_format = cfg.INPUT.FORMAT  # channel order of the clips
         named = dict(self.model.named_parameters())
         self.trainable = [named[n] for n in self.trainable_names]
         self.optimizer, self.scheduler = build_optimizer(cfg, self.model)
@@ -141,13 +172,17 @@ class Trainer:
     @torch.no_grad()
     def spot(self, images: np.ndarray, image_hw: Optional[np.ndarray] = None
              ) -> Dict[str, Optional[torch.Tensor]]:
-        """The frozen spot forward of a clip (T, H, W, 3) on the device: uint8 frames
-        are normalized there and their padding zeroed from ``image_hw`` (T, 2); float
-        frames are taken as normalized. ``image_hw`` None: no padding masks."""
+        """The frozen spot forward of a clip on the device: uint8 frames (T, H, W, 3) are
+        normalized there and their padding zeroed from ``image_hw`` (T, 2); a uint8 I420
+        clip (T, H*3//2, W) is decoded to BGR, put in ``INPUT.FORMAT``'s order and then
+        treated the same (JAX ``_decode_wire``, train.py:295-305); float frames are taken
+        as normalized. ``image_hw`` None: no padding masks."""
         x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
         hw = None if image_hw is None else torch.from_numpy(
             np.asarray(image_hw, np.float32)).to(self.device)
-        if x.dtype == torch.uint8:
+        if x.ndim == 3:
+            x = decode_wire(x, self.input_format, self.pixel_mean, self.pixel_std, hw)
+        elif x.dtype == torch.uint8:
             x = normalize_wire_frames(x, self.pixel_mean, self.pixel_std, hw)
         return self.model.spot(x, hw)
 
@@ -241,7 +276,7 @@ class Trainer:
         with ASSO_HEAD.DROPOUT in the matchers."""
         model = self.model
         head = model.roi_heads
-        qf = query_features
+        qf = query_features.float()  # bf16 from a bf16 spotter; the head is f32
         T, nq = qf.shape[:2]
         pv = batch["prop_valid"]
         losses: Dict[str, torch.Tensor] = {}
@@ -317,6 +352,14 @@ class Trainer:
         return metrics
 
     # ------------------------------------------------------------------
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The whole model's state_dict for a checkpoint, the frozen spotter in the f32 it
+        was loaded in (JAX train_net.py:386-394 saves ``frozen_f32``)."""
+        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        if self.frozen_f32 is not None:
+            sd.update(self.frozen_f32)
+        return sd
+
     def state_dict(self) -> Dict:
         """What a resumed run needs: the trainable head, the optimizer and schedule, the
         step and the dropout generator's state."""

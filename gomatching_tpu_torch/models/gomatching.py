@@ -33,6 +33,12 @@ from .resnet import FrozenBN, ResNet
 from .spotter import DeepSoloSpotter
 
 BACKBONE_CHANNELS = {"build_resnet_backbone": (512, 1024, 2048)}
+PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FROZEN_SUBMODULES = ("backbone", "detection_transformer")  # what MODEL.PRECISION casts
+# the tracker head's matcher modules, which TPU.ASSOC_PRECISION casts (JAX predictor.py:51-57);
+# reid (asso_head) and rescore feed the spot path and stay f32
+MATCHER_SUBMODULES = ("long_term_matcher", "short_term_matcher", "shared_matcher",
+                      "asso_predictor", "local_asso_predictor")
 BACKBONE_STRIDES = (8, 16, 32)
 
 
@@ -116,6 +122,28 @@ class GoMatchingModel(nn.Module):
             with_temp_emb=asso_with_temp_emb, dropout=asso_dropout,
             dropout_seed=asso_dropout_seed,
         )
+        self.compute_dtype = torch.float32  # the frozen spotter's; see cast_frozen_
+
+    def cast_frozen_(self, dtype: torch.dtype) -> "GoMatchingModel":
+        """Run the frozen spotter (``backbone`` and ``detection_transformer``, every
+        parameter and buffer, the FrozenBN statistics too) in ``dtype``, as JAX's
+        ``cast_frozen_params`` does (predictor.py:35-46; train.py:246-260); ``roi_heads``
+        stays as it is. The Bernstein basis is a constant of the computation, not a
+        parameter, and stays f32 (JAX spotter.py:555)."""
+        for name in FROZEN_SUBMODULES:
+            getattr(self, name).to(dtype)
+        spotter = self.detection_transformer
+        spotter.bernstein = spotter.bernstein.float()
+        self.compute_dtype = dtype
+        return self
+
+    def cast_matcher_(self, dtype: torch.dtype) -> "GoMatchingModel":
+        """The association matchers and affinity heads in ``dtype`` (JAX
+        ``cast_assoc_params``, predictor.py:60-74); reid and rescore stay f32."""
+        for name in MATCHER_SUBMODULES:
+            if hasattr(self.roi_heads, name):
+                getattr(self.roi_heads, name).to(dtype)
+        return self
 
     def features(self, images: torch.Tensor, masks: Optional[List[torch.Tensor]] = None):
         """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings)."""
@@ -128,12 +156,15 @@ class GoMatchingModel(nn.Module):
         gomatching.py:155-180). ``image_hw`` (B, 2): each frame's true (h, w) on the
         zero-padded canvas; the level masks it gives reach the position encodings and
         the spotter (its masked encoder samples through B1). None: the whole canvas is
-        valid and nothing is masked."""
+        valid and nothing is masked. The frames and the position encodings (computed f32)
+        go to ``compute_dtype``; the rescoring head computes at the f32 of its weights,
+        as flax promotes bf16 query features against them."""
+        dtype = self.compute_dtype
         masks = level_masks(images.shape[1:3], image_hw)
-        feats, pos = self.features(images, masks)
-        out = self.detection_transformer(feats, pos, masks)
+        feats, pos = self.features(images.to(dtype), masks)
+        out = self.detection_transformer(feats, [p.to(dtype) for p in pos], masks)
         out["re_pred_logits"] = (
-            self.roi_heads.rescore(out["query_features"]) if self.with_rescore else None
+            self.roi_heads.rescore(out["query_features"].float()) if self.with_rescore else None
         )
         return out
 
@@ -223,24 +254,18 @@ def _check_ported(cfg) -> None:
     if cfg.MODEL.BACKBONE.NAME != "build_resnet_backbone":
         raise NotImplementedError(f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported yet "
                                   "(ROADMAP A10)")
-    if cfg.MODEL.PRECISION != "float32":
-        raise NotImplementedError(f"MODEL.PRECISION={cfg.MODEL.PRECISION} is not ported yet")
 
 
-# Inference keys that change the JAX predictor's outputs and that the port does not read
-# yet (ROADMAP A13), with the values it accepts: the f32 matcher and the RGB upload.
-_UNPORTED_INFERENCE_KEYS = {
-    "ASSOC_PRECISION": ("", "float32"),  # JAX: a bf16 association matcher
-    "UPLOAD_FORMAT": ("rgb",),  # JAX: a lossy I420 round trip of every frame
-}
-
-
-def _check_inference_keys(cfg) -> None:
-    for key, accepted in _UNPORTED_INFERENCE_KEYS.items():
-        value = cfg.TPU[key]
-        if value not in accepted:
-            raise NotImplementedError(f"TPU.{key}={value!r} is not ported yet (ROADMAP A13); "
-                                      f"the port runs {accepted[-1]!r}")
+def compute_dtype(cfg) -> torch.dtype:
+    """The frozen spotter's dtype, ``MODEL.PRECISION``. B5 ('pallas') has no bf16 variant."""
+    if cfg.MODEL.PRECISION not in PRECISIONS:
+        raise ValueError(f"MODEL.PRECISION={cfg.MODEL.PRECISION!r}: expected one of "
+                         f"{sorted(PRECISIONS)}")
+    dtype = PRECISIONS[cfg.MODEL.PRECISION]
+    if dtype == torch.bfloat16 and cfg.TPU.SAMPLING_IMPL == "pallas":
+        raise NotImplementedError("TPU.SAMPLING_IMPL='pallas' with MODEL.PRECISION=bfloat16 is "
+                                  "not ported yet (ROADMAP A13c: B5 and its table in bf16)")
+    return dtype
 
 
 def _spotter_kwargs(cfg) -> Dict:
@@ -260,7 +285,9 @@ def build_pretrain_model(cfg) -> SpotterPretrainModel:
     sampler is always the exact differentiable one (B1/B2 forwards, B3/B4 backwards on
     CUDA), whatever ``TPU.SAMPLING_IMPL`` says: B5 ('pallas') has no backward, and JAX
     too trains through another sampler when 'pallas' is asked for
-    (gomatching_tpu/config.py:417-425). ``TPU.TRAIN_SAMPLING_IMPL`` is not read."""
+    (gomatching_tpu/config.py:417-425). ``TPU.TRAIN_SAMPLING_IMPL`` is not read, nor is
+    ``MODEL.PRECISION``: pretraining runs f32 whatever it says, as JAX's pretraining
+    model takes no compute dtype (gomatching_tpu/models/gomatching.py:271)."""
     _check_ported(cfg)
     kwargs = _spotter_kwargs(cfg)
     del kwargs["sampling_impl"]
@@ -273,9 +300,11 @@ MATCHER_VARIANTS = {"LSTMatcher": "lst", "SHA_FFN_CRSATTN": "shared"}
 def build_model(cfg) -> GoMatchingModel:
     """Construct the meta-arch from a reference-schema config (ResNet backbone):
     GoMatching (``ROI_HEADS.NAME`` LSTMatcher) or GoMatching++ (SHA_FFN_CRSATTN), with
-    or without the matcher's positional embeddings (JAX gomatching.py:400-441)."""
+    or without the matcher's positional embeddings (JAX gomatching.py:400-441). The model
+    is built f32: ``cast_frozen_`` puts the spotter in ``compute_dtype(cfg)``, which this
+    checks."""
     _check_ported(cfg)
-    _check_inference_keys(cfg)
+    compute_dtype(cfg)
     if cfg.MODEL.ROI_HEADS.NAME not in MATCHER_VARIANTS:
         raise ValueError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME}: expected one of "
                          f"{sorted(MATCHER_VARIANTS)}")

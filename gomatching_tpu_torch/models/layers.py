@@ -27,7 +27,13 @@ class MLP(nn.Module):
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            w, b = layer.weight, layer.bias
+            if w.dtype != x.dtype:
+                # flax computes a layer whose input and parameters differ in dtype at
+                # their promoted type (an f32 input to bf16 weights: f32)
+                dt = torch.promote_types(w.dtype, x.dtype)
+                x, w, b = x.to(dt), w.to(dt), b.to(dt)
+            x = F.linear(x, w, b)
             if i < len(self.layers) - 1:
                 x = F.relu(x)
         return x

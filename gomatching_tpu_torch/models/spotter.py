@@ -66,6 +66,12 @@ def offset_grid_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
     return grid.reshape(-1).astype(np.float32)
 
 
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """bf16 to f32, as JAX casts the samplers' inputs; f32, and f64 (a float64 reference
+    run of the plain path), as they are."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class MSDeformAttn(nn.Module):
     """Offset/weight projections around the sampler (ms_deform_attn.py:69-156)."""
 
@@ -96,15 +102,20 @@ class MSDeformAttn(nn.Module):
         offsets = self.sampling_offsets(query).view(B, Lq, M, L, P, 2)
         logits = self.attention_weights(query).view(B, Lq, M, L * P)
         pallas = self.sampling_impl == "pallas"
+        # in bf16 the samplers take the value in the compute dtype and everything else in
+        # f32, as JAX's kernels do: the encoder's offsets and logits are cast to f32 and
+        # softmaxed there (spotter.py:177-191); elsewhere the softmax runs in the compute
+        # dtype and the f32 reference points and level sizes promote the locations to f32
+        # (:216-217), the kernel taking the weights as f32 (deform_attn_dec_vmem.py:170)
         if is_encoder_self_attn and token_valid is None and not pallas:
-            out = ms_deform_attn_encoder(value, spatial_shapes, offsets, logits)
+            out = ms_deform_attn_encoder(value, spatial_shapes, _f32(offsets), _f32(logits))
         else:
             attn = logits.softmax(-1).view(B, Lq, M, L, P)
             wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
                               device=query.device)
             loc = reference_points[:, :, None, :, None, :] + offsets / wh[None, None, None, :, None, :]
             sampler = ms_deform_attn_merged if pallas else ms_deform_attn_queries
-            out = sampler(value, spatial_shapes, loc, attn)
+            out = sampler(value, spatial_shapes, loc, _f32(attn))
         return self.output_proj(out)
 
 
@@ -276,7 +287,10 @@ class DeepSoloSpotter(nn.Module):
                 torch.ones((b, h * w), dtype=torch.bool, device=x.device)
                 if mask_l is None else (~mask_l).reshape(b, h * w)
             )
-        return torch.cat(srcs, 1), torch.cat(poss, 1), torch.cat(valids, 1), shapes, level_masks
+        src = torch.cat(srcs, 1)
+        # the extra level's encoding is f32 (JAX casts the whole of it to src's dtype, :474)
+        pos = torch.cat(poss, 1).to(src.dtype)
+        return src, pos, torch.cat(valids, 1), shapes, level_masks
 
     @staticmethod
     def _valid_ratios(level_masks, batch: int, device) -> torch.Tensor:
@@ -396,7 +410,8 @@ class DeepSoloSpotter(nn.Module):
         for li, layer in enumerate(dec.layers):
             ref_input = ref[:, :, :, None, :] * valid_ratios[:, None, None, :, :]
             qp = point_query_pos_embed(ref_input[:, :, :, 0, :], self.d_model, self.temperature)
-            query_pos = dec.ref_point_head(qp)
+            # the head runs at the f32 of its input, then goes to tgt's dtype (JAX :571)
+            query_pos = dec.ref_point_head(qp).to(tgt.dtype)
             tgt = layer(tgt, query_pos, ref_input, memory, enc["shapes"], enc["token_valid"])
             delta = self.ctrl_point_coord[li](tgt)
             ref_in_last = ref

@@ -31,7 +31,15 @@ backward is a kernel too:
     ``_v2_bwd_impl``), exact over the whole level.
 
 The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through the plain
-forwards; the tests and ``chip_smoke.py`` hold the kernels against them. B1-B4 take
+forwards; the tests and ``chip_smoke.py`` hold the kernels against them.
+
+A bfloat16 value (``MODEL.PRECISION`` bfloat16, the frozen spotter) takes B1's and B2's
+bf16 variants, the same kernels instantiated for bf16 value and output
+(``ms_deform_attn_queries_bf16``, ``ms_deform_attn_encoder_bf16``; the bf16 runs of the
+same TPU kernels): locations, offsets, attention and logits stay float32, the sums are f32
+and the output is rounded once to bf16. Their plain versions (``*_plain_bf16``) widen the
+value to f32, run the plain sampler and round the output. They have no backward: the bf16
+spotter is frozen. B1-B4 take
 D == 32 channels per head (one float4 per lane and corner) within the limits that
 ``check_lane_layout`` names (through autograd B3 meets only what B1's forward already
 took). The source note in the .cu file gives each
@@ -56,6 +64,8 @@ Shapes = Sequence[Tuple[int, int]]
 
 QUERIES = "ms_deform_attn_queries"
 ENCODER = "ms_deform_attn_encoder"
+QUERIES_BF16 = "ms_deform_attn_queries_bf16"
+ENCODER_BF16 = "ms_deform_attn_encoder_bf16"
 QUERIES_BWD = "ms_deform_attn_queries_bwd"
 ENCODER_BWD = "ms_deform_attn_encoder_bwd"
 MERGED = "ms_deform_attn_merged"
@@ -68,7 +78,7 @@ FUSED = "ms_deform_attn_encoder_fused"
 # launches of each hand-written kernel in this process (plain CPU calls do not count)
 launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0, QUERIES_BWD: 0, ENCODER_BWD: 0,
                                  MERGED: 0, MERGED_TABLE: 0, VMEM: 0, VMEM_TM: 0, VMEM_V3: 0,
-                                 FUSED: 0}
+                                 FUSED: 0, QUERIES_BF16: 0, ENCODER_BF16: 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +87,10 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_encoder_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I),
                                    _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_queries_fwd_bf16": [_P, _P, _P, _P, ctypes.POINTER(_I),
+                                        _I, _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_encoder_fwd_bf16": [_P, _P, _P, _P, ctypes.POINTER(_I),
+                                        _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_queries_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
                                    _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_encoder_bwd": [_P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
@@ -91,7 +105,7 @@ _SIGNATURES = {
 }
 _MAX_LEVELS = 8
 _MAX_SAMPLES = 64  # L * P per head (MSDA_MAX_SAMPLES of the .cu file)
-KERNEL_D = 32  # channels per head of B1-B5: one float4 per lane and corner
+KERNEL_D = 32  # channels per head of B1-B5: one row word (4 channels) per lane and corner
 _MAX_GRID_Y = 65535  # (batch, head) pairs: the grid's y extent
 _INT32_MAX = 2**31 - 1
 
@@ -174,6 +188,21 @@ def ms_deform_attn_encoder_plain(
     return ms_deform_attn_queries_plain(value, spatial_shapes, loc, attn)
 
 
+def ms_deform_attn_queries_plain_bf16(value, spatial_shapes, sampling_locations,
+                                      attention_weights):
+    """The bf16 B1's plain version: bf16 value widened to f32, the plain sampler on the f32
+    locations and weights, the output rounded to bf16."""
+    return ms_deform_attn_queries_plain(value.float(), spatial_shapes, sampling_locations,
+                                        attention_weights).to(torch.bfloat16)
+
+
+def ms_deform_attn_encoder_plain_bf16(value, spatial_shapes, offsets, attn_logits):
+    """The bf16 B2's plain version: bf16 value widened to f32, the plain encoder sampler on
+    the f32 offsets and logits, the output rounded to bf16."""
+    return ms_deform_attn_encoder_plain(value.float(), spatial_shapes, offsets,
+                                        attn_logits).to(torch.bfloat16)
+
+
 def _plain_backward(forward, value, spatial_shapes, a, b, grad_out):
     """VJP of ``forward(value, shapes, a, b)`` at ``grad_out`` by autograd."""
     with torch.enable_grad():
@@ -219,25 +248,32 @@ def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shapes: Shapes,
             outs: Sequence[Tuple[Tuple[int, ...], bool]],
-            dims: Tuple[int, ...], S: Optional[int] = None) -> List[torch.Tensor]:
+            dims: Tuple[int, ...], S: Optional[int] = None,
+            value_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
     """Validate the inputs, allocate the outputs ((shape, zeroed) each) and launch
     ``c_fn`` on the current stream; raise on a refused launch. ``inputs`` are passed
     in order, then the outputs, the level shapes and ``dims``. ``S`` (tokens) defaults
-    to the first input's dimension 1."""
+    to the first input's dimension 1. The input named ``value`` must be of
+    ``value_dtype``, every other input float32 (TypeError otherwise); the outputs take
+    the value's dtype (float32 without one)."""
     S = next(iter(inputs.values())).shape[1] if S is None else S
     if sum(h * w for h, w in spatial_shapes) != S or not 1 <= len(spatial_shapes) <= _MAX_LEVELS:
         raise ValueError(f"{name}: spatial_shapes {spatial_shapes} do not match S={S} "
                          f"(1..{_MAX_LEVELS} levels)")
     for key, t in inputs.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        want = value_dtype if key == "value" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+    if _on_cpu(*inputs.values()):
+        raise ValueError(f"{name}: the kernel takes CUDA tensors")
     from ._build import load
 
     fn = getattr(load("ms_deform_attn.cu", _SIGNATURES), c_fn)
     device = next(iter(inputs.values())).device
-    results = [(torch.zeros if zeroed else torch.empty)(shape, dtype=torch.float32, device=device)
+    out_dtype = value_dtype if "value" in inputs else torch.float32
+    results = [(torch.zeros if zeroed else torch.empty)(shape, dtype=out_dtype, device=device)
                for shape, zeroed in outs]
     flat = [int(x) for hw in spatial_shapes for x in hw]
     with torch.cuda.device(device):
@@ -284,8 +320,9 @@ def check_lane_layout(name: str, B: int, S: int, M: int, D: int, L: int, P: int)
         raise ValueError(f"{name}: the kernel takes B*M <= {_MAX_GRID_Y} (batch, head) pairs, "
                          f"got B={B}, M={M}")
     if S * M * 8 > _INT32_MAX:
-        raise ValueError(f"{name}: the kernel takes S*M*8 <= {_INT32_MAX} (float4 rows of one "
-                         f"batch item), got S={S}, M={M}")
+        raise ValueError(f"{name}: the kernel takes S*M*8 <= {_INT32_MAX} (the row words of one "
+                         f"batch item, 8 a head row: float4s of f32 value, 8-byte words of 4 "
+                         f"bf16), got S={S}, M={M}")
 
 
 def _check_grad_out(name, grad_out, shape):
@@ -383,13 +420,45 @@ def _kernel_info(name: str, which: int, smem_bytes: int = 0) -> Dict[str, int]:
 
 
 def kernel_info() -> Dict[str, Dict[str, int]]:
-    """``_kernel_info`` of the lane-layout kernels B1, B2, B4, B5 and B3."""
-    return {name: _kernel_info(name, which)
-            for which, name in enumerate((QUERIES, ENCODER, ENCODER_BWD, MERGED, QUERIES_BWD))}
+    """``_kernel_info`` of the lane-layout kernels B1, B2, B4, B5, B3 and of B1 and B2 on
+    bf16 value."""
+    kernels = ((0, QUERIES), (1, ENCODER), (2, ENCODER_BWD), (3, MERGED), (4, QUERIES_BWD),
+               (8, QUERIES_BF16), (9, ENCODER_BF16))
+    return {name: _kernel_info(name, which) for which, name in kernels}
 
 
 def _shape_key(spatial_shapes: Shapes) -> Tuple[Tuple[int, int], ...]:
     return tuple((int(h), int(w)) for h, w in spatial_shapes)
+
+
+def ms_deform_attn_queries_bf16(value, spatial_shapes, sampling_locations, attention_weights):
+    """B1's kernel on bf16 value (the production precision path): value (B, S, M, 32)
+    bfloat16, sampling_locations (B, Lq, M, L, P, 2) and attention_weights (B, Lq, M, L, P)
+    float32 -> (B, Lq, M*32) bfloat16, the f32 sums rounded once. Any other dtype raises
+    TypeError, CPU tensors ValueError. No backward: the bf16 spotter is frozen."""
+    dims = _queries_dims(value, spatial_shapes, sampling_locations, attention_weights,
+                         QUERIES_BF16)
+    B, S, Lq, M, D, L, P = dims
+    check_lane_layout(QUERIES_BF16, B, S, M, D, L, P)
+    return _launch(QUERIES_BF16, "ms_deform_attn_queries_fwd_bf16",
+                   {"value": value, "sampling_locations": sampling_locations,
+                    "attention_weights": attention_weights},
+                   spatial_shapes, [((B, Lq, M * D), False)], dims,
+                   value_dtype=torch.bfloat16)[0]
+
+
+def ms_deform_attn_encoder_bf16(value, spatial_shapes, offsets, attn_logits):
+    """B2's kernel on bf16 value: value (B, S, M, 32) bfloat16, offsets (B, S, M, L, P, 2)
+    and attn_logits (B, S, M, L*P) float32 -> (B, S, M*32) bfloat16, the softmax and sums
+    f32 and the output rounded once. Any other dtype raises TypeError, CPU tensors
+    ValueError. No backward."""
+    dims = _encoder_dims(value, spatial_shapes, offsets, attn_logits, ENCODER_BF16)
+    check_lane_layout(ENCODER_BF16, *dims)
+    B, S, M, D, L, P = dims
+    return _launch(ENCODER_BF16, "ms_deform_attn_encoder_fwd_bf16",
+                   {"value": value, "offsets": offsets, "attn_logits": attn_logits},
+                   spatial_shapes, [((B, S, M * D), False)], dims,
+                   value_dtype=torch.bfloat16)[0]
 
 
 def ms_deform_attn_queries(
@@ -402,8 +471,18 @@ def ms_deform_attn_queries(
 
     value (B, S, M, D); sampling_locations (B, Lq, M, L, P, 2); attention_weights
     (B, Lq, M, L, P), softmaxed over (L, P) -> (B, Lq, M*D). The kernel takes D == 32.
+    A bfloat16 value takes B1's bf16 kernel (f32 locations and weights, a bf16 output)
+    or, on the CPU, its plain version.
     """
-    if _on_cpu(value, sampling_locations, attention_weights):
+    on_cpu = _on_cpu(value, sampling_locations, attention_weights)
+    if value.dtype == torch.bfloat16:
+        if on_cpu:
+            return ms_deform_attn_queries_plain_bf16(value, spatial_shapes, sampling_locations,
+                                                     attention_weights)
+        return ms_deform_attn_queries_bf16(value, _shape_key(spatial_shapes),
+                                           sampling_locations.contiguous(),
+                                           attention_weights.contiguous())
+    if on_cpu:
         return ms_deform_attn_queries_plain(
             value, spatial_shapes, sampling_locations, attention_weights
         )
@@ -422,8 +501,16 @@ def ms_deform_attn_encoder(
 
     value (B, S, M, D); offsets (B, S, M, L, P, 2) raw, in target-level cells
     (the ``sampling_offsets`` projection in its (m, l, p, xy) order); attn_logits
-    (B, S, M, L*P) before the softmax -> (B, S, M*D). The kernel takes D == 32.
+    (B, S, M, L*P) before the softmax -> (B, S, M*D). The kernel takes D == 32. A bfloat16
+    value takes B2's bf16 kernel (f32 offsets and logits, a bf16 output) or, on the CPU,
+    its plain version.
     """
-    if _on_cpu(value, offsets, attn_logits):
+    on_cpu = _on_cpu(value, offsets, attn_logits)
+    if value.dtype == torch.bfloat16:
+        if on_cpu:
+            return ms_deform_attn_encoder_plain_bf16(value, spatial_shapes, offsets, attn_logits)
+        return ms_deform_attn_encoder_bf16(value, _shape_key(spatial_shapes),
+                                           offsets.contiguous(), attn_logits.contiguous())
+    if on_cpu:
         return ms_deform_attn_encoder_plain(value, spatial_shapes, offsets, attn_logits)
     return _EncoderFunction.apply(value, offsets, attn_logits, _shape_key(spatial_shapes))

@@ -17,10 +17,13 @@ the last ``checkpoints/model_{iter:07d}_rescore.pth`` (the whole model) beside
 which ``--resume`` continues.
 
 The clip goes to the device as uint8 with each frame's true size (``TPU.TRAIN_UPLOAD_UINT8``
-True, the default): it is normalized there and the spotter sees the padding masks.
+True, the default): it is normalized there and the spotter sees the padding masks; with
+``TPU.TRAIN_UPLOAD_FORMAT`` yuv420 it goes as planar I420 (when both sides of the canvas
+are even) and is decoded there first (JAX train_net.py:348-351).
 With ``TRAIN_UPLOAD_UINT8`` False the host normalizes and, as in JAX, no size is passed,
 so nothing is masked. ``TPU.TRAIN_OVERLAP_UPLOAD`` parses and is not read (a transport
-feature; JAX's own test shows it is numerically the sequential loop).
+feature; JAX's own test shows it is numerically the sequential loop). ``MODEL.PRECISION``
+bfloat16 runs the frozen spotter in bf16; the checkpoints hold its f32 weights.
 
 ``--task spotter`` is JAX ``pretrain_main`` (:130-204): records of ``DATASETS.TRAIN`` ->
 per step one random record (a ``RandomState`` seeded by ``SEED``) -> rotate +
@@ -29,11 +32,13 @@ padded targets -> ``SpotterPretrainer.step``; a checkpoint
 ``OUTPUT_DIR/checkpoints/spotter_{iter:07d}.pth`` every ``SOLVER.CHECKPOINT_PERIOD``
 iterations and at the last.
 
+Pretraining runs f32 whatever ``MODEL.PRECISION`` says, as JAX's does.
+
 Both run on the CUDA card unless ``--cpu``. Not in the port yet (each raises
-``NotImplementedError``): ``TPU.TRAIN_UPLOAD_FORMAT`` yuv420 (ROADMAP A13),
-``MODEL.META_ARCHITECTURE TransformerPureVideoDetector`` (video pretraining, A11b),
-Swin/ViTAEv2 backbones (A10), ``--num-gpus`` > 1 (A12), FREEZE_TYPEs that train more
-than ``roi_heads``, and ``--resume`` of spotter pretraining.
+``NotImplementedError``): ``TPU.SAMPLING_IMPL`` pallas with ``MODEL.PRECISION`` bfloat16
+(ROADMAP A13c), ``MODEL.META_ARCHITECTURE TransformerPureVideoDetector`` (video
+pretraining, A11b), Swin/ViTAEv2 backbones (A10), ``--num-gpus`` > 1 (A12), FREEZE_TYPEs
+that train more than ``roi_heads``, and ``--resume`` of spotter pretraining.
 """
 
 from __future__ import annotations
@@ -139,7 +144,7 @@ def tracker_main(args, cfg) -> List[dict]:
                                     save_train_state)
     from .engine.optim import build_schedule
     from .engine.predictor import model_weights
-    from .engine.train import Trainer
+    from .engine.train import Trainer, encode_train_clip
     from .weights import init_state_dict
 
     with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
@@ -170,6 +175,7 @@ def tracker_main(args, cfg) -> List[dict]:
             print(f"resumed from {path} at iteration {step}")
 
     raw = bool(cfg.TPU.TRAIN_UPLOAD_UINT8)
+    i420 = raw and cfg.TPU.TRAIN_UPLOAD_FORMAT == "yuv420"
     schedule = build_schedule(cfg)
     it = iter(loader)
     history = []
@@ -180,6 +186,9 @@ def tracker_main(args, cfg) -> List[dict]:
             sample = next(it)
             images, frame_hw = normalize_clip(sample, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
                                               raw=raw)
+            canvas = tuple(images.shape[1:3])
+            if i420:
+                images = encode_train_clip(images, cfg.INPUT.FORMAT)
             targets = targets_from_sample(sample)
             data_s = time.perf_counter() - t0
             # as in JAX (train_net.py:344-350): the frames' sizes go with the uint8 wire
@@ -190,7 +199,7 @@ def tracker_main(args, cfg) -> List[dict]:
             batch = trainer.last_batch
             history.append(dict(metrics, step_s=step_s, data_s=data_s,
                                 phase_t=dict(trainer.phase_t), frames=len(images),
-                                image_hw=tuple(images.shape[1:3]),
+                                image_hw=canvas,
                                 proposals=int(batch["prop_valid"].sum()),
                                 matched=int((batch["match_cues"] >= 0).sum())))
             window.append(history[-1])
@@ -209,7 +218,7 @@ def tracker_main(args, cfg) -> List[dict]:
                 window = []
             if (i + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or i + 1 == max_iter:
                 save_checkpoint(os.path.join(ckpt_dir, f"model_{i + 1:07d}_rescore.pth"),
-                                trainer.model)
+                                trainer.model_state_dict())
                 save_train_state(ckpt_dir, i + 1,
                                  dict(trainer.state_dict(), loader=loader.state_dict()))
                 print(f"saved checkpoint at iteration {i + 1}")

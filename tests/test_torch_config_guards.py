@@ -1,17 +1,16 @@
-"""The port refuses config values it would otherwise ignore.
+"""The port refuses config values it would otherwise ignore, and accepts those it reads.
 
-The JAX predictor reads two inference keys that change its outputs and that the port
-does not port yet: ``TPU.ASSOC_PRECISION`` (a bf16 association matcher,
-gomatching_tpu/engine/predictor.py:146-147) and ``TPU.UPLOAD_FORMAT`` (a lossy I420 round
-trip of every frame, predictor.py:140). A non-default value of either raises
-NotImplementedError naming the key, before any weight is built; the shipped configs,
-which set neither, still build a predictor. The tracker trainer likewise refuses
-``TPU.TRAIN_UPLOAD_FORMAT`` yuv420 and the freeze policies that train more than
-``roi_heads``, and builds from both shipped configs.
+``TPU.SAMPLING_IMPL`` pallas with ``MODEL.PRECISION`` bfloat16 raises NotImplementedError
+(B5 has no bf16 variant yet, ROADMAP A13c) before any weight is built, in the predictor
+and in the tracker trainer. The shipped configs still build a predictor and a trainer.
+The tracker trainer refuses the freeze policies that train more than ``roi_heads``; it
+reads neither of the inference keys ``TPU.ASSOC_PRECISION`` and ``TPU.UPLOAD_FORMAT``, as
+JAX's ``Trainer`` does not, so it builds with both at their production values. The
+pretraining model takes no compute dtype, as JAX's does not: it builds f32 under
+``MODEL.PRECISION`` bfloat16.
 """
 
 import os
-import re
 
 import pytest
 
@@ -25,14 +24,18 @@ def _cfg(name, *opts):
                           ["MODEL.WEIGHTS", "''", *opts])
 
 
-@pytest.mark.parametrize("key,value", [("TPU.ASSOC_PRECISION", "bfloat16"),
-                                       ("TPU.UPLOAD_FORMAT", "yuv420")])
-def test_predictor_refuses_unported_inference_keys(key, value):
+@pytest.mark.parametrize("build", ["predictor", "trainer"])
+def test_pallas_bf16_is_refused(build):
+    """'pallas' with MODEL.PRECISION bfloat16 raises NotImplementedError naming A13c."""
     from gomatching_tpu_torch.engine.predictor import VideoPredictor
+    from gomatching_tpu_torch.engine.train import Trainer
 
-    cfg = _cfg("GoMatching_ICDAR15", key, value)
-    with pytest.raises(NotImplementedError, match=re.escape(key) + ".*ROADMAP A13"):
-        VideoPredictor(cfg, device="cpu")
+    opts = ["MODEL.PRECISION", "bfloat16", "TPU.SAMPLING_IMPL", "pallas"]
+    with pytest.raises(NotImplementedError, match=r"TPU\.SAMPLING_IMPL='pallas'.*ROADMAP A13c"):
+        if build == "predictor":
+            VideoPredictor(_cfg("GoMatching_PP_ICDAR15", *opts), device="cpu")
+        else:
+            Trainer(_train_cfg("GoMatching_PP_ICDAR15", *opts), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["GoMatching_ICDAR15", "GoMatching_PP_ICDAR15"])
@@ -53,13 +56,11 @@ def _train_cfg(name, *opts):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("TPU.TRAIN_UPLOAD_FORMAT", "yuv420", r"TPU\.TRAIN_UPLOAD_FORMAT.*ROADMAP A13"),
     ("MODEL.FREEZE_TYPE", "ROIheads", r"MODEL\.FREEZE_TYPE='ROIheads'"),
     ("MODEL.FREEZE_TYPE", "''", r"MODEL\.FREEZE_TYPE=''"),
 ])
 def test_trainer_refuses_unported_training_keys(key, value, match):
-    """The tracker trainer refuses the yuv420 training wire (JAX: a lossy I420 round
-    trip of every training frame) and freeze policies that train more than roi_heads."""
+    """The tracker trainer refuses freeze policies that train more than roi_heads."""
     from gomatching_tpu_torch.engine.train import Trainer
 
     with pytest.raises(NotImplementedError, match=match):
@@ -82,3 +83,30 @@ def test_shipped_configs_build_a_trainer(name):
     assert in_opt == heads and tr.trainable_names
     assert all(p.requires_grad == n.startswith("roi_heads.")
                for n, p in tr.model.named_parameters())
+
+
+@pytest.mark.parametrize("name", ["GoMatching_ICDAR15", "GoMatching_PP_ICDAR15"])
+def test_trainer_reads_no_inference_key(name):
+    """The tracker trainer builds with TPU.ASSOC_PRECISION bfloat16 and TPU.UPLOAD_FORMAT
+    yuv420, the production values, and ignores them as JAX's Trainer does: the whole model
+    stays f32 and the matchers train."""
+    import torch
+
+    from gomatching_tpu_torch.engine.train import Trainer
+
+    tr = Trainer(_train_cfg(name, "TPU.ASSOC_PRECISION", "bfloat16",
+                            "TPU.UPLOAD_FORMAT", "yuv420"), device="cpu")
+    assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+    matcher = "shared_matcher" if name == "GoMatching_PP_ICDAR15" else "long_term_matcher"
+    assert any(n.startswith(f"roi_heads.{matcher}.") for n in tr.trainable_names)
+
+
+def test_pretrain_model_builds_f32_under_bf16():
+    """MODEL.PRECISION bfloat16 does not stop the pretraining model from building, and it
+    builds f32 (tests/test_torch_bf16_chain.py runs one step of each precision)."""
+    import torch
+
+    from gomatching_tpu_torch.models.gomatching import build_pretrain_model
+
+    model = build_pretrain_model(_train_cfg("GoMatching_ICDAR15", "MODEL.PRECISION", "bfloat16"))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
