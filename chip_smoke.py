@@ -5,11 +5,12 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device check and kernel build (nvcc, from the sources in this checkout); ptxas's
-     registers, stack and spills of the lane-layout kernels B1-B5 (and B1 and B2 on bf16
-     value), and from the runtime
+     registers, stack and spills of the lane-layout kernels B1-B5 (and B1, B2 and B5 on bf16
+     value) and of B5's table build (f32 and bf16), and from the runtime
      their registers, local memory (which must be 0; B3 at most 64 registers) and resident
-     warps per SM; the same for the footprint kernel's three instantiations (B6a-c) at
-     the dynamic shared memory of a block under the shipped budget, and for the
+     warps per SM; the same for the footprint kernel's three instantiations (B6a-c), on
+     f32 and on bf16 value, at the dynamic shared memory of a block under the shipped
+     budget (local memory 0), and for the
      -DFP_WARPS=8 measurement build (blocks of 8 warps) under a budget of 0; ptxas's
      report and the runtime's registers, local memory (which must be 0) and static shared
      memory of the probe kernels (T1's passes, T2's three instantiations) and of T1's
@@ -82,9 +83,10 @@ Phases (any failure exits non-zero and prints no result line):
      B2's on the same function;
  13. the sampler benchmark ``gomatching_tpu_torch.tools.bench_deform_attn.main`` at B=3
      over every sampler (B1, B2, B5, B6a natural and tile-major, B6b, B6c) and two
-     tilesets; each within ATOL_KERNEL of the exact gather, each of the four B6 entries
-     launched; every sampler's time per encoder call on the same samples (B6a-c beside B1
-     and B2);
+     tilesets, with f32 value (each within ATOL_KERNEL of the exact gather) and with bf16
+     value and attention, JAX's dtypes (each output within one bf16 rounding of it); each
+     of the four B6 entries launched in each; every sampler's time per encoder call on the
+     same samples (B6a-c beside B1 and B2);
  14. the probe kernels (``csrc/probes.cu``): an empty kernel's device time (the launch
      floor); T1 ``gather_rows_sum`` in the four cases of the gather rate probe, its slice
      plan and its scratch sizes (the C entry's against ``gather_probe.scratch_sizes``), on
@@ -143,9 +145,33 @@ Phases (any failure exits non-zero and prints no result line):
      N_PROD_TRACK_STEPS iterations with finite losses, B1 on bf16 value launched
      (ENC_LAYERS + DEC_LAYERS) times a clip and nothing else, only roi_heads moved, an f32
      checkpoint that loads back strictly; ms/iter, data and spot stages, peak memory; one
-     profiled step on phase 16's profiled clip against that step's device time.
+     profiled step on phase 16's profiled clip against that step's device time;
+ 20. the last kernels on bf16 value: B5's table build and B5 (``ms_deform_attn_merged`` on
+     bf16 value) at the ICDAR15 shapes (S = 37171, encoder Lq = S and 2500 decoder queries)
+     and at the DSText shapes (1280x2276: levels DS_SHAPES, S = 60640, 7500 decoder
+     queries), B = 3, locations partly off the maps: the table the plain table's bits
+     exactly, B5 every element within one bf16 ulp of its plain bf16 version (or within
+     ATOL_KERNEL near 0), each the same bits twice; then the four B6 entries on bf16 value
+     at phase 12's inputs (offsets beyond the halo for >= 5% of samples), each held the same
+     way; for each, times beside the f32 kernel on the same values in turns, device time,
+     plain time, the byte bound with bf16 value and output, registers and local memory
+     (which must be 0), index_select for the table, and the B6 entries' staged share in bf16
+     beside f32's;
+ 21. GoMatching++ production on 'pallas': ``VideoPredictor`` on
+     configs/GoMatching_PP_ICDAR15.yaml and configs/GoMatching_PP_DSText.yaml with
+     MODEL.PRECISION bfloat16, TPU.UPLOAD_FORMAT yuv420 and TPU.SAMPLING_IMPL pallas at full
+     width over phase 4's frames: B5 bf16 and its table build each launched ENC_LAYERS +
+     DEC_LAYERS times a spot batch and no other sampler, XML/JSON parsed back, frames/s
+     (median of N_REPEATS), device time per clip, busy share, peak memory; one spot batch
+     with the kernels and with the plain bf16 merged sampler from the same proposals
+     (within PATH_ULPS), the samplers' shapes checked against phase 20's; then
+     N_PP_TRACK_STEPS tracker iterations of GoMatching++ under 'pallas' with
+     MODEL.PRECISION bfloat16 and TPU.TRAIN_UPLOAD_FORMAT yuv420 on phase 16's dataset:
+     finite losses, B5 bf16 and its table launched ENC_LAYERS + DEC_LAYERS times a clip and
+     nothing else, an f32 checkpoint in which only roi_heads moved.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
-entries, T1, T2, and B1 and B2 on bf16 value); the last is {"ok": true, "device": {...}}.
+entries, T1, T2, B1 and B2 on bf16 value, and B5, its table build and the four B6 entries
+on bf16 value); the last is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -315,10 +341,20 @@ def phase_resources(da, dav, _build):
              da.MERGED: "ms_deform_attn_merged_kernel",
              da.QUERIES_BWD: "ms_deform_attn_queries_bwd_kernel",
              da.QUERIES_BF16: "ms_deform_attn_queries_bf16_kernel",
-             da.ENCODER_BF16: "ms_deform_attn_encoder_bf16_kernel"}
-    fp_names = {f"ms_deform_attn_footprint_kernel<{g}>": f"ms_deform_attn_footprint_kernelILi{i}E"
-                for i, g in enumerate(("NATURAL_LOC", "TM_LOC", "TM_OFF_CELLS"))}
-    report = ptxas_report(_build.build_log("ms_deform_attn.cu"), {**names, **fp_names})
+             da.ENCODER_BF16: "ms_deform_attn_encoder_bf16_kernel",
+             da.MERGED_BF16: "ms_deform_attn_merged_bf16_kernel",
+             da.MERGED_TABLE: "ms_deform_attn_merged_table_kernel",
+             da.MERGED_TABLE_BF16: "ms_deform_attn_merged_table_bf16_kernel"}
+    # the footprint kernel's instantiations by their mangled template arguments
+    # (<GEOM, float> is "ILi<GEOM>EfE", <GEOM, __nv_bfloat16> "ILi<GEOM>E13__nv_bfloat16E")
+    geoms = ("NATURAL_LOC", "TM_LOC", "TM_OFF_CELLS")
+    fp_names = {f"ms_deform_attn_footprint_kernel<{g}, float>":
+                f"ms_deform_attn_footprint_kernelILi{i}EfE" for i, g in enumerate(geoms)}
+    fp16_names = {f"ms_deform_attn_footprint_kernel<{g}, __nv_bfloat16>":
+                  f"ms_deform_attn_footprint_kernelILi{i}E13__nv_bfloat16E"
+                  for i, g in enumerate(geoms)}
+    report = ptxas_report(_build.build_log("ms_deform_attn.cu"),
+                          {**names, **fp_names, **fp16_names})
     info = da.kernel_info()
     for name in names:
         check(report[name], f"{name}: no ptxas report for {names[name]}")
@@ -329,15 +365,17 @@ def phase_resources(da, dav, _build):
               "local memory a thread (stack or spills)")
     check(info[da.QUERIES_BWD]["registers"] <= 64,
           f"{da.QUERIES_BWD}: {info[da.QUERIES_BWD]['registers']} registers a thread (limit 64)")
-    fp = dav.vmem_footprints(da.VMEM, SHAPES, P, TILED_HALO)
-    for (kernel, name), i in zip(fp_names.items(), dav.footprint_kernel_info(fp).values()):
-        check(report[kernel], f"{kernel}: no ptxas report")
-        print(f"[1] {kernel} (for {name.split(' (')[0]}): ptxas: {'; '.join(report[kernel])}; "
-              f"runtime, shipped budget (SMEM_BLOCK_BYTES {dav.SMEM_BLOCK_BYTES}): "
-              f"{fp.smem_bytes} bytes of dynamic shared memory a block ({dav.NBUF} buffers of "
-              f"{fp.fp_bytes}), {i['registers']} registers, {i['local_bytes']} bytes of local "
-              f"memory a thread, {i['warps_per_sm']} resident warps per SM")
-        check(i["warps_per_sm"] > 0, f"{kernel}: does not fit an SM")
+    for kernels, elem_bytes in ((fp_names, 4), (fp16_names, 2)):
+        fp = dav.vmem_footprints(da.VMEM, SHAPES, P, TILED_HALO, elem_bytes=elem_bytes)
+        for (kernel, name), i in zip(kernels.items(), dav.footprint_kernel_info(fp).values()):
+            check(report[kernel], f"{kernel}: no ptxas report")
+            print(f"[1] {kernel} (for {name.split(' (')[0]}): ptxas: {'; '.join(report[kernel])}; "
+                  f"runtime, shipped budget (SMEM_BLOCK_BYTES {dav.SMEM_BLOCK_BYTES}): "
+                  f"{fp.smem_bytes} bytes of dynamic shared memory a block ({dav.NBUF} buffers of "
+                  f"{fp.fp_bytes}), {i['registers']} registers, {i['local_bytes']} bytes of local "
+                  f"memory a thread, {i['warps_per_sm']} resident warps per SM")
+            check(i["warps_per_sm"] > 0, f"{kernel}: does not fit an SM")
+            check(i["local_bytes"] == 0, f"{kernel}: {i['local_bytes']} bytes of local memory")
     # the -DFP_WARPS=8 measurement build under a budget of 0 (nothing staged), as phase 12
     lib8 = measurement_lib(_build, da, FP_WARPS8_FLAGS)
     log8 = _build.build_log("ms_deform_attn.cu", _build.NVCC_FLAGS + FP_WARPS8_FLAGS)
@@ -655,7 +693,11 @@ def phase_main(torch, predictor, da, tag, expected):
         n_obj = sum(len(fr) for fr in root)
         check(root.tag == "Frames" and len(js) == N_FRAMES, "XML/JSON structure")
         check(n_obj == sum(len(v) for v in js.values()), "XML and JSON disagree")
-    print(f"{tag} main path: {N_FRAMES} frames 720x1280 -> 1000x1778, {N_REPEATS} runs: "
+    from gomatching_tpu_torch.data.preprocess import compute_test_size
+
+    th, tw = compute_test_size(720, 1280, predictor.cfg.INPUT.MIN_SIZE_TEST,
+                               predictor.cfg.INPUT.MAX_SIZE_TEST)
+    print(f"{tag} main path: {N_FRAMES} frames 720x1280 -> {th}x{tw}, {N_REPEATS} runs: "
           f"median {fps[len(fps) // 2]:.3f} frames/s (min {fps[0]:.3f}, max {fps[-1]:.3f}; "
           f"spot batch {predictor.spot_batch}); first run: "
           f"{n_det} detections after short-track removal, {len(ids)} tracks, "
@@ -798,11 +840,14 @@ def phase_sampler_ab(torch, predictor, n_pairs=10):
         for k, v in fps.items()) + f"; pallas ahead in {wins} of {n_pairs} pairs")
 
 
-def phase_footprint(torch, da, dav, daf, _build):
-    """B6a-c at the full-width encoder shapes: each entry against its plain version and
-    the B1 kernel, its launch, its direct route and its refusal under autograd, and the
-    buffers-against-occupancy trade-off in turns; returns the kernels-line records (sans
-    launches)."""
+def footprint_inputs(torch, da, dav, daf):
+    """Phase 12's inputs at the full-width encoder shapes (seed 11): value (f32), offsets
+    beyond TILED_HALO for >= 5% of samples and beyond the maps for some, logits, and the four
+    B6 entries' cases: (name, the entry as a function of value, its plain version as one,
+    the locations and attention B1 takes for the same function, the footprints for value
+    elements of a given size under the current budget, the locations in the kernel's query
+    order, the TPU kernel, the entry's inputs). Returns (value, off, logits, loc, attn,
+    share beyond the halo, share outside the maps, cases)."""
     S = sum(h * w for h, w in SHAPES)
     g = torch.Generator().manual_seed(11)
     dev = "cuda"
@@ -829,30 +874,38 @@ def phase_footprint(torch, da, dav, daf, _build):
     attnT3 = attn[:, perm].permute(0, 3, 2, 4, 1).reshape(B, L * M * P, S_tm).contiguous()
     loc3, attn3 = (t.contiguous() for t in dav.v3_locations(SHAPES, offT, attnT3, M))
     h = TILED_HALO
-
-    b1_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn))
-    b2_ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits))
-    # (name, the entry as a function of value, its plain version, the locations and
-    # attention B1 takes for the same function, the footprints under the current budget,
-    # the locations in the kernel's query order, the TPU kernel, the entry's inputs)
     cases = [
         (da.VMEM, lambda v: dav.ms_deform_attn_encoder_vmem(v, SHAPES, loc, attn, h),
-         lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn),
-         (loc, attn), lambda: dav.vmem_footprints(da.VMEM, SHAPES, P, h), loc,
-         "gomatching_tpu/ops/deform_attn_vmem.py:896", (loc, attn)),
+         lambda v: dav.sampler_plain(v, SHAPES, loc, attn),
+         (loc, attn), lambda eb=4: dav.vmem_footprints(da.VMEM, SHAPES, P, h, elem_bytes=eb),
+         loc, "gomatching_tpu/ops/deform_attn_vmem.py:896", (loc, attn)),
         (da.VMEM_TM, lambda v: dav.ms_deform_attn_encoder_vmem_tm(v, SHAPES, locT, attnT, h),
-         lambda: dav.ms_deform_attn_encoder_vmem_tm_plain(value, SHAPES, locT, attnT),
-         (loc, attn), lambda: dav.vmem_footprints(da.VMEM_TM, SHAPES, P, h, S_tm=S_tm),
+         lambda v: dav.ms_deform_attn_encoder_vmem_tm_plain(v, SHAPES, locT, attnT),
+         (loc, attn), lambda eb=4: dav.vmem_footprints(da.VMEM_TM, SHAPES, P, h, S_tm=S_tm,
+                                                       elem_bytes=eb),
          loc[:, perm], "gomatching_tpu/ops/deform_attn_vmem.py:896", (locT, attnT)),
         (da.VMEM_V3, lambda v: dav.ms_deform_attn_encoder_vmem_v3(v, SHAPES, offT, attnT3, h),
-         lambda: dav.ms_deform_attn_encoder_vmem_v3_plain(value, SHAPES, offT, attnT3),
-         (loc3, attn3), lambda: dav.vmem_footprints(da.VMEM_V3, SHAPES, P, h, S_tm=S_tm), loc3,
-         "gomatching_tpu/ops/deform_attn_vmem.py:724", (offT, attnT3)),
+         lambda v: dav.ms_deform_attn_encoder_vmem_v3_plain(v, SHAPES, offT, attnT3),
+         (loc3, attn3), lambda eb=4: dav.vmem_footprints(da.VMEM_V3, SHAPES, P, h, S_tm=S_tm,
+                                                         elem_bytes=eb),
+         loc3, "gomatching_tpu/ops/deform_attn_vmem.py:724", (offT, attnT3)),
         (da.FUSED, lambda v: daf.ms_deform_attn_encoder_fused(v, SHAPES, loc, attn, h),
-         lambda: da.ms_deform_attn_queries_plain(value, SHAPES, loc, attn),
-         (loc, attn), lambda: daf.fused_footprints(SHAPES, P, h), loc,
+         lambda v: dav.sampler_plain(v, SHAPES, loc, attn),
+         (loc, attn), lambda eb=4: daf.fused_footprints(SHAPES, P, h, elem_bytes=eb), loc,
          "gomatching_tpu/ops/deform_attn_fused.py:54", (loc, attn)),
     ]
+    return value, off, logits, loc, attn, beyond, outside, cases
+
+
+def phase_footprint(torch, da, dav, daf, _build):
+    """B6a-c at the full-width encoder shapes: each entry against its plain version and
+    the B1 kernel, its launch, its direct route and its refusal under autograd, and the
+    buffers-against-occupancy trade-off in turns; returns the kernels-line records (sans
+    launches)."""
+    S = sum(h * w for h, w in SHAPES)
+    value, off, logits, loc, attn, beyond, outside, cases = footprint_inputs(torch, da, dav, daf)
+    b1_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries(value, SHAPES, loc, attn))
+    b2_ms = cuda_time_ms(lambda: da.ms_deform_attn_encoder(value, SHAPES, off, logits))
     # (budget SMEM_BLOCK_BYTES, library, warps a block) of the buffers-against-occupancy
     # trade-off: the shipped build and budget (one block of 16 warps an SM, large buffers);
     # blocks of 8 warps, four an SM, from the -DFP_WARPS=8 measurement build, whose small
@@ -884,7 +937,7 @@ def phase_footprint(torch, da, dav, daf, _build):
         before = da.launch_counts[name]
         got = call()
         check(da.launch_counts[name] == before + 1, f"{name}: the kernel did not launch")
-        want = plain()
+        want = plain(value)
         witness = da.ms_deform_attn_queries(value, SHAPES, w_loc, w_attn)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
@@ -933,7 +986,7 @@ def phase_footprint(torch, da, dav, daf, _build):
                              fps[label].layout])["warps_per_sm"]
                  for label, (_, lib, _) in configs.items()}
         ms = sum(runs["shipped"]) / len(runs["shipped"])
-        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+        plain_ms = cuda_time_ms(lambda: plain(value), iters=3, warmup=1)
         v_bytes, taps = value_reads(torch, w_loc, S, D)
         samples = w_loc.shape[1] * B * M * L * P
         b_ms, b_by = bound(v_bytes + nbytes(*inputs, got), samples * (20 + 2 * D) + taps * (2 * D + 1))
@@ -967,33 +1020,44 @@ def phase_footprint(torch, da, dav, daf, _build):
     return records
 
 
-def phase_bench(torch, da):
+def phase_bench(torch, da, dav):
     """This slice's path: the sampler benchmark's ``main`` over every sampler and two
-    tilesets; returns the launch counts of that run."""
+    tilesets, in f32 (the port's earlier records) and in bf16 (JAX's dtype): in f32 each
+    within ATOL_KERNEL of the exact gather, in bf16 each output within one rounding of it
+    (``round_excess`` <= 0); each B6 entry launched. Returns the launch counts of the two
+    runs, f32 and bf16."""
     from gomatching_tpu_torch.tools import bench_deform_attn as bench
 
-    torch.cuda.synchronize()
-    da.reset_launch_counts()
-    res = bench.main(["--batch", str(B), "--halo", str(TILED_HALO), "--tilesets", TILESETS])
-    torch.cuda.synchronize()
-    counts = dict(da.launch_counts)
-    for r in res["results"]:
-        check(math.isfinite(r["max_abs_err"]) and r["max_abs_err"] <= ATOL_KERNEL,
-              f"phase 13: {r['impl']} {r['tiles']} differs from the exact gather by {r['max_abs_err']}")
-    for name in (da.VMEM, da.VMEM_TM, da.VMEM_V3, da.FUSED):
-        check(counts[name] > 0, f"phase 13: {name} never launched")
-    ms = {}
-    for r in res["results"]:
-        ms.setdefault(r["impl"], []).append(r["ms"])
-    names = {"gather": f"{da.QUERIES} (B1)", "encoder": f"{da.ENCODER} (B2)",
-             "merged": "B5 with its table", "vmem": f"{da.VMEM} (B6a)",
-             "vmem_tm": f"{da.VMEM_TM} (B6a, tile-major)", "vmem_v3": f"{da.VMEM_V3} (B6b)",
-             "fused": f"{da.FUSED} (B6c)"}
-    print(f"[13] sampler benchmark: {len(res['results'])} runs within {ATOL_KERNEL} of the exact "
-          f"gather; launches {counts}; per encoder call on the same samples (ms; B6 per "
-          f"tileset): " + "; ".join(f"{names.get(k, k)} {', '.join(f'{t:.4f}' for t in v)}"
-                                    for k, v in ms.items()))
-    return counts
+    names = {"gather": "B1", "encoder": "B2", "merged": "B5 with its table", "vmem": "B6a",
+             "vmem_tm": "B6a, tile-major", "vmem_v3": "B6b", "fused": "B6c"}
+    all_counts = []
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.synchronize()
+        da.reset_launch_counts()
+        res = bench.main(["--batch", str(B), "--halo", str(TILED_HALO), "--tilesets", TILESETS,
+                          "--dtype", dtype])
+        torch.cuda.synchronize()
+        counts = dict(da.launch_counts)
+        for r in res["results"]:
+            ok = (r["max_abs_err"] <= ATOL_KERNEL if dtype == "float32"
+                  else r["round_excess"] <= 0)
+            check(math.isfinite(r["max_abs_err"]) and ok,
+                  f"phase 13: {r['impl']} {r['tiles']} ({dtype}) differs from the exact gather by "
+                  f"{r['max_abs_err']} ({r.get('round_excess')} past one bf16 rounding)")
+        entries = (da.VMEM, da.VMEM_TM, da.VMEM_V3, da.FUSED)
+        for name in (entries if dtype == "float32" else [dav.BF16_NAMES[n] for n in entries]):
+            check(counts[name] > 0, f"phase 13: {name} never launched")
+        ms = {}
+        for r in res["results"]:
+            ms.setdefault(r["impl"], []).append(r["ms"])
+        within = (f"within {ATOL_KERNEL} of" if dtype == "float32"
+                  else "within one bf16 rounding (2**-8 |exact| + 3e-5) of")
+        print(f"[13] sampler benchmark, value {dtype}: {len(res['results'])} runs {within} the "
+              f"exact gather; launches {counts}; per encoder call on the same samples (ms; B6 "
+              f"per tileset): " + "; ".join(f"{names.get(k, k)} {', '.join(f'{t:.4f}' for t in v)}"
+                                            for k, v in ms.items()))
+        all_counts.append(counts)
+    return tuple(all_counts)
 
 
 def device_us(torch, fn, marker, n=20):
@@ -2267,6 +2331,24 @@ def class_shares(rows):
     return out
 
 
+def check_one_ulp(torch, what, got, want):
+    """Every element of a bf16 kernel's output within one bf16 ulp of its plain version's,
+    or within ATOL_KERNEL where the value is so near 0 that its ulp is below the f32 sums'
+    own reordering noise (the f32 kernels' bound against plain). Returns (max |diff|,
+    elements that differ, elements more than an ulp apart, the largest |diff| of those)."""
+    ulps = ulps_apart(torch, got, want)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    n_diff = int((got != want).sum().item())
+    n_over = int((ulps > 1).sum().item())
+    near0 = diff[ulps > 1].max().item() if n_over else 0.0
+    worst = ulps[diff > ATOL_KERNEL].max().item() if (diff > ATOL_KERNEL).any() else 0.0
+    check(got.dtype == want.dtype == torch.bfloat16, f"{what}: {got.dtype} against {want.dtype}")
+    check(math.isfinite(err) and bool(((ulps <= 1) | (diff <= ATOL_KERNEL)).all()),
+          f"{what}: {worst} bf16 ulps from plain where |diff| > {ATOL_KERNEL}")
+    return err, n_diff, n_over, near0
+
+
 def phase_bf16_kernels(torch, da):
     """Phase 17: B1 and B2 on bf16 value against their plain bf16 versions at the main
     path's shapes, every element within one bf16 ulp; times beside the f32 kernels' on the
@@ -2303,17 +2385,7 @@ def phase_bf16_kernels(torch, da):
               f"{name} {label}: not launched in bf16")
         want = plain(value)
         torch.cuda.synchronize()
-        # one bf16 ulp, or ATOL_KERNEL where the value is so near 0 that its ulp is below
-        # the f32 sums' own reordering noise (the f32 kernels' bound against plain)
-        ulps = ulps_apart(torch, got, want)
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        n_diff = int((got != want).sum().item())
-        n_over = int((ulps > 1).sum().item())
-        near0 = diff[ulps > 1].max().item() if n_over else 0.0
-        worst = ulps[diff > ATOL_KERNEL].max().item() if (diff > ATOL_KERNEL).any() else 0.0
-        check(math.isfinite(err) and bool(((ulps <= 1) | (diff <= ATOL_KERNEL)).all()),
-              f"{name} {label}: {worst} bf16 ulps from plain where |diff| > {ATOL_KERNEL}")
+        err, n_diff, n_over, near0 = check_one_ulp(torch, f"{name} {label}", got, want)
         same_bits(torch, name, lambda: call(value), got)
         # in turns with the f32 kernel on the same values: f32, bf16, bf16, f32
         t32a = cuda_time_ms(lambda: call(value32))
@@ -2375,18 +2447,20 @@ def plain_bf16_samplers(da):
                    ms_deform_attn_queries=da.ms_deform_attn_queries_plain_bf16)
 
 
-def bf16_spot_vs_plain(torch, predictor, da):
-    """Phase 18: one spot batch through the bf16 spotter with the kernels and with the plain
-    bf16 samplers: the encoder memory, then the decoder from the kernels' proposals (so a
-    near-tie in the top-k cannot send the two to other queries), every output within
-    PATH_ULPS bf16 ulps of its largest magnitude; whether the two top-k agree (reported)."""
+def bf16_spot_vs_plain(torch, predictor, da, plain_samplers=None, tag="[18]"):
+    """Phase 18 (and 21): one spot batch through the bf16 spotter with the kernels and with
+    the plain bf16 samplers (``plain_samplers()``, default ``plain_bf16_samplers``): the
+    encoder memory, then the decoder from the kernels' proposals (so a near-tie in the top-k
+    cannot send the two to other queries), every output within PATH_ULPS bf16 ulps of its
+    largest magnitude; whether the two top-k agree (reported)."""
+    plain_samplers = plain_samplers or (lambda: plain_bf16_samplers(da))
     model = predictor.model
     spotter = model.detection_transformer
     dtype = model.compute_dtype
     imgs = production_frames(torch, predictor)
 
     def run(plain, enc=None, refs=None):
-        with (plain_bf16_samplers(da) if plain else contextlib.nullcontext()), torch.no_grad():
+        with (plain_samplers() if plain else contextlib.nullcontext()), torch.no_grad():
             if enc is None:
                 feats, pos = model.features(imgs.to(dtype))
                 return spotter.encode(feats, [p.to(dtype) for p in pos], None)
@@ -2402,16 +2476,16 @@ def bf16_spot_vs_plain(torch, predictor, da):
             **{k: (v, out_p[k]) for k, v in out_k.items() if torch.is_tensor(v)}}
     over = []
     for k, (a, b) in outs.items():
-        check(bool(torch.isfinite(a.float()).all()), f"phase 18: non-finite {k}")
+        check(bool(torch.isfinite(a.float()).all()), f"{tag}: non-finite {k}")
         top = a.float().abs().max()
         err = (a.float() - b.float()).abs().max().item()
         ulp = bf16_ulp(torch, top).item()
-        print(f"[18] bf16 spotter {k} ({a.dtype}): max|kernels-plain| {err:.3e} "
+        print(f"{tag} bf16 spotter {k} ({a.dtype}): max|kernels-plain| {err:.3e} "
               f"({err / ulp:.2f} bf16 ulps of its max {top.item():.3e}; limit {PATH_ULPS})")
         if not (math.isfinite(err) and err <= PATH_ULPS * ulp):
             over.append(f"{k} by {err / ulp:.2f} ulps")
-    check(not over, f"phase 18: kernels and plain differ beyond {PATH_ULPS} ulps: {over}")
-    print(f"[18] top-{spotter.num_queries} proposals of the kernels' and the plain encoder "
+    check(not over, f"{tag}: kernels and plain differ beyond {PATH_ULPS} ulps: {over}")
+    print(f"{tag} top-{spotter.num_queries} proposals of the kernels' and the plain encoder "
           f"memory: {'identical' if torch.equal(*topk) else 'DIFFERENT'} "
           f"({int((topk[0] != topk[1]).sum().item())} of {topk[0].numel()} slots differ)")
 
@@ -2628,6 +2702,319 @@ def phase_tracker_production(torch, da, tmp, f32_step):
     del tr
 
 
+# ---------------------------------------------------------------------------
+# phases 20-21: B5 with its table and B6a-c on bf16 value; GoMatching++ production on 'pallas'
+# ---------------------------------------------------------------------------
+
+PALLAS_OPTS = ["TPU.SAMPLING_IMPL", "pallas"]
+CONFIG_PP_DS = "configs/GoMatching_PP_DSText.yaml"  # GoMatching++ on DSText (300 queries)
+# DSText's test size (MIN_SIZE_TEST 1280) turns the 720x1280 frames into 1280x2276: its
+# levels at strides 8-64 and its decoder queries (NUM_QUERIES x NUM_POINTS); phase 21 checks
+# that its spotter samples at exactly these shapes
+DS_SHAPES = [(160, 285), (80, 143), (40, 72), (20, 36)]
+DS_QUERIES = 300 * NPTS
+# the detection threshold of phase 21's runs: ICDAR15's 0.05 (phases 11, 18); DSText's
+# config has no rescoring head (WITH_RESR False), so its seeded random classifier scores
+# stay near its 0.01 prior and none passes 0.05: 0.005 lets detections reach NMS, the
+# matchers and the tracker
+PP_THRESH = {CONFIG_PP: "0.05", CONFIG_PP_DS: "0.005"}
+N_PP_TRACK_STEPS = 2  # phase 21's tracker iterations on 'pallas'
+
+
+def alternate(fns, n=2):
+    """{label: [ms, ...]} of each of ``fns`` ({label: fn}) timed in turns, a b ... b a."""
+    runs = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(n):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            runs[k].append(cuda_time_ms(fns[k]))
+    return runs
+
+
+def merged_bf16_cases(torch, da, dam, label, shapes, n_queries, seed, info):
+    """Phase 20 at one configuration's shapes: B5's table build on bf16 value against its
+    plain version (exactly the same bits) and B5 on the bf16 table against its plain bf16
+    version (one ulp), at the encoder (Lq = S, reference points plus offsets) and decoder
+    (``n_queries``) shapes, locations partly off the maps; each the same bits twice, timed
+    beside the f32 kernel on the same values in turns. Returns the kernels-line records."""
+    S = sum(h * w for h, w in shapes)
+    g = torch.Generator().manual_seed(seed)
+    dev = "cuda"
+    value32 = torch.randn(B, S, M, D, generator=g).bfloat16().float().to(dev)
+    value = value32.bfloat16()
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
+    off = torch.randn(B, S, M, L, P, 2, generator=g) * 4.0
+    far = torch.rand(B, S, M, L, P, 2, generator=g) < 0.01
+    off = torch.where(far, off * 100.0, off).to(dev)
+    cases = {
+        "encoder": (da.encoder_reference_points(shapes, dev)[None, :, None, None, None, :]
+                    + off / wh[None, None, None, :, None, :]),
+        "decoder": (torch.rand(B, n_queries, M, L, P, 2, generator=g) * 1.2 - 0.1).to(dev),
+    }
+    del off, far
+    records = {}
+
+    # the table: a copy of bits
+    before = da.launch_counts[da.MERGED_TABLE_BF16]
+    table = dam.merged_table(value, shapes)
+    check(table.dtype == torch.bfloat16 and da.launch_counts[da.MERGED_TABLE_BF16] == before + 1,
+          f"{da.MERGED_TABLE_BF16} {label}: not launched in bf16")
+    vbm = value.permute(0, 2, 1, 3)
+    want = dam.merged_corner_table(vbm, shapes)
+    torch.cuda.synchronize()
+    check(torch.equal(table, want), f"{da.MERGED_TABLE_BF16} {label}: differs from the plain table")
+    same_bits(torch, da.MERGED_TABLE_BF16, lambda: dam.merged_table(value, shapes), table)
+    del want
+    runs = alternate({"f32": lambda: dam.merged_table(value32, shapes),
+                      "bf16": lambda: dam.merged_table(value, shapes)})
+    t_dev, t_n = launch_us(torch, lambda: dam.merged_table(value, shapes),
+                           "ms_deform_attn_merged_table_bf16_kernel(")
+    t_plain = cuda_time_ms(lambda: dam.merged_corner_table(vbm, shapes), iters=5, warmup=1)
+    rows = dam._corner_rows(shapes, dev).reshape(-1)
+    t_lib = cuda_time_ms(lambda: vbm.index_select(2, rows))
+    del rows
+    t_bound, t_by = bound(nbytes(value, table), 0)
+    t_ms = sum(runs["bf16"]) / len(runs["bf16"])
+    print(f"[20] {da.MERGED_TABLE_BF16} at the {label} shape (value ({B}, {S}, {M}, {D}) bf16, "
+          f"table {nbytes(table) / 1e6:.1f} MB): the plain table's bits exactly, same bits twice; "
+          f"kernel {', '.join(f'{t:.4f}' for t in runs['bf16'])} ms against f32's "
+          f"{', '.join(f'{t:.4f}' for t in runs['f32'])} ms on the same values in turns "
+          f"(f32 {nbytes(value32) * 4 / 1e6:.1f} MB table); device {fmt_us(t_dev)} a launch over "
+          f"{t_n} recorded; plain {t_plain:.4f} ms; index_select {t_lib:.4f} ms; bound "
+          f"{t_bound:.4f} ms ({t_by}: value read once, the table written once); "
+          f"{info[da.MERGED_TABLE_BF16]['registers']} registers, "
+          f"{info[da.MERGED_TABLE_BF16]['local_bytes']} bytes of local memory a thread")
+    records[da.MERGED_TABLE_BF16] = dict(
+        name=da.MERGED_TABLE_BF16, route="cuda",
+        source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+        replaces="gomatching_tpu/ops/deform_attn_pallas.py:89", max_abs_err=0.0, ms=t_ms,
+        plain_ms=t_plain, bound_ms=t_bound, bound_by=t_by, library_ms=t_lib)
+    table32 = dam.merged_table(value32, shapes)
+
+    for case, loc in cases.items():
+        Lq = loc.shape[1]
+        attn = torch.randn(B, Lq, M, L * P, generator=g).softmax(-1).view(B, Lq, M, L, P).to(dev)
+        before = da.launch_counts[da.MERGED_BF16]
+        got = dam.ms_deform_attn_merged(value, shapes, loc, attn)
+        check(got.dtype == torch.bfloat16 and da.launch_counts[da.MERGED_BF16] == before + 1,
+              f"{da.MERGED_BF16} {label} {case}: not launched in bf16")
+        want = dam.ms_deform_attn_merged_plain(value, shapes, loc, attn)
+        torch.cuda.synchronize()
+        err, n_diff, n_over, near0 = check_one_ulp(torch, f"{da.MERGED_BF16} {label} {case}",
+                                                   got, want)
+        same_bits(torch, da.MERGED_BF16, lambda: dam.ms_deform_attn_merged(value, shapes, loc, attn),
+                  got)
+        del want
+        runs = alternate({"f32": lambda: dam.merged_sample(table32, shapes, loc, attn),
+                          "bf16": lambda: dam.merged_sample(table, shapes, loc, attn)})
+        dev_us, n_rec = launch_us(torch, lambda: dam.merged_sample(table, shapes, loc, attn),
+                                  "ms_deform_attn_merged_bf16_kernel(")
+        both_ms = cuda_time_ms(lambda: dam.ms_deform_attn_merged(value, shapes, loc, attn))
+        plain_ms = cuda_time_ms(lambda: dam.ms_deform_attn_merged_plain(value, shapes, loc, attn),
+                                iters=3, warmup=1)
+        v_bytes, taps = value_reads(torch, loc, S, D, shapes=shapes, elem_bytes=2)
+        samples = B * Lq * M * L * P
+        b_ms, b_by = bound(v_bytes + nbytes(loc, attn, got),
+                           samples * (20 + 2 * D) + taps * (2 * D + 1))
+        ms = sum(runs["bf16"]) / len(runs["bf16"])
+        print(f"[20] {da.MERGED_BF16} {label} {case} (Lq={Lq}): within one bf16 ulp of plain "
+              f"({n_diff} of {got.numel()} elements differ, max |diff| {err:.3e}; {n_over} more "
+              f"than an ulp apart, all within {near0:.2e} <= ATOL_KERNEL), same bits twice; "
+              f"kernel on the table {', '.join(f'{t:.4f}' for t in runs['bf16'])} ms against "
+              f"f32's {', '.join(f'{t:.4f}' for t in runs['f32'])} ms in turns (device "
+              f"{fmt_us(dev_us)} a launch over {n_rec} recorded); with the table build "
+              f"{both_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+              f"{v_bytes / 1e6:.1f} MB of bf16 value rows touched); "
+              f"{info[da.MERGED_BF16]['registers']} registers, "
+              f"{info[da.MERGED_BF16]['local_bytes']} bytes of local memory a thread")
+        if case == "encoder":
+            records[da.MERGED_BF16] = dict(
+                name=da.MERGED_BF16, route="cuda",
+                source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+                replaces="gomatching_tpu/ops/deform_attn_pallas.py:49", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del got, attn
+    return records
+
+
+def phase_bf16_samplers(torch, da, dam, dav, daf):
+    """Phase 20: B5 and its table build on bf16 value at the ICDAR15 and DSText shapes, and
+    the four B6 entries on bf16 value at phase 12's inputs, each against its plain bf16
+    version, the same bits twice, timed beside the f32 kernel on the same values in turns,
+    with the staged share of the bf16 footprints beside the f32 ones'. Returns the
+    kernels-line records of B5 bf16 and its table (ICDAR15's encoder shape) and of the B6
+    entries on bf16."""
+    for name in (da.MERGED_BF16, da.MERGED_TABLE_BF16):
+        i = da.kernel_info()[name]
+        check(i["local_bytes"] == 0, f"{name}: {i['local_bytes']} bytes of local memory")
+    info = da.kernel_info()
+    records = merged_bf16_cases(torch, da, dam, "ICDAR15", SHAPES, NQ * NPTS, 20, info)
+    merged_bf16_cases(torch, da, dam, "DSText", DS_SHAPES, DS_QUERIES, 21, info)
+    torch.cuda.empty_cache()
+
+    S = sum(h * w for h, w in SHAPES)
+    value, _, _, _, _, beyond, outside, cases = footprint_inputs(torch, da, dav, daf)
+    value32 = value.bfloat16().float()
+    value = value32.bfloat16()
+    for name, entry, plain, (w_loc, w_attn), fp_of, fp_loc, replaces, inputs in cases:
+        name16 = dav.BF16_NAMES[name]
+        before = da.launch_counts[name16]
+        got = entry(value)
+        check(got.dtype == torch.bfloat16 and da.launch_counts[name16] == before + 1,
+              f"{name16}: not launched in bf16")
+        want = plain(value)
+        torch.cuda.synchronize()
+        err, n_diff, n_over, near0 = check_one_ulp(torch, name16, got, want)
+        same_bits(torch, name16, lambda: entry(value), got)
+        del want
+        runs = alternate({"f32": lambda: entry(value32), "bf16": lambda: entry(value)})
+        dev16, n16 = launch_us(torch, lambda: entry(value), "ms_deform_attn_footprint_kernel")
+        plain_ms = cuda_time_ms(lambda: plain(value), iters=3, warmup=1)
+        v_bytes, taps = value_reads(torch, w_loc, S, D, elem_bytes=2)
+        samples = w_loc.shape[1] * B * M * L * P
+        b_ms, b_by = bound(v_bytes + nbytes(*inputs, got),
+                           samples * (20 + 2 * D) + taps * (2 * D + 1))
+        fps = {eb: fp_of(eb) for eb in (4, 2)}
+        shares = {}
+        for eb, fp in fps.items():
+            share = dav.staged_share(fp, SHAPES, fp_loc)
+            smem, n_taps = (sum(v[k] for v in share.values()) for k in (0, 1))
+            shares[eb] = 100 * smem / n_taps
+        i16 = list(dav.footprint_kernel_info(fps[2]).values())[fps[2].layout]
+        check(i16["local_bytes"] == 0, f"{name16}: {i16['local_bytes']} bytes of local memory")
+        ms = sum(runs["bf16"]) / len(runs["bf16"])
+        print(f"[20] {name16} (Lq={w_loc.shape[1]}): within one bf16 ulp of plain ({n_diff} of "
+              f"{got.numel()} elements differ, max |diff| {err:.3e}; {n_over} more than an ulp "
+              f"apart, all within {near0:.2e} <= ATOL_KERNEL), same bits twice; kernel "
+              f"{', '.join(f'{t:.4f}' for t in runs['bf16'])} ms against f32's "
+              f"{', '.join(f'{t:.4f}' for t in runs['f32'])} ms on the same values in turns "
+              f"(device {fmt_us(dev16)} a launch over {n16} recorded); plain {plain_ms:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {v_bytes / 1e6:.1f} MB of bf16 value rows touched); "
+              f"staged {shares[2]:.1f}% of in-map corner taps in bf16 ({sum(st for r in fps[2].pairs for *_, st in r)} "
+              f"of {len(SHAPES) ** 2} pairs, {fps[2].smem_bytes} bytes of shared memory a block) "
+              f"against {shares[4]:.1f}% in f32 ({sum(st for r in fps[4].pairs for *_, st in r)} pairs, "
+              f"{fps[4].smem_bytes} bytes); {i16['registers']} registers, {i16['local_bytes']} "
+              f"bytes of local memory a thread, {i16['warps_per_sm']} resident warps per SM; "
+              f"{100 * beyond:.1f}% of samples beyond the halo, {100 * outside:.2f}% outside the maps")
+        records[name16] = dict(
+            name=name16, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+        del got
+    return records
+
+
+def phase_pallas_production(torch, da, dam):
+    """Phase 21, inference: VideoPredictor on GoMatching++ (ICDAR15 and DSText) in the
+    production configuration on 'pallas' (MODEL.PRECISION bfloat16, TPU.UPLOAD_FORMAT yuv420)
+    at full width over phase 4's frames: B5 bf16 and its table the only samplers, each
+    launched ENC_LAYERS + DEC_LAYERS times a spot batch; frames/s, device time per clip, busy
+    share, peak memory; one spot batch with the kernels against the plain bf16 merged
+    sampler, at the shapes phase 20 ran. Returns the ICDAR15 run's launch counts."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+    from gomatching_tpu_torch.config import setup_eval_cfg
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor
+
+    counts = None
+    for config, shapes, n_queries in ((CONFIG_PP, SHAPES, NQ * NPTS),
+                                      (CONFIG_PP_DS, DS_SHAPES, DS_QUERIES)):
+        cfg = setup_eval_cfg(config, ["MODEL.WEIGHTS", "''", "MODEL.TRANSFORMER.INFERENCE_TH_TEST",
+                                      PP_THRESH[config], "SEED", "0", *PROD_OPTS, *PALLAS_OPTS])
+        predictor = VideoPredictor(cfg)
+        check(predictor.model.compute_dtype == torch.bfloat16
+              and predictor.upload_format == "yuv420" and cfg.TPU.SAMPLING_IMPL == "pallas",
+              f"phase 21: {config} is not the production path on 'pallas'")
+        print(f"[21] {config} with {' '.join(PROD_OPTS + PALLAS_OPTS)} (matcher "
+              f"{predictor.assoc_dtype}, detection threshold {PP_THRESH[config]})")
+        t = cfg.MODEL.TRANSFORMER
+        layers = t.ENC_LAYERS + t.DEC_LAYERS
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_counts = phase_main(torch, predictor, da, "[21]",
+                                {da.MERGED_BF16: layers, da.MERGED_TABLE_BF16: layers})
+        peak = torch.cuda.max_memory_allocated()
+        rows, wall = phase_profile(torch, predictor, "[21]", shares=[
+            ("B5 bf16", "ms_deform_attn_merged_bf16_kernel("),
+            ("B5's table build bf16", "ms_deform_attn_merged_table_bf16_kernel(")])
+        if rows:
+            busy = sum(r[0] for r in rows) / 1e3
+            print(f"[21] device time per {N_FRAMES}-frame clip {busy:.1f} ms, busy "
+                  f"{100 * busy / (wall * 1e3):.1f}% of the profiled wall; peak memory "
+                  f"{peak / 2**30:.2f} GiB over the main path's runs")
+        # the kernels against the plain bf16 merged sampler on one spot batch, recording
+        # the shapes the spotter's samplers see
+        seen = set()
+        merged = spotter_mod.ms_deform_attn_merged
+
+        def recording(value, spatial_shapes, loc, attn):
+            seen.add((tuple(tuple(int(x) for x in hw) for hw in spatial_shapes), loc.shape[1],
+                      value.dtype, loc.dtype, attn.dtype))
+            return merged(value, spatial_shapes, loc, attn)
+
+        with patched(spotter_mod, ms_deform_attn_merged=recording):
+            bf16_spot_vs_plain(torch, predictor, da, tag="[21]", plain_samplers=lambda: patched(
+                spotter_mod, ms_deform_attn_merged=dam.ms_deform_attn_merged_plain))
+        S = sum(h * w for h, w in shapes)
+        want = {(tuple(shapes), lq, torch.bfloat16, torch.float32, torch.float32)
+                for lq in (S, n_queries)}
+        check(seen == want, f"phase 21: {config}'s samplers saw {seen}, phase 20 ran {want}")
+        print(f"[21] {config}: the spotter's B5 calls sample levels {shapes} with Lq {S} "
+              f"(encoder) and {n_queries} (decoder), bf16 value and f32 locations and attention: "
+              "phase 20's shapes")
+        if config == CONFIG_PP:
+            counts = run_counts
+        del predictor
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_pallas_tracker(torch, da, tmp):
+    """Phase 21, training: N_PP_TRACK_STEPS tracker iterations of GoMatching++ through
+    ``train_net.main`` under 'pallas' with MODEL.PRECISION bfloat16 and
+    TPU.TRAIN_UPLOAD_FORMAT yuv420 on phase 16's dataset: finite losses, B5 bf16 and its
+    table the only samplers, launched ENC_LAYERS + DEC_LAYERS times a clip, an f32
+    checkpoint in which only roi_heads moved."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.config import setup_train_cfg
+    from gomatching_tpu_torch.engine.checkpoint import load_checkpoint
+    from gomatching_tpu_torch.weights import init_state_dict
+
+    out_dir = os.path.join(tmp, "out_pp_pallas")
+    argv = tracker_argv(CONFIG_PP, out_dir, N_PP_TRACK_STEPS, TRAIN_PROD_OPTS + PALLAS_OPTS)
+    cfg = setup_train_cfg(CONFIG_PP, argv[argv.index("--opts") + 1:])
+    t = cfg.MODEL.TRANSFORMER
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    history = train_net.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(da.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(history) == N_PP_TRACK_STEPS, f"phase 21: {len(history)} tracker steps ran")
+    for i, h in enumerate(history):
+        check(all(math.isfinite(h[k]) for k in ("loss_res", "loss_long_asso", "loss_short_asso",
+                                                 "total_loss")),
+              f"phase 21: non-finite loss at step {i + 1}: {h}")
+        check(h["proposals"] > 0, f"phase 21: step {i + 1} has no proposals")
+    layers = (t.ENC_LAYERS + t.DEC_LAYERS) * N_PP_TRACK_STEPS
+    want = {**{name: 0 for name in counts}, da.MERGED_BF16: layers, da.MERGED_TABLE_BF16: layers}
+    check(counts == want, f"phase 21: tracker launches {counts}, expected {want}")
+    sd = load_checkpoint(os.path.join(out_dir, "checkpoints",
+                                      f"model_{N_PP_TRACK_STEPS:07d}_rescore.pth"))
+    check(all(v.dtype == torch.float32 for v in sd.values()), "phase 21: a bf16 checkpoint tensor")
+    init = train_net.init_rescoring_from_classifier(
+        init_state_dict(cfg, torch.Generator().manual_seed(1)))
+    moved = {k for k in init if not torch.equal(sd[k], init[k])}
+    check(set(sd) == set(init) and moved and all(k.startswith("roi_heads.") for k in moved),
+          f"phase 21: {len(moved)} tensors moved, outside roi_heads: "
+          f"{sorted(k for k in moved if not k.startswith('roi_heads.'))[:5]}")
+    print(f"[21] tracker-training CLI ({CONFIG_PP}, {' '.join(TRAIN_PROD_OPTS + PALLAS_OPTS)}): "
+          f"{N_PP_TRACK_STEPS} iterations, losses {[round(h['total_loss'], 4) for h in history]}, "
+          f"proposals {[h['proposals'] for h in history]}, frames per clip "
+          f"{[h['frames'] for h in history]}, {[round(h['step_s'] * 1e3, 1) for h in history]} "
+          f"ms/iter; launches {counts}; the checkpoint f32, {len(moved)} tensors moved, all "
+          f"roi_heads; peak memory {peak / 2**30:.2f} GiB")
+
 
 def main():
     import torch
@@ -2703,7 +3090,7 @@ def main():
 
     # the sampler benchmark on the footprint entries (B6a-c)
     fp_records = phase_footprint(torch, da, dav, daf, _build)
-    bench_counts = phase_bench(torch, da)
+    bench_counts, bench16_counts = phase_bench(torch, da, dav)
 
     # the probe kernels (T1, T2) behind the port's probe tools
     probe_records = phase_probes(torch, gp, og, _build)
@@ -2724,17 +3111,28 @@ def main():
         prod_counts = phase_production(torch, da, ref_tracked)
         phase_tracker_production(torch, da, tmp, f32_step)
 
+        # the last kernels on bf16 value: B5 with its table and B6a-c, then GoMatching++
+        # production on 'pallas'
+        bf16_more_records = phase_bf16_samplers(torch, da, dam, dav, daf)
+        pallas_counts = phase_pallas_production(torch, da, dam)
+        phase_pallas_tracker(torch, da, tmp)
+
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},
                 **{n: pp_counts[n] for n in merged_records},
                 **{n: bench_counts[n] for n in fp_records},
                 **{n: probe_counts[n] for n in probe_records},
-                **{n: prod_counts[n] for n in bf16_records}}
+                **{n: prod_counts[n] for n in bf16_records},
+                **{n: (pallas_counts if n in (da.MERGED_BF16, da.MERGED_TABLE_BF16)
+                       else bench16_counts)[n] for n in bf16_more_records}}
     for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items(),
-                      *fp_records.items(), *probe_records.items(), *bf16_records.items()]:
+                      *fp_records.items(), *probe_records.items(), *bf16_records.items(),
+                      *bf16_more_records.items()]:
         # each kernel's launches are those of the path that runs it: inference, the
-        # pretraining's for the backwards, the sampler benchmark's for B6a-c, the probe
-        # tools' for T1 and T2, production inference's for B1 and B2 on bf16 value
+        # pretraining's for the backwards, the sampler benchmark's for B6a-c (its bf16 run
+        # for B6a-c on bf16 value), the probe tools' for T1 and T2, production inference's
+        # for B1 and B2 on bf16 value, GoMatching++ production on 'pallas' for B5 and its
+        # table on bf16 value
         rec = dict(rec, launches=launches[name])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -190,6 +190,22 @@
 //       computes the same table at 2.3x this byte bound on an H100 (the time
 //       chip_smoke.py phase 9 prints as its library_ms).
 //
+// GoMatching++ in the production precision path ('pallas' with MODEL.PRECISION bfloat16)
+// runs both on bf16 value:
+//
+//   ms_deform_attn_merged_table_bf16, ms_deform_attn_merged_fwd_bf16  -- the same bodies
+//       (merged_table<T>, merged_fwd<T>) instantiated for __nv_bfloat16. The table is
+//       value's dtype, as JAX builds it (_merged_corner_table on bf16 value), a copy of
+//       bits in 256-byte rows; B5 widens each row exactly, scales it by f32 slot weights,
+//       sums in f32 and rounds the output once, as _sampling_kernel does with its f32 slot
+//       weights and accumulator. Lane l keeps word l of a row (8 bytes of bf16: corner l/8,
+//       channels 4(l%8)..+3), so the rows are 32 words, the row offsets, slot weights and
+//       sums are the f32 kernel's. Unlike B1/B2's TPU kernels, JAX's B5 does not round its
+//       weights to bf16, so the two differ only in the order of the f32 sums. On an NVIDIA
+//       H100 80GB HBM3 at 700 W (chip_smoke.py phase 20): B5 bf16 0.688 ms at the encoder
+//       shape against f32's 0.814 on the same values (55 registers, no stack), the table
+//       0.188 against 0.220 ms (bound 0.085: the copy reaches 45% of the memory rate).
+//
 // A fourth forward serves the encoder variants that stage tile footprints
 // (B6a-c: ms_deform_attn_encoder_vmem, _vmem_tm, _vmem_v3 and _fused):
 //
@@ -790,13 +806,21 @@ __device__ __forceinline__ void axis_slots(float c0, float f, float base, float 
   if (!(base + 1.f <= size - 1.f)) w_hi = 0.f;
 }
 
-// table (B, M, S, 4*32); loc (B, Lq, M, L, P, 2); attn (B, Lq, M, L, P);
-// out (B, Lq, M*32). blockIdx.y is the (batch, head) pair and warp w of block x takes
-// query 8x + w, as in B2. L*P <= 64.
-__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
-ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __restrict__ loc,
-                             const float* __restrict__ attn, float* __restrict__ out,
-                             LevelInfo lv, int S, int Lq, int M, int L, int P) {
+// table (B, M, S, 4*32) of type T (float or __nv_bfloat16); loc (B, Lq, M, L, P, 2);
+// attn (B, Lq, M, L, P); out (B, Lq, M*32) of type T. blockIdx.y is the (batch, head) pair
+// and warp w of block x takes query 8x + w, as in B2. L*P <= 64. Lane l reads word l of a
+// table row (corner l/8, channels 4(l%8)..+3: a float4 of f32, 8 bytes of bf16), so a row
+// is 32 words for either type and the row offsets, slot weights and sums are the f32
+// kernel's; a bf16 row is widened exactly, the weights and sums are f32 and the output is
+// rounded once, at the store (as _sampling_kernel widens each row to f32 and casts its f32
+// sums to value's dtype).
+template <typename T>
+__device__ __forceinline__ void merged_fwd(const T* __restrict__ table,
+                                           const float* __restrict__ loc,
+                                           const float* __restrict__ attn, T* __restrict__ out,
+                                           const LevelInfo& lv, int S, int Lq, int M, int L,
+                                           int P) {
+  using Word = typename RowWord<T>::type;
   const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (q >= Lq) return;
@@ -812,7 +836,7 @@ ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __res
   const int cx = (lane >> 3) & 1;
   const int cy = lane >> 4;
   // per sample, on the lane of each corner: the base row (the same for the four
-  // corners: float4 offset row * 32) and this corner's slot weight
+  // corners: word offset row * 32) and this corner's slot weight
   auto geometry = [&](int i0, int& row, float& wgt) {
     const int i = i0 + (lane & 7);
     const LaneLevel lvl = level_of(levels, min((i * magic) >> 16, MSDA_MAX_LEVELS - 1));
@@ -837,7 +861,7 @@ ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __res
     }
   };
 
-  const float4* base = reinterpret_cast<const float4*>(table + bm * (int64_t)S * 128) + lane;
+  const Word* base = reinterpret_cast<const Word*>(table + bm * (int64_t)S * 128) + lane;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   int row;
   float wgt;
@@ -853,14 +877,30 @@ ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __res
   store_corners(acc, lane, out + bqm * 32);
 }
 
-// value (B, S, M, 32) -> table (B, M, S, 4*32): one warp per table row, lane j
-// on the float4 j of the row (corner j/8, channels 4(j%8)..+3), so the warp
-// writes one 512-byte row and reads four 128-byte value rows. blockIdx.y is the
-// (batch, head) pair and each block covers MSDA_WARPS_PER_BLOCK consecutive
-// tokens, so no lane divides 64-bit indices.
-__global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ value,
-                                                   float* __restrict__ table, LevelInfo lv,
-                                                   int S, int M, int L) {
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __restrict__ loc,
+                             const float* __restrict__ attn, float* __restrict__ out,
+                             LevelInfo lv, int S, int Lq, int M, int L, int P) {
+  merged_fwd(table, loc, attn, out, lv, S, Lq, M, L, P);
+}
+
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_merged_bf16_kernel(const __nv_bfloat16* __restrict__ table,
+                                  const float* __restrict__ loc, const float* __restrict__ attn,
+                                  __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int Lq,
+                                  int M, int L, int P) {
+  merged_fwd(table, loc, attn, out, lv, S, Lq, M, L, P);
+}
+
+// value (B, S, M, 32) -> table (B, M, S, 4*32), of type T: one warp per table row, lane j
+// on word j of the row (corner j/8, channels 4(j%8)..+3; a float4 of f32, 8 bytes of bf16),
+// so the warp writes one 512-byte (bf16: 256-byte) row and reads four value head rows.
+// A copy of bits, no arithmetic. blockIdx.y is the (batch, head) pair and each block
+// covers MSDA_WARPS_PER_BLOCK consecutive tokens, so no lane divides 64-bit indices.
+template <typename T>
+__device__ __forceinline__ void merged_table(const T* __restrict__ value, T* __restrict__ table,
+                                             const LevelInfo& lv, int S, int M, int L) {
+  using Word = typename RowWord<T>::type;
   const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   if (s >= S) return;
   const int j = threadIdx.x & 31;
@@ -879,8 +919,20 @@ __global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ val
   const int yy = min(y + (corner >> 1), h - 1);
   const int xx = min(x + (corner & 1), w - 1);
   const int64_t tok = (int64_t)b * S + start + yy * w + xx;
-  const float4* src = reinterpret_cast<const float4*>(value + (tok * M + m) * 32);
-  reinterpret_cast<float4*>(table + ((int64_t)bm * S + s) * 128)[j] = __ldg(src + (j & 7));
+  const Word* src = reinterpret_cast<const Word*>(value + (tok * M + m) * 32);
+  reinterpret_cast<Word*>(table + ((int64_t)bm * S + s) * 128)[j] = __ldg(src + (j & 7));
+}
+
+__global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ value,
+                                                   float* __restrict__ table, LevelInfo lv,
+                                                   int S, int M, int L) {
+  merged_table(value, table, lv, S, M, L);
+}
+
+__global__ void ms_deform_attn_merged_table_bf16_kernel(const __nv_bfloat16* __restrict__ value,
+                                                        __nv_bfloat16* __restrict__ table,
+                                                        LevelInfo lv, int S, int M, int L) {
+  merged_table(value, table, lv, S, M, L);
 }
 
 // ---------------------------------------------------------------------------
@@ -955,6 +1007,17 @@ __global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ val
 // memory (the locations miss L2, and every batch waited on them), blocks of 8 warps with
 // the large buffers (8 warps an SM), 8 loads in flight under a 64-register cap (spills).
 // PERF.md has the numbers, from chip_smoke.py phases 12 and 13.
+//
+//   ms_deform_attn_footprint_fwd_bf16 -- the same kernel on bf16 value (the dtype of JAX's
+//       sampler benchmark, tools/bench_deform_attn.py): value, footprints and output
+//       __nv_bfloat16, TMA maps of CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 and 64-byte footprint
+//       cells (the buffers stay 128-byte multiples), so the same budget stages about twice
+//       the cells: 96.8% of the corner taps (B6a/b) and 98.1% (B6c) at the ICDAR15 shapes,
+//       halo 5, against f32's 90.2% and 71.0%. The bilinear weight x attention products
+//       and the partial outputs stay f32; JAX's kernels round the one-hot G to bf16 before
+//       their product (deform_attn_vmem.py:918-919), which this does not. Held by its
+//       instructions as in f32: 1.86-1.99 ms a call against f32's 1.86-2.04 on the same
+//       values (phase 20).
 
 // Warps of a block: 16, one block an SM. A measurement build (chip_smoke.py builds it with
 // -DFP_WARPS=8) takes blocks of 8 warps at 64 registers, four an SM, for the other side of
@@ -1030,14 +1093,16 @@ __device__ __forceinline__ int fp_next_staged(const int* __restrict__ rec, int l
 }
 
 // Copy number n, the footprint of target level l2 of block record ``rec``, into buffer
-// n % FP_NBUF through l2's tensor map of the block's source level. One thread.
+// n % FP_NBUF through l2's tensor map of the block's source level; a footprint cell is one
+// head row of ``row_bytes`` (32 values: 128 bytes of f32, 64 of bf16). One thread.
 __device__ __forceinline__ void fp_issue(const int* __restrict__ rec, int l2, int n,
                                          const CUtensorMap* pair_maps, unsigned char* bufs,
-                                         int fp_bytes, uint64_t* bars, int m, int b) {
+                                         int fp_bytes, int row_bytes, uint64_t* bars, int m,
+                                         int b) {
   const int* f = rec + FP_REC_HEAD + 4 * l2;
   const int fh = __ldg(f + 2), fw = __ldg(f + 3);
   fp_copy(bufs + (n % FP_NBUF) * fp_bytes, pair_maps + l2, &bars[n % FP_NBUF],
-          (uint32_t)(fh * fw * 128), m, __ldg(f + 1), __ldg(f), b);
+          (uint32_t)(fh * fw * row_bytes), m, __ldg(f + 1), __ldg(f), b);
 }
 
 // The grid cell (r, c) of in-tile query qt of a tile at (ty0, tx0) of width tx;
@@ -1165,16 +1230,26 @@ __device__ __forceinline__ void fp_geo_word(const FpBlock& k, const int* __restr
   }
 }
 
-// value (B,S,M,32); a/bt the layout's locations (or offsets) and attention; table as
-// Footprints (ops/deform_attn_vmem.py); out (B,S,M*32) natural or, for TM_OFF_CELLS,
-// (B,Sq,M*32) tile-major. fp_bytes: one footprint buffer (a multiple of 128).
-template <int GEOM>
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// value (B,S,M,32) of type T (float or __nv_bfloat16); a/bt the layout's locations (or
+// offsets) and attention, f32; table as Footprints (ops/deform_attn_vmem.py); out
+// (B,S,M*32) natural or, for TM_OFF_CELLS, (B,Sq,M*32) tile-major, of type T. fp_bytes: one
+// footprint buffer (a multiple of 128). A bf16 head row is 64 bytes, in device memory and in
+// a footprint alike: lane l reads channels 4(l%8)..+3 as one 8-byte word and widens it
+// exactly, so the row offsets in words, the geometry, the weights (bilinear weight x
+// attention, f32) and the f32 partial outputs are the f32 kernel's; the output is rounded
+// once, at the store.
+template <int GEOM, typename T>
 __global__ void __launch_bounds__(32 * FP_WARPS, FP_WARPS == 8 ? 4 : 1)
 ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
-                                const float* __restrict__ value, const float* __restrict__ a,
+                                const T* __restrict__ value, const float* __restrict__ a,
                                 const float* __restrict__ bt, const int* __restrict__ table,
-                                float* __restrict__ out, int S, int M, int L, int P, int Sq,
+                                T* __restrict__ out, int S, int M, int L, int P, int Sq,
                                 int fp_bytes) {
+  using Word = typename RowWord<T>::type;
+  constexpr int row_bytes = 32 * (int)sizeof(T);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
   float4* part = reinterpret_cast<float4*>(sm);  // (FP_QCHUNK, 8)
@@ -1201,8 +1276,8 @@ ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
   k.start1 = __ldg(table + 4 * k.l1 + 2);
   const int tok4 = M * 8;
   const int magic = level_magic(P);
-  const float4* gbase =
-      reinterpret_cast<const float4*>(value + ((int64_t)b * S * M + m) * 32) + (lane & 7);
+  const Word* gbase =
+      reinterpret_cast<const Word*>(value + ((int64_t)b * S * M + m) * 32) + (lane & 7);
   const int grp = lane & 24;
 
   // thread 0 copies the staged levels in order, copy n into buffer n % FP_NBUF: the first
@@ -1216,7 +1291,7 @@ ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
     for (; issued < FP_NBUF; ++issued) {
       scan = fp_next_staged(k.rec, scan, L);
       if (scan == L) break;
-      fp_issue(k.rec, scan++, issued, pair_maps, bufs, fp_bytes, bars, m, b);
+      fp_issue(k.rec, scan++, issued, pair_maps, bufs, fp_bytes, row_bytes, bars, m, b);
     }
   }
 
@@ -1266,7 +1341,7 @@ ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
       while (!mbar_try_wait(&bars[buf], (uint32_t)((n_staged / FP_NBUF) & 1)))
         if (clock64() - t0 > (1ll << 37)) __trap();
     }
-    const float4* fbase = reinterpret_cast<const float4*>(bufs + buf * fp_bytes) + (lane & 7);
+    const Word* fbase = reinterpret_cast<const Word*>(bufs + buf * fp_bytes) + (lane & 7);
     // the warp's samples of this level in batches of 8; at the last sample of query j
     // (index qend), its corners are summed into the query's row
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -1286,7 +1361,7 @@ ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
           const int ck = __shfl_sync(MSDA_FULL, code, grp | (h + s));
-          v[s] = ck >= 0 ? __ldg(gbase + ck) : fbase[(-1 - ck) * 8];
+          v[s] = as_float4(ck >= 0 ? __ldg(gbase + ck) : fbase[(-1 - ck) * 8]);
         }
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
@@ -1330,7 +1405,7 @@ ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
         scan = fp_next_staged(k.rec, scan, L);
         if (scan < L) {
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-          fp_issue(k.rec, scan++, issued++, pair_maps, bufs, fp_bytes, bars, m, b);
+          fp_issue(k.rec, scan++, issued++, pair_maps, bufs, fp_bytes, row_bytes, bars, m, b);
         }
       }
     }
@@ -1350,7 +1425,7 @@ ms_deform_attn_footprint_kernel(const __grid_constant__ FootprintMaps maps,
       if (!tile_cell(k.q0 + q, k.ty0, k.tx0, k.tx, k.H1, k.W1, r, c)) continue;
       row = (int64_t)b * S + k.start1 + r * k.W1 + c;
     }
-    out[row * tok_stride + m * 32 + lane] = part_f[q * 32 + lane];
+    store_value(out + row * tok_stride + m * 32 + lane, part_f[q * 32 + lane]);
   }
 }
 
@@ -1445,7 +1520,9 @@ extern "C" int ms_deform_attn_encoder_fwd_bf16(const __nv_bfloat16* value, const
 
 // What the runtime made of a kernel (which: 0 B1, 1 B2, 2 B4, 3 B5, 4 B3; 5, 6, 7 the
 // footprint kernel's NATURAL_LOC, TM_LOC and TM_OFF_CELLS instantiations, at ``smem_bytes``
-// of dynamic shared memory a block; 0 for the others; 8 B1 and 9 B2 on bf16 value):
+// of dynamic shared memory a block; 0 for the others; 8 B1 and 9 B2 on bf16 value; 10 B5 and
+// 11 its table build on bf16; 12, 13, 14 the footprint kernel's three on bf16 value; 15 B5's
+// table build on f32):
 // info[0] registers a thread, info[1] local memory a thread in bytes (stack and spills),
 // info[2] resident warps per SM.
 extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) {
@@ -1454,14 +1531,21 @@ extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) 
                        (const void*)ms_deform_attn_encoder_bwd_kernel,
                        (const void*)ms_deform_attn_merged_kernel,
                        (const void*)ms_deform_attn_queries_bwd_kernel,
-                       (const void*)ms_deform_attn_footprint_kernel<NATURAL_LOC>,
-                       (const void*)ms_deform_attn_footprint_kernel<TM_LOC>,
-                       (const void*)ms_deform_attn_footprint_kernel<TM_OFF_CELLS>,
+                       (const void*)ms_deform_attn_footprint_kernel<NATURAL_LOC, float>,
+                       (const void*)ms_deform_attn_footprint_kernel<TM_LOC, float>,
+                       (const void*)ms_deform_attn_footprint_kernel<TM_OFF_CELLS, float>,
                        (const void*)ms_deform_attn_queries_bf16_kernel,
-                       (const void*)ms_deform_attn_encoder_bf16_kernel};
-  if (which < 0 || which > 9 || smem_bytes < 0 || smem_bytes > 232448)
+                       (const void*)ms_deform_attn_encoder_bf16_kernel,
+                       (const void*)ms_deform_attn_merged_bf16_kernel,
+                       (const void*)ms_deform_attn_merged_table_bf16_kernel,
+                       (const void*)ms_deform_attn_footprint_kernel<NATURAL_LOC, __nv_bfloat16>,
+                       (const void*)ms_deform_attn_footprint_kernel<TM_LOC, __nv_bfloat16>,
+                       (const void*)ms_deform_attn_footprint_kernel<TM_OFF_CELLS, __nv_bfloat16>,
+                       (const void*)ms_deform_attn_merged_table_kernel};
+  const int n_fns = (int)(sizeof(fns) / sizeof(fns[0]));
+  if (which < 0 || which >= n_fns || smem_bytes < 0 || smem_bytes > 232448)
     return (int)cudaErrorInvalidValue;
-  const bool footprint = which >= 5 && which <= 7;
+  const bool footprint = (which >= 5 && which <= 7) || (which >= 12 && which <= 14);
   cudaError_t e;
   if (footprint) {
     e = cudaFuncSetAttribute(fns[which], cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
@@ -1479,30 +1563,69 @@ extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) 
   return (int)e;
 }
 
-extern "C" int ms_deform_attn_merged_fwd(const float* table, const float* loc,
-                                         const float* attn, float* out, const int* shapes,
-                                         int B, int S, int Lq, int M, int D, int L, int P,
-                                         void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || L * P > MSDA_MAX_SAMPLES ||
-      (int64_t)S * 32 > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  if ((int64_t)B * M > 65535) return (int)cudaErrorInvalidValue;
+// The limits of B5 and its table build (ops/deform_attn_merged.py checks the same): D ==
+// 32; L*P <= 64 samples; the (batch, head) pairs within gridDim.y; the word index of every
+// table row of one (batch, head) pair (32 words a row for either type) in int.
+static bool merged_ok(int B, int S, int M, int D, int L, int P) {
+  return L >= 1 && L <= MSDA_MAX_LEVELS && D == 32 && P >= 1 && L * P <= MSDA_MAX_SAMPLES &&
+         (int64_t)B * M <= 65535 && (int64_t)S * 32 <= INT32_MAX;
+}
+
+template <typename T>
+static int launch_merged(void (*kernel)(const T*, const float*, const float*, T*, LevelInfo, int,
+                                        int, int, int, int),
+                         const T* table, const float* loc, const float* attn, T* out,
+                         const int* shapes, int B, int S, int Lq, int M, int D, int L, int P,
+                         void* stream) {
+  if (!merged_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
   if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
   const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
-  ms_deform_attn_merged_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+  kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       table, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ms_deform_attn_merged_table(const float* value, float* table, const int* shapes,
-                                           int B, int S, int M, int D, int L, void* stream) {
-  if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || B * M > 65535) return (int)cudaErrorInvalidValue;
+template <typename T>
+static int launch_table(void (*kernel)(const T*, T*, LevelInfo, int, int, int), const T* value,
+                        T* table, const int* shapes, int B, int S, int M, int D, int L,
+                        void* stream) {
+  if (!merged_ok(B, S, M, D, L, 1)) return (int)cudaErrorInvalidValue;
   if (B * M == 0 || S == 0) return (int)cudaSuccess;
   const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
-  ms_deform_attn_merged_table_kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0,
-                                       (cudaStream_t)stream>>>(value, table,
-                                                               make_levels(shapes, L), S, M, L);
+  kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      value, table, make_levels(shapes, L), S, M, L);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ms_deform_attn_merged_fwd(const float* table, const float* loc,
+                                         const float* attn, float* out, const int* shapes,
+                                         int B, int S, int Lq, int M, int D, int L, int P,
+                                         void* stream) {
+  return launch_merged(ms_deform_attn_merged_kernel, table, loc, attn, out, shapes, B, S, Lq, M,
+                       D, L, P, stream);
+}
+
+// B5 on a bf16 table: table and out __nv_bfloat16, loc and attn f32.
+extern "C" int ms_deform_attn_merged_fwd_bf16(const __nv_bfloat16* table, const float* loc,
+                                              const float* attn, __nv_bfloat16* out,
+                                              const int* shapes, int B, int S, int Lq, int M,
+                                              int D, int L, int P, void* stream) {
+  return launch_merged(ms_deform_attn_merged_bf16_kernel, table, loc, attn, out, shapes, B, S,
+                       Lq, M, D, L, P, stream);
+}
+
+extern "C" int ms_deform_attn_merged_table(const float* value, float* table, const int* shapes,
+                                           int B, int S, int M, int D, int L, void* stream) {
+  return launch_table(ms_deform_attn_merged_table_kernel, value, table, shapes, B, S, M, D, L,
+                      stream);
+}
+
+// B5's table build on bf16 value: value and table __nv_bfloat16.
+extern "C" int ms_deform_attn_merged_table_bf16(const __nv_bfloat16* value, __nv_bfloat16* table,
+                                                const int* shapes, int B, int S, int M, int D,
+                                                int L, void* stream) {
+  return launch_table(ms_deform_attn_merged_table_bf16_kernel, value, table, shapes, B, S, M, D,
+                      L, stream);
 }
 
 extern "C" int ms_deform_attn_queries_bwd(const float* value, const float* loc,
@@ -1558,9 +1681,12 @@ static EncodeTiledFn encode_tiled() {
 
 // The tensor maps of a call: for each staged (source, target) pair (boxes[2 * pair] = (Fh,
 // Fw), 0 for a direct pair), value's target-level slice viewed innermost first as (32, M,
-// W, H, B) with a box of (32, 1, Fw, Fh, 1); cells past the map read as zeros.
-static int encode_maps(FootprintMaps& maps, const float* value, const int* shapes,
-                       const int* boxes, int B, int S, int M, int L) {
+// W, H, B) with a box of (32, 1, Fw, Fh, 1); cells past the map read as zeros. Elements of
+// ``dtype``, ``esize`` bytes each (a head row of 128 or 64 bytes, a multiple of 16 as TMA
+// needs of strides and of the box's inner extent).
+static int encode_maps(FootprintMaps& maps, const void* value, CUtensorMapDataType dtype,
+                       int esize, const int* shapes, const int* boxes, int B, int S, int M,
+                       int L) {
   memset(&maps, 0, sizeof(maps));
   const EncodeTiledFn encode = encode_tiled();
   int start = 0;
@@ -1571,13 +1697,14 @@ static int encode_maps(FootprintMaps& maps, const float* value, const int* shape
       if (fh == 0) continue;
       if (encode == nullptr) return (int)cudaErrorNotSupported;
       const cuuint64_t dims[5] = {32, (cuuint64_t)M, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)B};
-      const cuuint64_t strides[4] = {128, (cuuint64_t)M * 128, (cuuint64_t)M * w * 128,
-                                     (cuuint64_t)M * S * 128};
+      const cuuint64_t row = 32 * (cuuint64_t)esize;
+      const cuuint64_t strides[4] = {row, (cuuint64_t)M * row, (cuuint64_t)M * w * row,
+                                     (cuuint64_t)M * S * row};
       const cuuint32_t box[5] = {32, 1, (cuuint32_t)fw, (cuuint32_t)fh, 1};
       const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
       const CUresult r = encode(
-          &maps.pair[l1 * L + l2], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
-          (void*)(value + (int64_t)start * M * 32), dims, strides, box, elem,
+          &maps.pair[l1 * L + l2], dtype, 5,
+          (void*)((const char*)value + (int64_t)start * M * 32 * esize), dims, strides, box, elem,
           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
           CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
       if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
@@ -1587,37 +1714,34 @@ static int encode_maps(FootprintMaps& maps, const float* value, const int* shape
   return (int)cudaSuccess;
 }
 
-template <int GEOM>
-static int launch_footprint(const FootprintMaps& maps, const float* value, const float* a,
-                            const float* b, const int* table, float* out, dim3 grid, int S, int M,
+template <int GEOM, typename T>
+static int launch_footprint(const FootprintMaps& maps, const T* value, const float* a,
+                            const float* b, const int* table, T* out, dim3 grid, int S, int M,
                             int L, int P, int Sq, int fp_bytes, cudaStream_t stream) {
   const int smem = FP_SMEM_BYTES(fp_bytes, L * P);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(ms_deform_attn_footprint_kernel<GEOM>,
+    const cudaError_t e = cudaFuncSetAttribute(ms_deform_attn_footprint_kernel<GEOM, T>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
-  ms_deform_attn_footprint_kernel<GEOM><<<grid, 32 * FP_WARPS, smem, stream>>>(
+  ms_deform_attn_footprint_kernel<GEOM, T><<<grid, 32 * FP_WARPS, smem, stream>>>(
       maps, value, a, b, table, out, S, M, L, P, Sq, fp_bytes);
   return (int)cudaGetLastError();
 }
 
-// geometry: a FootprintGeometry; table (device int32), boxes (host, (Fh, Fw) per (source,
-// target) pair, 0 for a direct pair) and fp_bytes (one footprint buffer, a multiple of 128)
-// from the wrapper's Footprints; shapes (host) the level (H, W); n_items blocks per (batch,
-// head); Sq the token axis of a and b.
-extern "C" int ms_deform_attn_footprint_fwd(int geometry, const float* value, const float* a,
-                                            const float* b, const int* table, float* out,
-                                            const int* shapes, const int* boxes, int B, int S,
-                                            int M, int D, int L, int P, int n_items, int Sq,
-                                            int fp_bytes, void* stream) {
+// The footprint kernel on value of type T, for either entry below.
+template <typename T>
+static int footprint_fwd(int geometry, const T* value, CUtensorMapDataType dtype, const float* a,
+                         const float* b, const int* table, T* out, const int* shapes,
+                         const int* boxes, int B, int S, int M, int D, int L, int P, int n_items,
+                         int Sq, int fp_bytes, void* stream) {
   if (L < 1 || L > MSDA_MAX_LEVELS || D != 32 || P < 1 || L * P > MSDA_MAX_SAMPLES ||
       B > 65535 || M > 65535 || (int64_t)S * M * 8 > INT32_MAX || fp_bytes < 0 ||
       fp_bytes % 128 || FP_SMEM_BYTES(fp_bytes, L * P) > 232448)
     return (int)cudaErrorInvalidValue;
   if (n_items == 0 || B == 0 || M == 0) return (int)cudaSuccess;
   FootprintMaps maps;
-  const int rc = encode_maps(maps, value, shapes, boxes, B, S, M, L);
+  const int rc = encode_maps(maps, value, dtype, (int)sizeof(T), shapes, boxes, B, S, M, L);
   if (rc != (int)cudaSuccess) return rc;
   const dim3 grid(n_items, B, M);
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1634,4 +1758,29 @@ extern "C" int ms_deform_attn_footprint_fwd(int geometry, const float* value, co
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// geometry: a FootprintGeometry; table (device int32), boxes (host, (Fh, Fw) per (source,
+// target) pair, 0 for a direct pair) and fp_bytes (one footprint buffer, a multiple of 128)
+// from the wrapper's Footprints; shapes (host) the level (H, W); n_items blocks per (batch,
+// head); Sq the token axis of a and b.
+extern "C" int ms_deform_attn_footprint_fwd(int geometry, const float* value, const float* a,
+                                            const float* b, const int* table, float* out,
+                                            const int* shapes, const int* boxes, int B, int S,
+                                            int M, int D, int L, int P, int n_items, int Sq,
+                                            int fp_bytes, void* stream) {
+  return footprint_fwd(geometry, value, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a, b, table, out,
+                       shapes, boxes, B, S, M, D, L, P, n_items, Sq, fp_bytes, stream);
+}
+
+// The footprint kernel on bf16 value: value, the staged footprints and out __nv_bfloat16
+// (TMA maps of CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 64-byte footprint cells), a and b f32.
+extern "C" int ms_deform_attn_footprint_fwd_bf16(int geometry, const __nv_bfloat16* value,
+                                                 const float* a, const float* b, const int* table,
+                                                 __nv_bfloat16* out, const int* shapes,
+                                                 const int* boxes, int B, int S, int M, int D,
+                                                 int L, int P, int n_items, int Sq, int fp_bytes,
+                                                 void* stream) {
+  return footprint_fwd(geometry, value, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, b, table, out,
+                       shapes, boxes, B, S, M, D, L, P, n_items, Sq, fp_bytes, stream);
 }

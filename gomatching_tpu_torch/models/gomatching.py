@@ -257,15 +257,11 @@ def _check_ported(cfg) -> None:
 
 
 def compute_dtype(cfg) -> torch.dtype:
-    """The frozen spotter's dtype, ``MODEL.PRECISION``. B5 ('pallas') has no bf16 variant."""
+    """The frozen spotter's dtype, ``MODEL.PRECISION``."""
     if cfg.MODEL.PRECISION not in PRECISIONS:
         raise ValueError(f"MODEL.PRECISION={cfg.MODEL.PRECISION!r}: expected one of "
                          f"{sorted(PRECISIONS)}")
-    dtype = PRECISIONS[cfg.MODEL.PRECISION]
-    if dtype == torch.bfloat16 and cfg.TPU.SAMPLING_IMPL == "pallas":
-        raise NotImplementedError("TPU.SAMPLING_IMPL='pallas' with MODEL.PRECISION=bfloat16 is "
-                                  "not ported yet (ROADMAP A13c: B5 and its table in bf16)")
-    return dtype
+    return PRECISIONS[cfg.MODEL.PRECISION]
 
 
 def _spotter_kwargs(cfg) -> Dict:

@@ -18,7 +18,8 @@ exact everywhere:
     kernel (``ms_deform_attn_queries``);
   - 'pallas': every call builds normalized locations and softmaxed attention and calls
     B5 (``ms_deform_attn_merged``, the corner-merged table), encoder, masked encoder
-    and decoder alike; it has no backward;
+    and decoder alike, in bf16 too (a bf16 table, f32 locations and attention, the
+    output in value's dtype, as JAX's ``ms_deform_attn_pallas``); it has no backward;
   - 'xla' and 'tiled' take the 'vmem' route: in JAX they are XLA versions of the same
     function (the exact gather core, and the halo-limited one-hot encoder), not Pallas
     kernels;

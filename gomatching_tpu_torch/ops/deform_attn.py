@@ -39,7 +39,9 @@ bf16 variants, the same kernels instantiated for bf16 value and output
 same TPU kernels): locations, offsets, attention and logits stay float32, the sums are f32
 and the output is rounded once to bf16. Their plain versions (``*_plain_bf16``) widen the
 value to f32, run the plain sampler and round the output. They have no backward: the bf16
-spotter is frozen. B1-B4 take
+spotter is frozen. B5 with its table and the footprint entries take bf16 value the same
+way (``ops/deform_attn_merged.py``, ``ops/deform_attn_vmem.py``; ``kernel_dtype`` names
+the dtype mixes their kernels take), counted under the ``*_BF16`` names. B1-B4 take
 D == 32 channels per head (one float4 per lane and corner) within the limits that
 ``check_lane_layout`` names (through autograd B3 meets only what B1's forward already
 took). The source note in the .cu file gives each
@@ -74,11 +76,19 @@ VMEM = "ms_deform_attn_encoder_vmem"
 VMEM_TM = "ms_deform_attn_encoder_vmem_tm"
 VMEM_V3 = "ms_deform_attn_encoder_vmem_v3"
 FUSED = "ms_deform_attn_encoder_fused"
+# the same kernels on bf16 value
+MERGED_BF16 = "ms_deform_attn_merged_bf16"
+MERGED_TABLE_BF16 = "ms_deform_attn_merged_table_bf16"
+VMEM_BF16 = "ms_deform_attn_encoder_vmem_bf16"
+VMEM_TM_BF16 = "ms_deform_attn_encoder_vmem_tm_bf16"
+VMEM_V3_BF16 = "ms_deform_attn_encoder_vmem_v3_bf16"
+FUSED_BF16 = "ms_deform_attn_encoder_fused_bf16"
 
 # launches of each hand-written kernel in this process (plain CPU calls do not count)
-launch_counts: Dict[str, int] = {QUERIES: 0, ENCODER: 0, QUERIES_BWD: 0, ENCODER_BWD: 0,
-                                 MERGED: 0, MERGED_TABLE: 0, VMEM: 0, VMEM_TM: 0, VMEM_V3: 0,
-                                 FUSED: 0, QUERIES_BF16: 0, ENCODER_BF16: 0}
+launch_counts: Dict[str, int] = {
+    name: 0 for name in (QUERIES, ENCODER, QUERIES_BWD, ENCODER_BWD, MERGED, MERGED_TABLE, VMEM,
+                         VMEM_TM, VMEM_V3, FUSED, QUERIES_BF16, ENCODER_BF16, MERGED_BF16,
+                         MERGED_TABLE_BF16, VMEM_BF16, VMEM_TM_BF16, VMEM_V3_BF16, FUSED_BF16)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,9 +108,15 @@ _SIGNATURES = {
     "ms_deform_attn_merged_fwd": [_P, _P, _P, _P, ctypes.POINTER(_I),
                                   _I, _I, _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_merged_table": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_merged_fwd_bf16": [_P, _P, _P, _P, ctypes.POINTER(_I),
+                                       _I, _I, _I, _I, _I, _I, _I, _P],
+    "ms_deform_attn_merged_table_bf16": [_P, _P, ctypes.POINTER(_I), _I, _I, _I, _I, _I, _P],
     "ms_deform_attn_footprint_fwd": [_I, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
                                      ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _P],
+    "ms_deform_attn_footprint_fwd_bf16": [_I, _P, _P, _P, _P, _P, ctypes.POINTER(_I),
+                                          ctypes.POINTER(_I), _I, _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _P],
     "ms_deform_attn_kernel_info": [_I, _I, ctypes.POINTER(_I)],
 }
 _MAX_LEVELS = 8
@@ -253,15 +269,15 @@ def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shape
     """Validate the inputs, allocate the outputs ((shape, zeroed) each) and launch
     ``c_fn`` on the current stream; raise on a refused launch. ``inputs`` are passed
     in order, then the outputs, the level shapes and ``dims``. ``S`` (tokens) defaults
-    to the first input's dimension 1. The input named ``value`` must be of
+    to the first input's dimension 1. The first input (value, or B5's table) must be of
     ``value_dtype``, every other input float32 (TypeError otherwise); the outputs take
-    the value's dtype (float32 without one)."""
+    ``value_dtype``."""
     S = next(iter(inputs.values())).shape[1] if S is None else S
     if sum(h * w for h, w in spatial_shapes) != S or not 1 <= len(spatial_shapes) <= _MAX_LEVELS:
         raise ValueError(f"{name}: spatial_shapes {spatial_shapes} do not match S={S} "
                          f"(1..{_MAX_LEVELS} levels)")
-    for key, t in inputs.items():
-        want = value_dtype if key == "value" else torch.float32
+    for i, (key, t) in enumerate(inputs.items()):
+        want = value_dtype if i == 0 else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -272,8 +288,7 @@ def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shape
 
     fn = getattr(load("ms_deform_attn.cu", _SIGNATURES), c_fn)
     device = next(iter(inputs.values())).device
-    out_dtype = value_dtype if "value" in inputs else torch.float32
-    results = [(torch.zeros if zeroed else torch.empty)(shape, dtype=out_dtype, device=device)
+    results = [(torch.zeros if zeroed else torch.empty)(shape, dtype=value_dtype, device=device)
                for shape, zeroed in outs]
     flat = [int(x) for hw in spatial_shapes for x in hw]
     with torch.cuda.device(device):
@@ -284,6 +299,17 @@ def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shape
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
     launch_counts[name] += 1
     return results
+
+
+def kernel_dtype(name: str, value: torch.Tensor, *f32_inputs: torch.Tensor) -> torch.dtype:
+    """The value dtype a kernel entry takes: float32 or bfloat16 value (or table) with
+    float32 locations, offsets and weights; ValueError for any other mix."""
+    if value.dtype not in (torch.float32, torch.bfloat16) or any(
+            t.dtype != torch.float32 for t in f32_inputs):
+        raise ValueError(f"{name}: the kernels take float32 or bfloat16 value with float32 "
+                         f"locations and weights, got {value.dtype} and "
+                         f"{[str(t.dtype) for t in f32_inputs]}")
+    return value.dtype
 
 
 def _queries_dims(value, spatial_shapes, sampling_locations, attention_weights, name=QUERIES):
@@ -420,10 +446,11 @@ def _kernel_info(name: str, which: int, smem_bytes: int = 0) -> Dict[str, int]:
 
 
 def kernel_info() -> Dict[str, Dict[str, int]]:
-    """``_kernel_info`` of the lane-layout kernels B1, B2, B4, B5, B3 and of B1 and B2 on
-    bf16 value."""
+    """``_kernel_info`` of the lane-layout kernels B1, B2, B4, B5, B3, of B1, B2 and B5 on
+    bf16 value, and of B5's table build on f32 and bf16 value."""
     kernels = ((0, QUERIES), (1, ENCODER), (2, ENCODER_BWD), (3, MERGED), (4, QUERIES_BWD),
-               (8, QUERIES_BF16), (9, ENCODER_BF16))
+               (8, QUERIES_BF16), (9, ENCODER_BF16), (10, MERGED_BF16), (15, MERGED_TABLE),
+               (11, MERGED_TABLE_BF16))
     return {name: _kernel_info(name, which) for which, name in kernels}
 
 

@@ -9,14 +9,16 @@ with this entry's geometry: square query tiles of ``_DEFAULT_TILES`` (16, 8, 8, 
 cells per source level (each further level halves the last, down to 2) and footprints
 aligned to ``block`` on both axes. Exact whatever the halo; forward only; plain version
 on CPU tensors (B1's ``ms_deform_attn_queries_plain``, the same function), the kernel
-or a raise on CUDA ones. Launches count under ``FUSED``.
+or a raise on CUDA ones. Launches count under ``FUSED``. A bfloat16 value takes the
+kernel's bf16 instantiation as B6a does (counted under ``FUSED_BF16``; f32 locations and
+attention, f32 sums, the output rounded once), and on the CPU ``sampler_plain``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .deform_attn import FUSED, Shapes, _on_cpu, _shape_key, ms_deform_attn_queries_plain
+from .deform_attn import FUSED, Shapes, _on_cpu, _shape_key
 from .deform_attn_vmem import (
     _DEFAULT_TILES,
     NATURAL_LOC,
@@ -26,6 +28,7 @@ from .deform_attn_vmem import (
     _natural_dims,
     footprints,
     natural_tiles,
+    sampler_plain,
 )
 
 
@@ -39,11 +42,13 @@ def fused_tiles(tile_sizes, L):
 
 
 def fused_footprints(spatial_shapes: Shapes, P: int, halo: int = 8, block: int = 8,
-                     tile_sizes=None) -> Footprints:
-    """The entry's ``Footprints``: natural square tiles, both axes aligned to ``block``."""
+                     tile_sizes=None, elem_bytes: int = 4) -> Footprints:
+    """The entry's ``Footprints`` for value elements of ``elem_bytes``: natural square
+    tiles, both axes aligned to ``block``."""
     shapes = _shape_key(spatial_shapes)
     tiles = natural_tiles(shapes, fused_tiles(tile_sizes, len(shapes)))
-    return footprints(shapes, NATURAL_LOC, tiles, int(halo), int(block), int(block), P)
+    return footprints(shapes, NATURAL_LOC, tiles, int(halo), int(block), int(block), P,
+                      elem_bytes)
 
 
 def ms_deform_attn_encoder_fused(
@@ -61,7 +66,6 @@ def ms_deform_attn_encoder_fused(
     B, S, Lq, M, D, L, P = _natural_dims(FUSED, value, spatial_shapes, sampling_locations,
                                          attention_weights)
     if _on_cpu(value, sampling_locations, attention_weights):
-        return ms_deform_attn_queries_plain(value, spatial_shapes, sampling_locations,
-                                            attention_weights)
-    fp = fused_footprints(spatial_shapes, P, halo, block, tile_sizes)
+        return sampler_plain(value, spatial_shapes, sampling_locations, attention_weights)
+    fp = fused_footprints(spatial_shapes, P, halo, block, tile_sizes, value.element_size())
     return _launch(FUSED, fp, value, sampling_locations, attention_weights, (B, S, M * D), P, S)

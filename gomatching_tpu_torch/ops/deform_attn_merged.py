@@ -23,6 +23,14 @@ there. It has no backward: the TPU kernel has none and JAX trains through 'tiled
 'pallas' is asked for (``gomatching_tpu/config.py:417-425``), so it raises when grad is
 enabled and an input requires grad. Launches count in ``deform_attn.launch_counts``
 under ``MERGED`` and ``MERGED_TABLE``.
+
+A bfloat16 value (``MODEL.PRECISION`` bfloat16 under 'pallas') takes the same two kernels
+instantiated for bf16 (``ms_deform_attn_merged_table_bf16``, a bf16 table that copies the
+value's bits; ``ms_deform_attn_merged_fwd_bf16``), counted under ``MERGED_TABLE_BF16`` and
+``MERGED_BF16``, with locations and attention in f32: as JAX's ``ms_deform_attn_pallas``
+builds the table in value's dtype, widens each row to f32, multiplies it by f32 slot
+weights, sums in f32 and casts the output to value's dtype once. The plain version does
+the same on the CPU. Any other dtype mix raises ValueError on the card.
 """
 
 from __future__ import annotations
@@ -36,13 +44,16 @@ from .deform_attn import (
     _MAX_SAMPLES,
     KERNEL_D,
     MERGED,
+    MERGED_BF16,
     MERGED_TABLE,
+    MERGED_TABLE_BF16,
     Shapes,
     _launch,
     _level_slices,
     _on_cpu,
     _queries_dims,
     _shape_key,
+    kernel_dtype,
 )
 
 
@@ -111,7 +122,9 @@ def ms_deform_attn_merged_plain(value: torch.Tensor, spatial_shapes: Shapes,
                                 attention_weights: torch.Tensor) -> torch.Tensor:
     """Table, indices and slot weights, then a gather of whole merged rows and the
     weighted sum over (samples, slots), in query chunks that keep the gathered rows
-    under ~256 MB. value (B, S, M, D) -> (B, Lq, M*D)."""
+    under ~256 MB. value (B, S, M, D) -> (B, Lq, M*D). A bf16 value gives a bf16 table
+    whose rows the f32 slot weights scale in f32 (torch widens bf16 against f32 exactly);
+    the f32 sums are rounded to bf16 once."""
     B, S, M, D = value.shape
     Lq, LP = sampling_locations.shape[1], attention_weights.shape[3] * attention_weights.shape[4]
     table = merged_corner_table(value.permute(0, 2, 1, 3), spatial_shapes)
@@ -130,23 +143,30 @@ def ms_deform_attn_merged_plain(value: torch.Tensor, spatial_shapes: Shapes,
 
 
 def merged_table(value: torch.Tensor, spatial_shapes: Shapes) -> torch.Tensor:
-    """The corner-merged table of value (B, S, M, D) -> (B, M, S, 4D): the plain
-    version on CPU tensors, the ``ms_deform_attn_merged_table`` kernel on CUDA ones
+    """The corner-merged table of value (B, S, M, D) -> (B, M, S, 4D) in value's dtype
+    (float32 or bfloat16): the plain version on CPU tensors, the
+    ``ms_deform_attn_merged_table`` kernel (``_bf16`` on bf16 value) on CUDA ones
     (D == 32)."""
+    bf16 = kernel_dtype(MERGED_TABLE, value) == torch.bfloat16
     if _on_cpu(value):
         return merged_corner_table(value.permute(0, 2, 1, 3), spatial_shapes)
     B, S, M, D = value.shape
     if D != KERNEL_D or not 1 <= len(spatial_shapes) <= _MAX_LEVELS:
         raise ValueError(f"{MERGED_TABLE}: the kernel takes D == {KERNEL_D} and 1..{_MAX_LEVELS} "
                          f"levels; got value {tuple(value.shape)}, {len(spatial_shapes)} levels")
-    return _launch(MERGED_TABLE, "ms_deform_attn_merged_table", {"value": value}, spatial_shapes,
-                   [((B, M, S, 4 * D), False)], (B, S, M, D, len(spatial_shapes)))[0]
+    name, c_fn = ((MERGED_TABLE_BF16, "ms_deform_attn_merged_table_bf16") if bf16
+                  else (MERGED_TABLE, "ms_deform_attn_merged_table"))
+    return _launch(name, c_fn, {"value": value}, spatial_shapes, [((B, M, S, 4 * D), False)],
+                   (B, S, M, D, len(spatial_shapes)), value_dtype=value.dtype)[0]
 
 
 def merged_sample(table: torch.Tensor, spatial_shapes: Shapes, sampling_locations: torch.Tensor,
                   attention_weights: torch.Tensor) -> torch.Tensor:
-    """B5 on a prebuilt table (B, M, S, 4*32): launches the kernel (CUDA tensors only)
-    -> (B, Lq, M*32)."""
+    """B5 on a prebuilt table (B, M, S, 4*32) of float32 or bfloat16, with float32
+    locations and attention: launches the kernel (``_bf16`` on a bf16 table; CUDA tensors
+    only) -> (B, Lq, M*32) in the table's dtype."""
+    bf16 = kernel_dtype(MERGED, table, sampling_locations,
+                        attention_weights) == torch.bfloat16
     if _on_cpu(table, sampling_locations, attention_weights):
         raise ValueError(f"{MERGED}: the kernel takes CUDA tensors; on the CPU "
                          "ms_deform_attn_merged runs the plain version")
@@ -158,11 +178,13 @@ def merged_sample(table: torch.Tensor, spatial_shapes: Shapes, sampling_location
         raise ValueError(f"{MERGED}: the kernel takes D == {KERNEL_D} and L*P <= "
                          f"{_MAX_SAMPLES}; got table {tuple(table.shape)} and locations "
                          f"{tuple(sampling_locations.shape)}")
-    return _launch(MERGED, "ms_deform_attn_merged_fwd",
+    name, c_fn = ((MERGED_BF16, "ms_deform_attn_merged_fwd_bf16") if bf16
+                  else (MERGED, "ms_deform_attn_merged_fwd"))
+    return _launch(name, c_fn,
                    {"table": table, "sampling_locations": sampling_locations,
                     "attention_weights": attention_weights},
                    spatial_shapes, [((B, Lq, M * KERNEL_D), False)],
-                   (B, S, Lq, M, KERNEL_D, L, P), S=S)[0]
+                   (B, S, Lq, M, KERNEL_D, L, P), S=S, value_dtype=table.dtype)[0]
 
 
 def ms_deform_attn_merged(value: torch.Tensor, spatial_shapes: Shapes,
@@ -170,8 +192,9 @@ def ms_deform_attn_merged(value: torch.Tensor, spatial_shapes: Shapes,
                           attention_weights: torch.Tensor) -> torch.Tensor:
     """B5: deformable attention through the corner-merged table, forward only.
 
-    value (B, S, M, D); sampling_locations (B, Lq, M, L, P, 2) normalized;
-    attention_weights (B, Lq, M, L, P) softmaxed over (L, P) -> (B, Lq, M*D).
+    value (B, S, M, D) float32 or bfloat16; sampling_locations (B, Lq, M, L, P, 2)
+    normalized; attention_weights (B, Lq, M, L, P) softmaxed over (L, P), float32 on the
+    card -> (B, Lq, M*D) in value's dtype.
     """
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations, attention_weights)):
@@ -180,7 +203,9 @@ def ms_deform_attn_merged(value: torch.Tensor, spatial_shapes: Shapes,
     if _on_cpu(value, sampling_locations, attention_weights):
         return ms_deform_attn_merged_plain(value, spatial_shapes, sampling_locations,
                                            attention_weights)
+    # refuse a dtype mix before the table kernel launches, not after it
+    kernel_dtype(MERGED, value, sampling_locations, attention_weights)
     _queries_dims(value, spatial_shapes, sampling_locations, attention_weights, MERGED)
     shapes = _shape_key(spatial_shapes)
-    return merged_sample(merged_table(value, shapes), shapes, sampling_locations,
-                         attention_weights)
+    return merged_sample(merged_table(value, shapes), shapes, sampling_locations.contiguous(),
+                         attention_weights.contiguous())

@@ -42,6 +42,16 @@ The kernel copies each staged footprint into one of two shared-memory buffers wi
 TMA copy (a tensor map per (source, target) pair, encoded per call by the C entry), the
 next level's copy in flight while a level is sampled, and samples on B1's lane layout.
 ``SMEM_BLOCK_BYTES`` sets which pairs are staged.
+
+A bfloat16 value (JAX's dtype in its sampler benchmark, ``tools/bench_deform_attn.py``)
+takes the same kernel instantiated for bf16 (``ms_deform_attn_footprint_fwd_bf16``,
+counted under the entry's name + ``_bf16``): bf16 footprints of 64-byte cells, so the same
+budget stages about twice the cells; locations, offsets and attention stay f32, the
+bilinear weight x attention products and the sums are f32 and the output is rounded once
+to bf16. JAX's kernels round the one-hot G to bf16 before their product
+(``deform_attn_vmem.py:918-919``); keeping it f32 is a difference by design (ROADMAP
+section C). The plain versions widen the value to f32, run the exact sampler and round
+the output. Any other dtype mix raises ValueError on the card.
 """
 
 from __future__ import annotations
@@ -61,19 +71,24 @@ from .deform_attn import (
     _MAX_SAMPLES,
     _SIGNATURES,
     FUSED,
+    FUSED_BF16,
     VMEM,
+    VMEM_BF16,
     VMEM_TM,
+    VMEM_TM_BF16,
     VMEM_V3,
+    VMEM_V3_BF16,
     Shapes,
     _kernel_info,
     _on_cpu,
     _queries_dims,
     _shape_key,
+    kernel_dtype,
     launch_counts,
     ms_deform_attn_queries_plain,
 )
 
-KERNEL_D = 32  # channels per head the kernel takes: a float4 of one corner per lane
+KERNEL_D = 32  # channels per head the kernel takes: one row word (4 channels) per lane
 # The kernel's layout codes (``FootprintGeometry`` of the .cu file)
 NATURAL_LOC, TM_LOC, TM_OFF_CELLS = 0, 1, 2
 QCHUNK = 128  # queries of one block (FP_QCHUNK): a tile with more is split into chunks
@@ -248,7 +263,8 @@ class Footprints(NamedTuple):
     ox, Fh, Fw), all four 0 when the pair takes the direct route. ``boxes`` (int32,
     (L, L, 2)): (Fh, Fw) of each staged pair, the box of its tensor map, 0 for a direct
     pair. ``fp_bytes``: one footprint buffer (the largest staged footprint, in 128-byte
-    units); ``smem_bytes``: the block's dynamic shared memory."""
+    units); ``smem_bytes``: the block's dynamic shared memory; ``elem_bytes``: the bytes of
+    one value element the footprints are sized for (4 f32, 2 bf16)."""
 
     layout: int
     tiles: Tuple[Tuple[int, ...], ...]
@@ -258,16 +274,18 @@ class Footprints(NamedTuple):
     n_items: int
     fp_bytes: int
     smem_bytes: int
+    elem_bytes: int = 4
 
 
 @functools.lru_cache(maxsize=64)
 def footprints(spatial_shapes: Tuple[Tuple[int, int], ...], layout: int,
                tiles: Tuple[Tuple[int, ...], ...], halo: int, block: int, fh_block: int,
-               P: int) -> Footprints:
+               P: int, elem_bytes: int = 4) -> Footprints:
     """Geometry and kernel table for query tiles ``tiles`` (as ``Footprints.tiles``):
     footprints from ``_footprint_bounds`` with x aligned to ``block`` and y to
     ``fh_block`` (1 for the vmem entries, whose TPU windows have exact heights); a pair is
-    staged when its footprint fits a buffer under ``SMEM_BLOCK_BYTES`` and a TMA box."""
+    staged when its footprint of ``elem_bytes`` values, rounded up to 128 bytes, fits a
+    buffer under ``SMEM_BLOCK_BYTES`` and a TMA box."""
     L = len(spatial_shapes)
     starts, _ = _level_starts(spatial_shapes)
     budget = (SMEM_BLOCK_BYTES - smem_bytes(0, L, P)) // NBUF
@@ -280,9 +298,10 @@ def footprints(spatial_shapes: Tuple[Tuple[int, int], ...], layout: int,
         for l2, (H2, W2) in enumerate(spatial_shapes):
             oys, Fh = _footprint_bounds(H1, ty, nty, H2, _round_up(H2, block), halo, fh_block)
             oxs, Fw = _footprint_bounds(W1, tx, ntx, W2, _round_up(W2, block), halo, block)
-            staged = Fh * Fw * KERNEL_D * 4 <= budget and max(Fh, Fw) <= MAX_BOX
+            nbytes = _round_up(Fh * Fw * KERNEL_D * elem_bytes, 128)
+            staged = nbytes <= budget and max(Fh, Fw) <= MAX_BOX
             if staged:
-                fp_bytes = max(fp_bytes, Fh * Fw * KERNEL_D * 4)
+                fp_bytes = max(fp_bytes, nbytes)
                 boxes[l1, l2] = (Fh, Fw)
             per_l2.append((np.repeat(np.asarray(oys, np.int64), ntx),
                            np.tile(np.asarray(oxs, np.int64), nty), Fh, Fw, staged))
@@ -298,7 +317,7 @@ def footprints(spatial_shapes: Tuple[Tuple[int, int], ...], layout: int,
     table = np.concatenate([np.asarray(part, np.int32).reshape(-1)
                             for part in (rows[:L], rows[L:])])
     return Footprints(layout, tuple(tiles), tuple(pairs), table, boxes, len(rows) - L,
-                      fp_bytes, smem_bytes(fp_bytes, L, P))
+                      fp_bytes, smem_bytes(fp_bytes, L, P), elem_bytes)
 
 
 def natural_tiles(spatial_shapes: Shapes, tiles) -> Tuple[Tuple[int, ...], ...]:
@@ -317,28 +336,40 @@ def natural_tiles(spatial_shapes: Shapes, tiles) -> Tuple[Tuple[int, ...], ...]:
 _device_tables: Dict[Tuple[int, str], Tuple[Footprints, torch.Tensor]] = {}
 
 
+# the count of each entry's launches on bf16 value
+BF16_NAMES = {VMEM: VMEM_BF16, VMEM_TM: VMEM_TM_BF16, VMEM_V3: VMEM_V3_BF16, FUSED: FUSED_BF16}
+
+
 def _launch(name: str, fp: Footprints, value: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             out_shape: Tuple[int, ...], P: int, Sq: int) -> torch.Tensor:
-    """Launch the footprint kernel for ``fp`` on the current stream; raise on a refused
-    launch. ``a``/``b`` are the layout's location (or offset) and attention tensors,
-    ``Sq`` the length of their token axis (S_tm in the tile-major layouts)."""
+    """Launch the footprint kernel for ``fp`` on the current stream (its bf16 entry on bf16
+    value, counted under ``BF16_NAMES[name]``); raise on a refused launch. ``a``/``b`` are
+    the layout's location (or offset) and attention tensors, ``Sq`` the length of their
+    token axis (S_tm in the tile-major layouts)."""
     B, S, M, D = value.shape
     L = len(fp.tiles)
     if D != KERNEL_D or L * P > _MAX_SAMPLES or not 1 <= L <= _MAX_LEVELS:
         raise ValueError(f"{name}: the kernel takes D == {KERNEL_D}, L*P <= {_MAX_SAMPLES} and "
                          f"1..{_MAX_LEVELS} levels; got value {tuple(value.shape)}, L={L}, P={P}")
+    bf16 = kernel_dtype(name, value, a, b) == torch.bfloat16
     for key, t in (("value", value), ("locations", a), ("attention", b)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    if fp.elem_bytes != value.element_size():
+        raise ValueError(f"{name}: footprints sized for {fp.elem_bytes}-byte values, got "
+                         f"{value.dtype}")
     if S * M * 8 > _INT32_MAX:
-        raise ValueError(f"{name}: the kernel takes S*M*8 <= {_INT32_MAX} (float4 rows of one "
+        raise ValueError(f"{name}: the kernel takes S*M*8 <= {_INT32_MAX} (row words of one "
                          f"batch item), got S={S}, M={M}")
-    fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_footprint_fwd
+    if bf16:
+        name = BF16_NAMES[name]
+    lib = load("ms_deform_attn.cu", _SIGNATURES)
+    fn = lib.ms_deform_attn_footprint_fwd_bf16 if bf16 else lib.ms_deform_attn_footprint_fwd
     key = (id(fp), str(value.device))
     if key not in _device_tables:
         _device_tables[key] = (fp, torch.from_numpy(fp.table).to(value.device))
     table = _device_tables[key][1]
-    out = torch.empty(out_shape, dtype=torch.float32, device=value.device)
+    out = torch.empty(out_shape, dtype=value.dtype, device=value.device)
     shapes = [int(x) for row in fp.table[:4 * L].reshape(L, 4) for x in row[:2]]
     boxes = fp.boxes.reshape(-1).tolist()
     with torch.cuda.device(value.device):
@@ -354,11 +385,14 @@ def _launch(name: str, fp: Footprints, value: torch.Tensor, a: torch.Tensor, b: 
 
 
 def footprint_kernel_info(fp: Footprints) -> Dict[str, Dict[str, int]]:
-    """``deform_attn._kernel_info`` of the footprint kernel's three instantiations at
-    ``fp.smem_bytes`` of dynamic shared memory a block, by the entries that take each."""
+    """``deform_attn._kernel_info`` of the footprint kernel's three instantiations for
+    ``fp``'s value type at ``fp.smem_bytes`` of dynamic shared memory a block, by the
+    entries that take each."""
     names = {f"{VMEM}, {FUSED} (NATURAL_LOC)": 5, f"{VMEM_TM} (TM_LOC)": 6,
              f"{VMEM_V3} (TM_OFF_CELLS)": 7}
-    return {name: _kernel_info(name, which, fp.smem_bytes) for name, which in names.items()}
+    shift = 7 if fp.elem_bytes == 2 else 0  # the bf16 instantiations are 12-14
+    return {name: _kernel_info(name, which + shift, fp.smem_bytes)
+            for name, which in names.items()}
 
 
 def _forward_only(name: str, *tensors: torch.Tensor) -> None:
@@ -377,22 +411,23 @@ def _natural_dims(name, value, spatial_shapes, sampling_locations, attention_wei
 
 
 def vmem_footprints(name: str, spatial_shapes: Shapes, P: int, halo: int = 8, block: int = 8,
-                    tile_sizes=None, S_tm: Optional[int] = None) -> Footprints:
-    """The ``Footprints`` of entry ``name`` (``VMEM``, ``VMEM_TM`` or ``VMEM_V3``): natural
-    tiles for ``VMEM``, ``tile_major_perm``'s for the other two, whose token axis must
-    have ``S_tm`` slots."""
+                    tile_sizes=None, S_tm: Optional[int] = None,
+                    elem_bytes: int = 4) -> Footprints:
+    """The ``Footprints`` of entry ``name`` (``VMEM``, ``VMEM_TM`` or ``VMEM_V3``) for value
+    elements of ``elem_bytes``: natural tiles for ``VMEM``, ``tile_major_perm``'s for the
+    other two, whose token axis must have ``S_tm`` slots."""
     shapes = _shape_key(spatial_shapes)
     tiles = tuple(_norm_tiles(tile_sizes, len(shapes)))
     if name == VMEM:
         return footprints(shapes, NATURAL_LOC, natural_tiles(shapes, tiles), int(halo),
-                          int(block), 1, P)
+                          int(block), 1, P, elem_bytes)
     level_info = _tile_major_info(shapes, tiles)
     pos, T, Q = level_info[-1][:3]
     if pos + T * Q != S_tm:
         raise ValueError(f"{name}: the token axis has {S_tm} slots; tile_major_perm of "
                          f"{list(shapes)} with tiles {tile_sizes} gives {pos + T * Q}")
     return footprints(shapes, TM_LOC if name == VMEM_TM else TM_OFF_CELLS, level_info,
-                      int(halo), int(block), 1, P)
+                      int(halo), int(block), 1, P, elem_bytes)
 
 
 @functools.lru_cache(maxsize=64)
@@ -454,16 +489,26 @@ def v3_locations(spatial_shapes: Shapes, offT: torch.Tensor, attnT: torch.Tensor
     return loc, attn
 
 
+def sampler_plain(value, spatial_shapes, sampling_locations, attention_weights):
+    """The footprint entries' exact sampler: B1's plain version; on bf16 value, the value
+    widened to f32 and the output rounded to bf16 once."""
+    if value.dtype == torch.bfloat16:
+        return ms_deform_attn_queries_plain(value.float(), spatial_shapes, sampling_locations,
+                                            attention_weights).to(torch.bfloat16)
+    return ms_deform_attn_queries_plain(value, spatial_shapes, sampling_locations,
+                                        attention_weights)
+
+
 def ms_deform_attn_encoder_vmem_tm_plain(value, spatial_shapes, locT, attnT, tile_sizes=None):
     """B6a's plain version in the tile-major layout -> (B, S, M*D) natural order."""
-    return ms_deform_attn_queries_plain(value, spatial_shapes,
-                                        *tm_locations(spatial_shapes, locT, attnT, tile_sizes))
+    return sampler_plain(value, spatial_shapes,
+                         *tm_locations(spatial_shapes, locT, attnT, tile_sizes))
 
 
 def ms_deform_attn_encoder_vmem_v3_plain(value, spatial_shapes, offT, attnT, tile_sizes=None):
     """B6b's plain version -> (B, S_tm, M*D) tile-major, every slot (Lq = S_tm)."""
     loc, attn = v3_locations(spatial_shapes, offT, attnT, value.shape[2], tile_sizes)
-    return ms_deform_attn_queries_plain(value, spatial_shapes, loc, attn)
+    return sampler_plain(value, spatial_shapes, loc, attn)
 
 
 # ---------------------------------------------------------------------------
@@ -488,9 +533,9 @@ def ms_deform_attn_encoder_vmem(
     B, S, Lq, M, D, L, P = _natural_dims(VMEM, value, spatial_shapes, sampling_locations,
                                          attention_weights)
     if _on_cpu(value, sampling_locations, attention_weights):
-        return ms_deform_attn_queries_plain(value, spatial_shapes, sampling_locations,
-                                            attention_weights)
-    fp = vmem_footprints(VMEM, spatial_shapes, P, halo, block, tile_sizes)
+        return sampler_plain(value, spatial_shapes, sampling_locations, attention_weights)
+    fp = vmem_footprints(VMEM, spatial_shapes, P, halo, block, tile_sizes,
+                         elem_bytes=value.element_size())
     return _launch(VMEM, fp, value, sampling_locations, attention_weights, (B, S, M * D), P, S)
 
 
@@ -514,7 +559,8 @@ def ms_deform_attn_encoder_vmem_tm(
         raise ValueError(f"{VMEM_TM}: shape mismatch {tuple(locT.shape)} / "
                          f"{tuple(attnT.shape)} for value {tuple(value.shape)} and "
                          f"{list(spatial_shapes)}")
-    fp = vmem_footprints(VMEM_TM, spatial_shapes, P, halo, block, tile_sizes, S_tm)
+    fp = vmem_footprints(VMEM_TM, spatial_shapes, P, halo, block, tile_sizes, S_tm,
+                         value.element_size())
     if _on_cpu(value, locT, attnT):
         return ms_deform_attn_encoder_vmem_tm_plain(value, spatial_shapes, locT, attnT,
                                                     tile_sizes)
@@ -544,7 +590,8 @@ def ms_deform_attn_encoder_vmem_v3(
         raise ValueError(f"{VMEM_V3}: shape mismatch {tuple(offT.shape)} / "
                          f"{tuple(attnT.shape)} for value {tuple(value.shape)} and "
                          f"{list(spatial_shapes)}")
-    fp = vmem_footprints(VMEM_V3, spatial_shapes, P, halo, block, tile_sizes, S_tm)
+    fp = vmem_footprints(VMEM_V3, spatial_shapes, P, halo, block, tile_sizes, S_tm,
+                         value.element_size())
     if _on_cpu(value, offT, attnT):
         return ms_deform_attn_encoder_vmem_v3_plain(value, spatial_shapes, offT, attnT,
                                                     tile_sizes)

@@ -3,13 +3,18 @@
     python -m gomatching_tpu_torch.tools.bench_deform_attn [--size 1000x1778] [--batch 3]
         [--halo 5] [--block 8] [--impl gather,encoder,merged,vmem,vmem_tm,vmem_v3,fused]
         [--tilesets "8x16,8x16,8x16,8x16;16x16,16x16,16x16,16x16"] [--offset-cells 3]
-        [--seed 0] [--iters 10] [--cpu]
+        [--seed 0] [--iters 10] [--dtype bfloat16] [--cpu]
 
 The port's counterpart of tools/bench_deform_attn.py and of tools/bench_vmem_v2.py's
 tile sweep. Encoder self-attention at the levels of a ``--size`` input (strides 8-64),
 M = 8 heads of D = 32, L = P = 4, on one seeded input: value, reference points plus
 uniform offsets of up to ``--offset-cells`` target cells, and attention normalized over
-(L, P). Each implementation gets the same samples in its own layout:
+(L, P). ``--dtype`` bfloat16 (the default) makes the inputs in JAX's benchmark's dtypes
+(tools/bench_deform_attn.py:30-50): value and attention rounded to bf16, locations and
+offsets f32; every sampler then runs its bf16-value kernel, and the attention goes in
+widened exactly to f32, as the kernels take their weights (JAX's kernels widen it too).
+``--dtype float32`` keeps everything f32, as the port's earlier records were taken. Each
+implementation gets the same samples in its own layout:
 
   gather   B1, ``ms_deform_attn_queries`` (normalized locations)
   encoder  B2, ``ms_deform_attn_encoder`` (offsets in cells, logits = log attention)
@@ -22,9 +27,12 @@ uniform offsets of up to ``--offset-cells`` target cells, and attention normaliz
 ``--tilesets`` (``;``-separated, one ``TYxTX`` per level) sweeps the query tiles of vmem,
 vmem_tm and vmem_v3. For each run it prints ms per call (CUDA events, median of 5
 windows of ``--iters`` calls), max |output - exact| against B1's plain version
-(``grid_sample``) on the same inputs (vmem_v3 on its real tokens), and for the
-footprint entries the share of in-map corner taps read from shared memory per (source,
-target) level pair. It runs on the current CUDA device and raises without one;
+(``grid_sample``) in f32 on the same (bf16-valued) inputs (vmem_v3 on its real tokens; B2
+on the attention its softmax of the logits gives);
+in bf16 also the most an output exceeds one rounding of the exact value
+(``round_excess``: |output - exact| - (2**-8 |exact| + 3e-5), <= 0 when every output is
+within half a bf16 ulp plus the f32 sums' reordering); and for the footprint entries the
+share of in-map corner taps read from shared memory per (source, target) level pair. It runs on the current CUDA device and raises without one;
 ``--cpu`` runs the plain versions at a small default size (times are then the CPU's).
 ``main(argv)`` returns the results as a dict.
 """
@@ -48,6 +56,7 @@ from gomatching_tpu_torch.ops import deform_attn_vmem as dav
 IMPLS = ("gather", "encoder", "merged", "vmem", "vmem_tm", "vmem_v3", "fused")
 SWEPT = ("vmem", "vmem_tm", "vmem_v3")  # the implementations --tilesets applies to
 M, D, P = 8, 32, 4
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def level_shapes(h: int, w: int):
@@ -61,7 +70,8 @@ def parse_tilesets(spec: str):
 
 def make_inputs(shapes, B: int, offset_cells: float, seed: int):
     """value (B, S, M, D); offsets (B, S, M, L, P, 2) in target cells; locations =
-    reference + offsets / (W, H); attention (B, S, M, L, P) normalized over (L, P)."""
+    reference + offsets / (W, H); attention (B, S, M, L, P) normalized over (L, P); all
+    f32 numpy arrays."""
     rng = np.random.RandomState(seed)
     L, S = len(shapes), sum(h * w for h, w in shapes)
     value = rng.randn(B, S, M, D).astype(np.float32)
@@ -157,6 +167,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--offset-cells", type=float, default=3.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
+                    help="value and attention: bf16 as JAX's benchmark, or f32")
     ap.add_argument("--cpu", action="store_true", help="run the plain versions on the CPU")
     args = ap.parse_args(argv)
 
@@ -165,24 +177,42 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     shapes = level_shapes(*(int(x) for x in size.split("x")))
     impls = [i for i in args.impl.split(",") if i]
     tilesets = parse_tilesets(args.tilesets)
+    dtype = DTYPES[args.dtype]
     value, off, loc, attn = (torch.from_numpy(a).to(device) for a in make_inputs(
         shapes, args.batch, args.offset_cells, args.seed))
+    # JAX's dtypes: value and attention in bf16 (the kernels take the attention widened)
+    value = value.to(dtype)
+    attn = attn.to(dtype).float()
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "CPU (plain versions)")
     print(f"levels={shapes} S={value.shape[1]} B={args.batch} M={M} D={D} P={P} "
-          f"halo={args.halo} block={args.block} offsets<={args.offset_cells} cells on {where}")
+          f"halo={args.halo} block={args.block} offsets<={args.offset_cells} cells, value "
+          f"{args.dtype}, on {where}")
     results: List[Dict] = []
     with torch.no_grad():
-        want = da.ms_deform_attn_queries_plain(value, shapes, loc, attn)
+        want = da.ms_deform_attn_queries_plain(value.float(), shapes, loc, attn)
+        # B2 softmaxes its logits (log attention): the attention it samples with is
+        # normalized again, which moves bf16-rounded attention off its sum of 1
+        enc_attn = attn.log().flatten(-2).softmax(-1).view(attn.shape)
+        want_enc = da.ms_deform_attn_queries_plain(value.float(), shapes, loc, enc_attn)
         for impl in impls:
             for tiles in (tilesets if impl in SWEPT else [None]):
                 call, to_natural, fp, fp_loc = layouts(impl, shapes, tiles, value, off, loc,
                                                        attn, args.halo, args.block)
-                err = (to_natural(call()) - want).abs().max().item()
+                out = to_natural(call())
+                if out.dtype != dtype:
+                    raise RuntimeError(f"{impl}: a {out.dtype} output from {dtype} value")
+                exact = want_enc if impl == "encoder" else want
+                diff = (out.float() - exact).abs()
+                err = diff.max().item()
                 ms = time_ms(call, device, args.iters)
-                res = dict(impl=impl, tiles=tiles, ms=ms, max_abs_err=err)
+                res = dict(impl=impl, tiles=tiles, dtype=args.dtype, ms=ms, max_abs_err=err)
                 line = f"{impl:8s} " + (f"tiles={'/'.join(f'{a}x{b}' for a, b in tiles)} "
                                         if tiles else "") + f"{ms:9.4f} ms/call  max|err| {err:.3e}"
+                if dtype == torch.bfloat16:
+                    res["round_excess"] = (diff - (2.0**-8 * exact.abs() + 3e-5)).max().item()
+                    line += f"  round_excess {res['round_excess']:.3e}"
+                del out, diff
                 if fp is not None:
                     share = dav.staged_share(fp, shapes, fp_loc)
                     smem, taps = (sum(v[k] for v in share.values()) for k in (0, 1))
@@ -193,7 +223,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                     line += f"  staged {100 * smem / max(taps, 1):.1f}% of corner taps ({pairs})"
                 print(line, flush=True)
                 results.append(res)
-    return {"shapes": shapes, "batch": args.batch, "device": where, "results": results}
+    return {"shapes": shapes, "batch": args.batch, "dtype": args.dtype, "device": where,
+            "results": results}
 
 
 if __name__ == "__main__":

@@ -35,8 +35,7 @@ iterations and at the last.
 Pretraining runs f32 whatever ``MODEL.PRECISION`` says, as JAX's does.
 
 Both run on the CUDA card unless ``--cpu``. Not in the port yet (each raises
-``NotImplementedError``): ``TPU.SAMPLING_IMPL`` pallas with ``MODEL.PRECISION`` bfloat16
-(ROADMAP A13c), ``MODEL.META_ARCHITECTURE TransformerPureVideoDetector`` (video
+``NotImplementedError``): ``MODEL.META_ARCHITECTURE TransformerPureVideoDetector`` (video
 pretraining, A11b), Swin/ViTAEv2 backbones (A10), ``--num-gpus`` > 1 (A12), FREEZE_TYPEs
 that train more than ``roi_heads``, and ``--resume`` of spotter pretraining.
 """

@@ -1,8 +1,9 @@
 """The port refuses config values it would otherwise ignore, and accepts those it reads.
 
-``TPU.SAMPLING_IMPL`` pallas with ``MODEL.PRECISION`` bfloat16 raises NotImplementedError
-(B5 has no bf16 variant yet, ROADMAP A13c) before any weight is built, in the predictor
-and in the tracker trainer. The shipped configs still build a predictor and a trainer.
+``TPU.SAMPLING_IMPL`` pallas with ``MODEL.PRECISION`` bfloat16 builds a predictor and a
+tracker trainer whose frozen spotter is bf16 and samples through B5 on bf16 value
+(tests/test_torch_pallas_bf16.py holds that path against JAX). The shipped configs still
+build a predictor and a trainer.
 The tracker trainer refuses the freeze policies that train more than ``roi_heads``; it
 reads neither of the inference keys ``TPU.ASSOC_PRECISION`` and ``TPU.UPLOAD_FORMAT``, as
 JAX's ``Trainer`` does not, so it builds with both at their production values. The
@@ -25,17 +26,24 @@ def _cfg(name, *opts):
 
 
 @pytest.mark.parametrize("build", ["predictor", "trainer"])
-def test_pallas_bf16_is_refused(build):
-    """'pallas' with MODEL.PRECISION bfloat16 raises NotImplementedError naming A13c."""
+def test_pallas_bf16_builds(build):
+    """'pallas' with MODEL.PRECISION bfloat16 builds at full width: the frozen spotter in
+    bf16, every deformable-attention layer on 'pallas' (B5 and its table on bf16 value)."""
+    import torch
+
     from gomatching_tpu_torch.engine.predictor import VideoPredictor
     from gomatching_tpu_torch.engine.train import Trainer
+    from gomatching_tpu_torch.models.spotter import MSDeformAttn
 
     opts = ["MODEL.PRECISION", "bfloat16", "TPU.SAMPLING_IMPL", "pallas"]
-    with pytest.raises(NotImplementedError, match=r"TPU\.SAMPLING_IMPL='pallas'.*ROADMAP A13c"):
-        if build == "predictor":
-            VideoPredictor(_cfg("GoMatching_PP_ICDAR15", *opts), device="cpu")
-        else:
-            Trainer(_train_cfg("GoMatching_PP_ICDAR15", *opts), device="cpu")
+    if build == "predictor":
+        model = VideoPredictor(_cfg("GoMatching_PP_ICDAR15", *opts), device="cpu").model
+    else:
+        model = Trainer(_train_cfg("GoMatching_PP_ICDAR15", *opts), device="cpu").model
+    assert model.compute_dtype == torch.bfloat16
+    attns = [m for m in model.modules() if isinstance(m, MSDeformAttn)]
+    assert len(attns) == 12 and all(m.sampling_impl == "pallas" for m in attns)
+    assert all(p.dtype == torch.bfloat16 for m in attns for p in m.parameters())
 
 
 @pytest.mark.parametrize("name", ["GoMatching_ICDAR15", "GoMatching_PP_ICDAR15"])

@@ -292,7 +292,8 @@ def test_bench_tool_on_cpu():
     from gomatching_tpu_torch.tools import bench_deform_attn as bench
 
     res = bench.main(["--cpu", "--size", "48x64", "--batch", "1", "--iters", "1",
-                      "--halo", "2", "--tilesets", "8x16,8x16,8x16,8x16;8x8,8x8,8x8,8x8"])
+                      "--halo", "2", "--tilesets", "8x16,8x16,8x16,8x16;8x8,8x8,8x8,8x8",
+                      "--dtype", "float32"])
     impls = [r["impl"] for r in res["results"]]
     assert impls == ["gather", "encoder", "merged", "vmem", "vmem", "vmem_tm", "vmem_tm",
                      "vmem_v3", "vmem_v3", "fused"]

@@ -325,7 +325,7 @@ def test_train_net_cli_trains_and_writes_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--task", "tracker", "--opts", "MODEL.PRECISION", "bfloat16", "TPU.SAMPLING_IMPL", "pallas"),
+    ("--task", "tracker", "--opts", "MODEL.BACKBONE.NAME", "build_vitaev2_backbone"),
     ("--num-gpus", "2"),
     ("--resume",),
     ("--opts", "MODEL.META_ARCHITECTURE", "TransformerPureVideoDetector"),
@@ -335,9 +335,9 @@ def test_train_net_cli_trains_and_writes_a_checkpoint(tmp_path):
 ])
 def test_train_net_refuses_what_is_not_ported(tmp_path, extra):
     """What neither task ports yet raises NotImplementedError before any step: for
-    tracker training the 'pallas' sampler in bf16 (A13c), a freeze policy that trains more
-    than roi_heads and data parallelism (A12); for pretraining data parallelism,
-    --resume, video pretraining (A11b) and the Swin backbone (A10)."""
+    tracker training the ViTAEv2 backbone (A10), a freeze policy that trains more than
+    roi_heads and data parallelism (A12); for pretraining data parallelism, --resume,
+    video pretraining (A11b) and the Swin backbone (A10)."""
     from gomatching_tpu_torch import train_net
 
     task = "spotter"
