@@ -169,6 +169,22 @@ Phases (any failure exits non-zero and prints no result line):
      MODEL.PRECISION bfloat16 and TPU.TRAIN_UPLOAD_FORMAT yuv420 on phase 16's dataset:
      finite losses, B5 bf16 and its table launched ENC_LAYERS + DEC_LAYERS times a clip and
      nothing else, an f32 checkpoint in which only roi_heads moved.
+ 22. the other corpora: ``gomatching_tpu_torch.eval.main`` (the CLI's entry point) on
+     configs/GoMatching_DSText.yaml, GoMatching_BOVText.yaml (its 5462-way text head
+     decoded through a CUSTOM_DICT table of 5461 codepoints that the phase writes) and
+     GoMatching_ArTVideo.yaml at full width in the production configuration (bf16 + I420,
+     the default sampler), each over a JPEG tree of phase 4's frames in the corpus's layout
+     (DSText and BOVText <root>/<Cls>/<video>, ArTVideo flat; a warm-up video, then one
+     timed video, N_REPEATS on DSText), decoded on eval's prefetch thread: B2 and B1 on bf16
+     value launched ENC_LAYERS and DEC_LAYERS times a spot batch and no other sampler,
+     XML/JSON parsed back, frames/s through eval (and the time its consumer waited for
+     decoded frames) and over the frames in memory (median of N_REPEATS), device time per
+     clip with B1's and B2's shares, busy share, peak memory; on DSText (1280x2276, 300 x 25 decoder queries) one spot batch with
+     the kernels against the plain bf16 samplers within PATH_ULPS, the samplers' shapes
+     checked; each corpus's results scored by ``gomatching_tpu_torch.tools.eval_tracking``
+     against a GT written from them in each of its protocol modes (MOTA = IDF1 = 1, hmean
+     1), then with one track's id changed from its middle frame on (1 ID switch);
+     ``--show`` on one BOVText video (every frame drawn into vis/).
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1, T2, B1 and B2 on bf16 value, and B5, its table build and the four B6 entries
 on bf16 value); the last is {"ok": true, "device": {...}}.
@@ -3016,6 +3032,297 @@ def phase_pallas_tracker(torch, da, tmp):
           f"roi_heads; peak memory {peak / 2**30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the other corpora on the card
+# ---------------------------------------------------------------------------
+
+# GoMatching (the LST-Matcher) on the three other corpora: (input root's name, class
+# directory or '' for a flat tree, videos, detection threshold). The input root carries
+# the corpus's name, since eval.list_videos routes on it: DSText and BOVText trees are
+# <root>/<Cls>/<video>/<n>.jpg, ArTVideo's <root>/<video>/<n>.jpg. The first video of each
+# tree is the warm-up; DSText times N_REPEATS more. DSText and BOVText have no rescoring
+# head (WITH_RESR False), so their seeded random classifiers score near the 0.01 prior
+# and none passes 0.05 (phase 21): 0.005 lets detections reach NMS, the matchers and the
+# tracker; ArTVideo has the head, and takes ICDAR15's 0.05 (phases 4, 18)
+CORPORA = {
+    "configs/GoMatching_DSText.yaml": ("DSText", "Cls1_Game", 1 + N_REPEATS, "0.005"),
+    "configs/GoMatching_BOVText.yaml": ("BOVText", "Cls2_News", 2, "0.005"),
+    "configs/GoMatching_ArTVideo.yaml": ("ArTVideo", "", 2, "0.05"),
+}
+# the protocol modes of each corpus's scorer (gomatching_tpu_torch.tools.eval_tracking)
+SCORER_MODES = {
+    "DSText": ([], ["--e2e"], ["--det"]),
+    "BOVText": (["--bovtext"], ["--bovtext", "--e2e"]),
+    "ArTVideo": ([], ["--curve"], ["--e2e"]),
+}
+
+
+def write_char_table(path):
+    """A BOVText CUSTOM_DICT (``chn_cls_list`` is not in the repository): 5461 codepoints,
+    ASCII letters and digits, then CJK from U+4E00 (no '#', a don't-care mark to the
+    protocols)."""
+    import pickle
+
+    ascii_ = [ord(c) for c in "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"]
+    table = ascii_ + list(range(0x4E00, 0x4E00 + 5461 - len(ascii_)))
+    with open(path, "wb") as f:
+        pickle.dump(table, f)
+
+
+def write_corpus_tree(tmp, corpus, cls, n_videos, frames):
+    """The frames as JPEGs, one copy a video, in the corpus's layout; returns the input
+    root and the video names in the order eval processes them."""
+    import cv2
+
+    root = os.path.join(tmp, "videos", corpus)
+    names = [f"{cls or corpus}_video_{k}" for k in range(1, n_videos + 1)]
+    for name in names:
+        vdir = os.path.join(root, cls, name)
+        os.makedirs(vdir)
+        for i, f in enumerate(frames):
+            cv2.imwrite(os.path.join(vdir, f"{i + 1}.jpg"), f)
+    return root, names
+
+
+def artvideo_gt(xml_path, hw):
+    """ArTVideo GT JSON from a result XML: each object's points, its mask as a compressed
+    COCO RLE (rasterized as the scorer rasterizes the result's polygons), text type
+    Curved, and its transcription."""
+    import xml.etree.ElementTree as ET
+
+    import cv2
+
+    from gomatching_tpu_torch.evaluation import rle
+
+    root = ET.parse(xml_path).getroot()
+    anns = []
+    for fr in root:
+        for obj in fr:
+            pts = [float(v) for p in obj for v in (p.attrib["x"], p.attrib["y"])]
+            mask = np.zeros(hw, np.uint8)
+            cv2.fillPoly(mask, [np.array(pts, np.float32).astype(np.int32).reshape(-1, 2)], 1)
+            seg = rle.encode(mask, compressed=True)
+            anns.append({"frame_id": int(fr.attrib["ID"]), "obj_id": int(obj.attrib["ID"]),
+                         "point": pts, "text_type": "Curved",
+                         "transcription": obj.attrib["Transcription"],
+                         "segmentation": dict(seg, counts=seg["counts"].decode("ascii"))})
+    return {"frame": [{"height": hw[0], "width": hw[1]} for _ in root], "annotations": anns}
+
+
+def switch_one_track(objects):
+    """``objects``: [(frame, object dict with "ID")] of one video. The track with the
+    most frames takes a new id from its middle frame on; returns (track, new id, frame)."""
+    frames_of = {}
+    for frame, obj in objects:
+        frames_of.setdefault(int(obj["ID"]), []).append(frame)
+    track = max(sorted(frames_of), key=lambda t: len(frames_of[t]))
+    check(len(frames_of[track]) >= 2, "phase 22: no track spans two frames")
+    start = sorted(frames_of[track])[len(frames_of[track]) // 2]
+    new_id = max(frames_of) + 1000
+    for frame, obj in objects:
+        if int(obj["ID"]) == track and frame >= start:
+            obj["ID"] = str(new_id) if isinstance(obj["ID"], str) else new_id
+    return track, new_id, start
+
+
+def score_corpus(corpus, out_dir, names, tmp, hw=(720, 1280)):
+    """Score eval's results for ``names`` with the port's tools.eval_tracking against a GT
+    written from those same results, in each protocol mode of the corpus: MOTA = IDF1 =
+    1 (hmean 1 under --det); then the results with one track of the first video taking a
+    new id from its middle frame on: 1 ID switch. Returns {mode: metrics}."""
+    import shutil
+    import xml.etree.ElementTree as ET
+
+    from gomatching_tpu_torch.tools import eval_tracking
+
+    preds, jsons = os.path.join(out_dir, "preds"), os.path.join(out_dir, "jsons")
+    gt, res, switched = (os.path.join(tmp, f"score_{corpus}", d) for d in ("gt", "res", "sw"))
+    for d in (gt, res, switched):
+        os.makedirs(d)
+    for name in names:
+        if corpus == "BOVText":  # <gt>/<Cls>/<video>.json, results <res>/<video>.json
+            cls_dir = os.path.join(gt, name.rsplit("_video_", 1)[0])
+            os.makedirs(cls_dir, exist_ok=True)
+            shutil.copy(os.path.join(jsons, f"{name}.json"), cls_dir)
+            shutil.copy(os.path.join(jsons, f"{name}.json"), res)
+            with open(os.path.join(jsons, f"{name}.json"), encoding="utf-8") as f:
+                js = json.load(f)
+            if name == names[0]:
+                switch_one_track([(int(fid), o) for fid, objs in js.items() for o in objs])
+            with open(os.path.join(switched, f"{name}.json"), "w", encoding="utf-8") as f:
+                json.dump(js, f, ensure_ascii=False)
+            continue
+        xml = os.path.join(preds, f"res_{name}.xml")
+        for ext in ("xml", "txt"):
+            shutil.copy(os.path.join(preds, f"res_{name}.{ext}"), res)
+        if corpus == "ArTVideo":
+            with open(os.path.join(gt, f"{name}.json"), "w", encoding="utf-8") as f:
+                json.dump(artvideo_gt(xml, hw), f, ensure_ascii=False)
+        else:  # ICDAR-style GT: <video>.xml and its track transcriptions <video>.txt
+            for ext in ("xml", "txt"):
+                shutil.copy(os.path.join(preds, f"res_{name}.{ext}"),
+                            os.path.join(gt, f"{name}.{ext}"))
+        tree = ET.parse(xml)
+        if name == names[0]:
+            switch_one_track([(int(fr.attrib["ID"]), obj.attrib) for fr in tree.getroot()
+                              for obj in fr])
+        tree.write(os.path.join(switched, f"res_{name}.xml"), encoding="utf-8")
+    out = {}
+    for flags in SCORER_MODES[corpus]:
+        mode = " ".join(flags) or "tracking"
+        with contextlib.redirect_stdout(sys.stderr):  # the summary tables, beside the log
+            m = eval_tracking.main(["--gt", gt, "--res", res, *flags])
+        out[mode] = m
+        if "--det" in flags:
+            check(m["hmean"] == 1.0 and m["num_det"] > 0, f"phase 22: {corpus} {mode} self-score {m}")
+        else:
+            check(m["MOTA"] == 1.0 and m["IDF1"] == 1.0 and m["IDSW"] == 0,
+                  f"phase 22: {corpus} {mode} self-score {m}")
+    flags = [f for f in SCORER_MODES[corpus][0] if f != "--e2e"]
+    with contextlib.redirect_stdout(sys.stderr):
+        m = eval_tracking.main(["--gt", gt, "--res", switched, *flags])
+    out["one id switched"] = m
+    check(m["IDSW"] == 1 and m["MOTA"] < 1.0, f"phase 22: {corpus} with one track's id "
+          f"switched: {m}")
+    return out
+
+
+def phase_corpora(torch, da, tmp, card):
+    """Phase 22: the other corpora on the card. ``gomatching_tpu_torch.eval.main`` in the
+    production configuration (MODEL.PRECISION bfloat16, TPU.UPLOAD_FORMAT yuv420, the
+    default sampler) at full width on GoMatching DSText, BOVText and ArTVideo over JPEG
+    trees of phase 4's frames that this phase writes: B2 and B1 on bf16 value launched
+    ENC_LAYERS and DEC_LAYERS times a spot batch and no other sampler; frames/s, device
+    time per clip, busy share and peak memory; on DSText one spot batch with the kernels
+    against the plain bf16 samplers (PATH_ULPS) at its shapes (1280x2276, 300 x 25
+    decoder queries); the results scored against themselves and with one id switched;
+    ``--show`` on one BOVText video."""
+    import xml.etree.ElementTree as ET
+
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+    from gomatching_tpu_torch import eval as port_eval
+    from gomatching_tpu_torch.data.preprocess import compute_test_size
+
+    write_char_table(os.path.join(tmp, "chn_cls_list"))
+    frames = synthetic_frames()
+    for config, (corpus, cls, n_videos, thresh) in CORPORA.items():
+        root, names = write_corpus_tree(tmp, corpus, cls, n_videos, frames)
+        opts = ["MODEL.WEIGHTS", "''", "MODEL.TRANSFORMER.INFERENCE_TH_TEST", thresh,
+                "SEED", "0", *PROD_OPTS]
+        if corpus == "BOVText":
+            opts += ["MODEL.TRANSFORMER.CUSTOM_DICT", os.path.join(tmp, "chn_cls_list")]
+        out_dir = os.path.join(tmp, f"eval_{corpus}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.reset_launch_counts()
+        res = port_eval.main(["--config-file", config, "--input", root, "--output", out_dir,
+                              "--opts", *opts])
+        torch.cuda.synchronize()
+        counts = dict(da.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        predictor = res["predictor"]
+        cfg = predictor.cfg
+        t = cfg.MODEL.TRANSFORMER
+        check(predictor.model.compute_dtype == torch.bfloat16
+              and predictor.assoc_dtype == torch.bfloat16 and predictor.upload_format == "yuv420"
+              and cfg.TPU.SAMPLING_IMPL == "vmem" and predictor.model.roi_heads.variant == "lst",
+              f"phase 22: {config} is not GoMatching's production path")
+        check(list(res["videos"]) == names, f"phase 22: eval read {list(res['videos'])}, the "
+              f"tree holds {names}")
+        n_batches = sum(-(-n // predictor.spot_batch) for n, _ in res["videos"].values())
+        want = {**{name: 0 for name in counts}, da.ENCODER_BF16: t.ENC_LAYERS * n_batches,
+                da.QUERIES_BF16: t.DEC_LAYERS * n_batches}
+        check(counts == want, f"phase 22: {config} launched {counts}, expected {want}")
+        fps = sorted(n / s for n, s in list(res["videos"].values())[1:])
+        th, tw = compute_test_size(720, 1280, cfg.INPUT.MIN_SIZE_TEST, cfg.INPUT.MAX_SIZE_TEST)
+        n_obj = 0
+        for name in names:
+            xml_root = ET.parse(os.path.join(out_dir, "preds", f"res_{name}.xml")).getroot()
+            with open(os.path.join(out_dir, "jsons", f"{name}.json"), encoding="utf-8") as fp:
+                js = json.load(fp)
+            objs = sum(len(fr) for fr in xml_root)
+            check(xml_root.tag == "Frames" and len(js) == N_FRAMES
+                  and objs == sum(len(v) for v in js.values()),
+                  f"phase 22: {name}'s XML and JSON disagree")
+            n_obj += objs
+        check(n_obj > 0, f"phase 22: {config} wrote no object")
+        texts = [o.attrib["Transcription"] for name in names for fr in ET.parse(
+            os.path.join(out_dir, "preds", f"res_{name}.xml")).getroot() for o in fr]
+        if corpus == "BOVText":
+            cjk = sum(any(ord(c) >= 0x4E00 for c in s) for s in texts)
+            check(cjk > 0, "phase 22: no CJK transcription came through the BOVText table")
+        print(f"[22] {config} ({corpus}, {len(names)} videos of {N_FRAMES} frames 720x1280 -> "
+              f"{th}x{tw}, {t.NUM_QUERIES} queries, VOC_SIZE {t.VOC_SIZE}, WITH_RESR "
+              f"{cfg.MODEL.ROI_HEADS.WITH_RESR}) through eval.main with {' '.join(PROD_OPTS)}, "
+              f"detection threshold {thresh}: {n_obj} XML objects"
+              + (f", {cjk} of {len(texts)} transcriptions with CJK" if corpus == "BOVText" else "")
+              + f"; launches {counts} ({n_batches} spot batches)")
+        print(f"[22] {config}: {fps[len(fps) // 2]:.3f} frames/s "
+              + (f"(median of {len(fps)} timed videos; min {fps[0]:.3f}, max {fps[-1]:.3f}) "
+                 if len(fps) > 1 else "(one timed video after a warm-up) ")
+              + f"through eval.main with prefetched JPEG decode; peak memory "
+              f"{peak / 2**30:.2f} GiB; {card}")
+        tc = res["time_cost"]
+        waited = tc["total_time"] - sum(v for k, v in tc.items() if k != "total_time")
+        print(f"[22] time_cost {tc}; outside the stage buckets (chiefly the wait for "
+              f"decoded frames): {waited:.3f} s of {tc['total_time']:.3f}, "
+              f"{1e3 * waited / sum(n for n, _ in res['videos'].values()):.1f} ms a frame")
+        # the same predictor over the frames in memory (no JPEG decode), as phases 4, 18, 21
+        phase_main(torch, predictor, da, "[22]", {da.ENCODER_BF16: t.ENC_LAYERS,
+                                                   da.QUERIES_BF16: t.DEC_LAYERS})
+        rows, wall = phase_profile(torch, predictor, "[22]", shares=[
+            ("B2 bf16", "ms_deform_attn_encoder_bf16_kernel("),
+            ("B1 bf16", "ms_deform_attn_queries_bf16_kernel(")])
+        if rows:
+            busy = sum(r[0] for r in rows) / 1e3
+            print(f"[22] {config}: device time per {N_FRAMES}-frame clip {busy:.1f} ms, busy "
+                  f"{100 * busy / (wall * 1e3):.1f}% of the profiled wall; {card}")
+        if corpus == "DSText":
+            seen = set()
+            queries, encoder = spotter_mod.ms_deform_attn_queries, spotter_mod.ms_deform_attn_encoder
+
+            def record(fn):
+                def call(value, spatial_shapes, loc, attn):
+                    seen.add((fn.__name__, tuple(tuple(int(x) for x in hw) for hw in spatial_shapes),
+                              loc.shape[1], value.dtype))
+                    return fn(value, spatial_shapes, loc, attn)
+                return call
+
+            with patched(spotter_mod, ms_deform_attn_queries=record(queries),
+                         ms_deform_attn_encoder=record(encoder)):
+                bf16_spot_vs_plain(torch, predictor, da, tag="[22]")
+            S = sum(h * w for h, w in DS_SHAPES)
+            want_seen = {("ms_deform_attn_encoder", tuple(DS_SHAPES), S, torch.bfloat16),
+                         ("ms_deform_attn_queries", tuple(DS_SHAPES), DS_QUERIES, torch.bfloat16)}
+            check(seen == want_seen, f"phase 22: DSText's samplers saw {seen}, expected {want_seen}")
+            print(f"[22] {config}: B2 bf16 samples levels {DS_SHAPES} (S = {S}), B1 bf16 "
+                  f"{DS_QUERIES} decoder queries a frame ({DS_QUERIES // (NQ * NPTS)}x ICDAR15's)")
+        scores = score_corpus(corpus, out_dir, names, tmp)
+        for mode, m in scores.items():
+            keys = ("precision", "recall", "hmean") if "hmean" in m else ("MOTA", "IDF1", "IDSW")
+            print(f"[22] {corpus} scored by tools.eval_tracking, {mode}: "
+                  + ", ".join(f"{k} {m[k]}" for k in keys))
+        if corpus == "BOVText":
+            show_root, show_names = write_corpus_tree(os.path.join(tmp, "show"), corpus, cls, 1,
+                                                      frames)
+            show_out = os.path.join(tmp, "show_out")
+            port_eval.main(["--config-file", config, "--input", show_root, "--output", show_out,
+                            "--show", "--opts", *opts])
+            vis = os.path.join(show_out, "vis", show_names[0])
+            drawn = sorted(os.listdir(vis), key=lambda x: int(x.split(".")[0]))
+            check(drawn == [f"{i + 1}.jpg" for i in range(N_FRAMES)],
+                  f"phase 22: --show drew {drawn}")
+            with open(os.path.join(show_out, "preds", f"res_{show_names[0]}.xml"), "rb") as f:
+                shown = f.read()
+            with open(os.path.join(out_dir, "preds", f"res_{names[0]}.xml"), "rb") as f:
+                same = f.read() == shown
+            print(f"[22] --show on {show_names[0]}: {len(drawn)} frames drawn into vis/; its XML "
+                  f"{'the same bytes as' if same else 'DIFFERENT from'} the prefetched run's on "
+                  "the same video (the same seeded weights and frames)")
+        del predictor, res
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3116,6 +3423,9 @@ def main():
         bf16_more_records = phase_bf16_samplers(torch, da, dam, dav, daf)
         pallas_counts = phase_pallas_production(torch, da, dam)
         phase_pallas_tracker(torch, da, tmp)
+
+        # the other corpora: GoMatching DSText, BOVText and ArTVideo through eval.main
+        phase_corpora(torch, da, tmp, card)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},

@@ -8,14 +8,14 @@ Same flags and output tree as the repository's root ``eval.py`` (reference eval.
 <output>/preds/res_*.xml, <output>/jsons/*.json, <output>/preds/res_*.txt. Runs on the
 current CUDA device; ``--cpu`` runs on the CPU. ``MODEL.WEIGHTS`` names the JAX
 package's ``.npz`` params or a torch checkpoint, or is '' for seeded random weights.
-``--profile-dir`` writes a ``torch.profiler`` Chrome trace there. ``--show``
-(visualizations) is not ported yet.
+Frames are decoded on a background thread (``utils.prefetch``), except under ``--show``,
+which keeps every frame and draws the tracks into <output>/vis/<video>/<n>.jpg.
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace there.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import time
 from glob import glob
@@ -27,7 +27,7 @@ def get_parser():
     p.add_argument("--cpu", action="store_true", help="Run on the CPU")
     p.add_argument("--input", nargs="+", help="Directory of video frame dirs")
     p.add_argument("--output", required=True)
-    p.add_argument("--show", action="store_true", help="Save visualizations (not ported yet)")
+    p.add_argument("--show", action="store_true", help="Save visualizations")
     p.add_argument("--profile-dir", default="",
                    help="Write a torch.profiler Chrome trace into this directory")
     p.add_argument("--opts", default=[], nargs=argparse.REMAINDER)
@@ -66,37 +66,24 @@ def annotate(predictor, tracked):
     return annotation
 
 
-@contextlib.contextmanager
-def _profile(profile_dir: str):
-    if not profile_dir:
-        yield
-        return
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
-
-
 def main(argv=None):
+    """Run the CLI; returns the predictor, the ``time_cost`` buckets and each processed
+    video's (frames, seconds)."""
     args = get_parser().parse_args(argv)
-    if args.show:
-        raise SystemExit("--show is not ported to the PyTorch package yet")
 
     import cv2
 
     from .config import setup_eval_cfg
     from .engine.predictor import VideoPredictor
+    from .evaluation.visualizer import save_tracked_video_frames
     from .evaluation.writer import write_track_transcriptions, write_video_results
+    from .utils.prefetch import prefetch_iter
+    from .utils.profiling import device_trace, fps_report, new_time_cost
 
     cfg = setup_eval_cfg(args.config_file, args.opts)
     xml_dir = os.path.join(args.output, "preds")
     json_dir = os.path.join(args.output, "jsons")
-    for d in (xml_dir, json_dir):
+    for d in (xml_dir, json_dir, os.path.join(args.output, "results")):
         os.makedirs(d, exist_ok=True)
     preded = {
         os.path.basename(p).split("res_")[-1].split(".xml")[0] for p in glob(xml_dir + "/*.xml")
@@ -106,10 +93,10 @@ def main(argv=None):
     data_type, video_files = list_videos(args.input[0])
 
     predictor = VideoPredictor(cfg, device="cpu" if args.cpu else None)
-    time_cost = {k: 0.0 for k in ("total_time", "pre_process", "detector", "tracker",
-                                  "long_match", "short_match", "post_process")}
+    time_cost = new_time_cost()
     total_frames = 0
-    with _profile(args.profile_dir):
+    videos = {}
+    with device_trace(args.profile_dir):
         for video in video_files:
             video_name = os.path.basename(video).split(".")[0]
             if video_name == "Cls1_Livestreaming_video40" or video_name in preded:
@@ -118,12 +105,21 @@ def main(argv=None):
                 (os.path.join(video, f) for f in os.listdir(video)),
                 key=lambda x: int(os.path.basename(x).split(".")[0]),
             )
-            print(f"processing {video_name}... ({len(img_paths)} frames)")
+            n_frames = len(img_paths)
+            # --show keeps the eager list: the visualizer needs every frame afterwards;
+            # otherwise a background thread decodes ahead of the consumer, at most 128
+            # frames (JAX eval.py:113-125)
+            if args.show:
+                frames = [cv2.imread(p) for p in img_paths]
+            else:
+                frames = prefetch_iter((cv2.imread(p) for p in img_paths), 128)
+            print(f"processing {video_name}... ({n_frames} frames)")
             t0 = time.time()
-            tracked = predictor.process_video((cv2.imread(p) for p in img_paths), time_cost)
+            tracked = predictor.process_video(frames, time_cost)
             elapsed = time.time() - t0
             time_cost["total_time"] += elapsed
-            total_frames += len(img_paths)
+            total_frames += n_frames
+            videos[video_name] = (n_frames, elapsed)
             if data_type == "ICDAR15":
                 parts = video_name.split("_")
                 xml_name = (parts[0] + "_" + parts[1]).replace("V", "v")
@@ -134,13 +130,18 @@ def main(argv=None):
                 os.path.join(json_dir, f"{video_name}.json"),
                 os.path.join(xml_dir, f"res_{xml_name}.xml"),
             )
-            print(f"Video: {video_name} per_img_time: {elapsed / max(len(img_paths), 1):.4f} "
-                  f"FPS: {len(img_paths) / max(elapsed, 1e-9):.2f}")
+            if args.show:
+                save_tracked_video_frames(frames, tracked,
+                                          os.path.join(args.output, "vis", video_name),
+                                          decode_text=predictor.decode_text)
+            print(f"Video: {video_name} per_img_time: {elapsed / max(n_frames, 1):.4f} "
+                  f"FPS: {n_frames / max(elapsed, 1e-9):.2f}")
     write_track_transcriptions(xml_dir)
     if time_cost["total_time"] > 0:
-        print(f"total_time: {time_cost['total_time']:.2f} "
-              f"FPS: {total_frames / time_cost['total_time']:.2f}")
-    print(time_cost)
+        print(fps_report(time_cost, total_frames))
+    # backbone and rescore run inside the detector's one spot call, as in JAX's eval.py
+    print(time_cost, "(backbone+rescore fused into detector)")
+    return {"predictor": predictor, "time_cost": time_cost, "videos": videos}
 
 
 if __name__ == "__main__":
