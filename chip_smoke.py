@@ -185,6 +185,36 @@ Phases (any failure exits non-zero and prints no result line):
      against a GT written from them in each of its protocol modes (MOTA = IDF1 = 1, hmean
      1), then with one track's id changed from its middle frame on (1 ID switch);
      ``--show`` on one BOVText video (every frame drawn into vis/).
+ 23. the Swin and ViTAEv2 trunks: ``VideoPredictor`` on configs/GoMatching_ICDAR15.yaml with
+     MODEL.BACKBONE.NAME build_swin_backbone (SWIN.TYPE tiny, in f32 and in the production
+     configuration; small for one f32 clip) and build_vitaev2_backbone (f32 and production)
+     at full width over phase 4's frames: B2 and B1 (f32 or on bf16 value) launched
+     ENC_LAYERS and DEC_LAYERS times a spot batch and nothing else, XML/JSON parsed back,
+     frames/s, device time per clip, peak memory; the spot with the kernels against the
+     plain samplers, at ATOL_PATH in f32; in bf16 each sampler call of the spot within one
+     bf16 ulp of the plain bf16 sampler on its own inputs and each output within
+     max(PATH_ULPS, twice the drift the plain samplers show when each call's output moves
+     one ulp); then one ViTAEv2-S spot batch at DSText's 1280x2276 (stage 3's global
+     attention over 11440 tokens) in each precision, with its peak memory;
+ 24. video spotter pretraining (MODEL.META_ARCHITECTURE TransformerPureVideoDetector):
+     ``train_net.main`` (--task spotter) at INPUT.TRAIN_SIZE 1280 on phase 16's videos,
+     N_VIDEO_STEPS steps with ResNet-50 and with Swin-T (SWIN.DROP_PATH_RATE 0.2): clips on
+     padded canvases with their frames' true sizes (the masked encoder), finite losses, B1
+     and B3 launched ENC_LAYERS + DEC_LAYERS times a step and nothing else, checkpoints that
+     load back strictly, ms/step and peak memory; one step with the kernels against the plain
+     samplers (identical matches and top-k, losses within RTOL_LOSS, every parameter's
+     gradient within RTOL_GRAD / RTOL_GRAD_MAX, gradient norms by module); B3 at the masked
+     encoder's shape (Lq = S): each call of the step against the plain backward (dValue and
+     dAttn within RTOL_BWD, dLoc within it away from grid lines) and as close to the f64 VJP
+     as plain f32 (F64_RATIO), its time, device time and bound;
+ 25. tracker training under the other freeze policies: ``train_net.main`` (--task tracker)
+     for 2 iterations on phase 16's dataset under FREEZE_TYPE '' and under Backbone with
+     MODEL.PRECISION bfloat16 (FREEZE_OPTS: weight decay 1 and no warm-up, so that one
+     step's decay shows in f32): B1 launched ENC_LAYERS + DEC_LAYERS times a clip and nothing
+     else; in the checkpoint after the first iteration every trainable spotter tensor within
+     DECAY_ULPS of p * (1 - lr * wd) (zero gradient behind the detached spot, AdamW's
+     decoupled decay), every frozen one unchanged and f32, roi_heads moved; a tensorboard
+     event file in OUTPUT_DIR/tb.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1, T2, B1 and B2 on bf16 value, and B5, its table build and the four B6 entries
 on bf16 value); the last is {"ok": true, "device": {...}}.
@@ -1076,19 +1106,33 @@ def phase_bench(torch, da, dav):
     return tuple(all_counts)
 
 
-def device_us(torch, fn, marker, n=20):
-    """Device time per call of ``fn`` (us) summed over the kernels whose name contains
-    ``marker``, from torch.profiler over ``n`` calls: what the card spends, without the
-    host's launch cost; None when the profiler records no device time."""
+PROFILE_TRIES = 3  # profiles of one measurement before its device time is "not measured"
+
+
+def marker_rows(torch, fn, marker, n=20):
+    """``device_rows`` of the kernels whose name contains ``marker`` over ``n`` calls of
+    ``fn`` under torch.profiler, profiled anew (up to PROFILE_TRIES times) while it records
+    none of them: a profile sometimes records no device time at all. [] if none recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(t for t, _, key in device_rows(torch, prof) if marker in key)
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in device_rows(torch, prof) if marker in r[2]]
+        if rows:
+            return rows
+    return []
+
+
+def device_us(torch, fn, marker, n=20):
+    """Device time per call of ``fn`` (us) summed over the kernels whose name contains
+    ``marker``, from torch.profiler over ``n`` calls: what the card spends, without the
+    host's launch cost; None when the profiler records no device time."""
+    us = sum(t for t, _, _ in marker_rows(torch, fn, marker, n))
     return us / n if us > 0 else None
 
 
@@ -1157,20 +1201,12 @@ def phase_probe_resources(_build, gp):
 
 def device_split(torch, fn, marker, n=20):
     """Device time per call of ``fn`` (us) of each kernel whose name contains ``marker``,
-    by kernel (its name up to the argument list), from torch.profiler over ``n`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    by kernel (its name up to the argument list), from torch.profiler over ``n`` calls;
+    {} when the profiler records no device time."""
     out = {}
-    for t, _, key in device_rows(torch, prof):
-        if marker in key:
-            name = key.split("(")[0].replace("void ", "")
-            out[name] = out.get(name, 0.0) + t / n
+    for t, _, key in marker_rows(torch, fn, marker, n):
+        name = key.split("(")[0].replace("void ", "")
+        out[name] = out.get(name, 0.0) + t / n
     return out
 
 
@@ -1234,22 +1270,25 @@ def phase_probes(torch, gp, og, _build):
         check(torch.equal(got, again), f"{gp.GATHER}: two runs differ")
         ms = cuda_time_ms(lambda: gp.gather_rows_sum(v, idx))
         split = device_split(torch, lambda: gp.gather_rows_sum(v, idx), "gather_rows_sum")
-        us = sum(split.values())
+        us = sum(split.values()) or None
+        device = (f"device {fmt_us(us)}: " + ", ".join(
+            f"{k.replace('gather_rows_sum_', '')} {t:.2f}" for k, t in split.items())
+            if us else "device not measured")
         plain_ms = cuda_time_ms(lambda: gp.gather_rows_sum_plain(v, idx))
         lib_ms = cuda_time_ms(lambda: bench_gather.library_sum(v, idx))
         select_ms = cuda_time_ms(lambda: torch.index_select(v, 0, flat))  # its first half
         # the table and the indices read once, one float written; the adds in f32
         b_ms, b_by = bound(nbytes(v, idx) + 4, n * R * C)
         rows, gathered = n * R, n * R * C * v.element_size()
+        device_rate = f"{gathered / us / 1e3:.1f} GB/s" if us else "not measured"
         smem_ms = gathered / smem_rate * 1e3  # every gathered row read from shared memory
         print(f"[14] {gp.GATHER} R={R} C={C} x{n} {str(dtype)[6:]}: {n_slices} slices of "
               f"{rows_per_slice} rows; exact on integers; randn |kernel-plain| {err:.3e} = "
               f"{err / scale:.2e} of sum|terms| (rtol {RTOL_GATHER:.2e}), kernel-exact "
               f"{abs(got.item() - exact) / scale:.2e}, plain-exact {abs(want.item() - exact) / scale:.2e}, "
-              f"same bits twice; kernel {ms:.4f} ms (device {us:.2f} us: "
-              + ", ".join(f"{k.replace('gather_rows_sum_', '')} {t:.2f}" for k, t in split.items())
-              + f") -> {rows / ms / 1e3:.0f}M rows/s, {gathered / ms / 1e6:.1f} GB/s gathered "
-              f"({gathered / us / 1e3:.1f} GB/s of device time); plain {plain_ms:.4f} ms, "
+              f"same bits twice; kernel {ms:.4f} ms ({device}) -> {rows / ms / 1e3:.0f}M rows/s, "
+              f"{gathered / ms / 1e6:.1f} GB/s gathered ({device_rate} of device time); plain "
+              f"{plain_ms:.4f} ms, "
               f"index_select+sum {lib_ms:.4f} ms ({rows / lib_ms / 1e3:.0f}M rows/s; index_select "
               f"alone {select_ms:.4f} ms); bound {b_ms:.4f} ms ({b_by}: {nbytes(v, idx) / 1e6:.2f} "
               f"MB), shared-memory bound {smem_ms:.4f} ms ({gathered / 1e6:.1f} MB gathered)")
@@ -2324,17 +2363,9 @@ def launch_us(torch, fn, marker, n=20):
     """(device us per launch, launches recorded) of the kernels whose name contains
     ``marker`` over ``n`` calls of ``fn`` under torch.profiler: per launch the profiler
     recorded, so a launch it misses does not lower the time; (None, 0) without device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(t, c) for t, c, key in device_rows(torch, prof) if marker in key]
-    count = sum(c for _, c in rows)
-    return (sum(t for t, _ in rows) / count if count else None), count
+    rows = marker_rows(torch, fn, marker, n)
+    count = sum(c for _, c, _ in rows)
+    return (sum(t for t, _, _ in rows) / count if count else None), count
 
 
 def class_shares(rows):
@@ -3323,6 +3354,523 @@ def phase_corpora(torch, da, tmp, card):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 23-25: the Swin and ViTAEv2 trunks, video pretraining, the freeze policies
+# ---------------------------------------------------------------------------
+
+SWIN_OPTS = ["MODEL.BACKBONE.NAME", "build_swin_backbone"]
+VITAE_OPTS = ["MODEL.BACKBONE.NAME", "build_vitaev2_backbone"]
+# phase 23's runs: (label, trunk options, production configuration); Swin-S for one clip
+TRUNK_RUNS = [
+    ("Swin-T f32", SWIN_OPTS + ["MODEL.SWIN.TYPE", "tiny"], False),
+    ("Swin-T bf16 + I420", SWIN_OPTS + ["MODEL.SWIN.TYPE", "tiny"], True),
+    ("Swin-S f32", SWIN_OPTS + ["MODEL.SWIN.TYPE", "small"], False),
+    ("ViTAEv2-S f32", VITAE_OPTS, False),
+    ("ViTAEv2-S bf16 + I420", VITAE_OPTS, True),
+]
+DS_TEST_HW = (1280, 2276)  # DSText's test size (configs/GoMatching_DSText.yaml)
+VIDEO_OPTS = ["MODEL.META_ARCHITECTURE", "TransformerPureVideoDetector"]
+N_VIDEO_STEPS = 3  # phase 24's pretraining steps per trunk
+# phase 25: one step's decoupled decay, lr * wd, at WEIGHT_DECAY 1 and no warm-up: 5e-5 of
+# the spotter (BASE_LR 5e-5) and 5e-6 of a trainable trunk (BACKBONE_MULTIPLIER 0.1),
+# hundreds of f32 ulps; the default 1e-4 with warm-up would move nothing a float can hold
+FREEZE_OPTS = ["SOLVER.WEIGHT_DECAY", "1.0", "SOLVER.WARMUP_ITERS", "0",
+               "SOLVER.CHECKPOINT_PERIOD", "1"]
+DECAY_ULPS = 2  # a decayed entry within 2 f32 ulps of p * (1 - lr * wd)
+
+
+def profiled_step(torch, fn, tag, shares=()):
+    """One call of ``fn`` under torch.profiler: its wall, the device's busy time and share,
+    and the device time of each (label, kernel name prefix) of ``shares``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    rows = device_rows(torch, prof)
+    if not rows:
+        print(f"{tag} profiler: no device time recorded (not measured)")
+        return
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"{tag} profiled step: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / (wall * 1e3):.1f}% of wall; profiler on)")
+    for t_us, n, key in rows[:6]:
+        print(f"{tag}   {t_us / 1e3:9.3f} ms {100 * t_us / 1e3 / busy:5.1f}% x{n:<5d} {key[:80]}")
+    for label, prefix in shares:
+        us = sum(t_us for t_us, _, key in rows if key.startswith(prefix))
+        n = sum(c for _, c, key in rows if key.startswith(prefix))
+        print(f"{tag}   {label}: {us / 1e3:.3f} ms in {n} launches, "
+              f"{100 * us / 1e3 / busy:.1f}% of the step's device time")
+
+
+def phase_trunks(torch, da):
+    """Phase 23: GoMatching ICDAR15 on the Swin-T/S and ViTAEv2-S trunks through
+    ``VideoPredictor`` at full width (seeded random weights, threshold 0.05, phase 4's
+    frames), in f32 and in the production configuration: the spot with the kernels against
+    the plain samplers (ATOL_PATH in f32, PATH_ULPS in bf16), B1 and B2 launched ENC_LAYERS
+    and DEC_LAYERS times a spot batch and nothing else, XML/JSON parsed back (``phase_main``),
+    device time per clip and peak memory; then one ViTAEv2-S spot batch at DSText's
+    1280x2276 and its peak memory."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+    from gomatching_tpu_torch.config import setup_eval_cfg
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor
+
+    for label, opts, prod in TRUNK_RUNS:
+        cfg = setup_eval_cfg(CONFIG, ["MODEL.WEIGHTS", "''", "MODEL.TRANSFORMER.INFERENCE_TH_TEST",
+                                      "0.05", "SEED", "0", *opts, *(PROD_OPTS if prod else ())])
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        predictor = VideoPredictor(cfg)
+        t = cfg.MODEL.TRANSFORMER
+        enc, dec = (da.ENCODER_BF16, da.QUERIES_BF16) if prod else (da.ENCODER, da.QUERIES)
+        print(f"[23] {label}: {CONFIG} with {' '.join(opts)}"
+              + (f" {' '.join(PROD_OPTS)}" if prod else ""))
+        phase_main(torch, predictor, da, "[23]", {enc: t.ENC_LAYERS, dec: t.DEC_LAYERS})
+        peak = torch.cuda.max_memory_allocated()
+        rows, wall = phase_profile(torch, predictor, "[23]")
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"[23] {label}: device time per {N_FRAMES}-frame clip "
+              + (f"{busy:.1f} ms, busy {100 * busy / (wall * 1e3):.1f}% of the profiled wall"
+                 if rows else "not measured")
+              + f"; peak memory {peak / 2**30:.2f} GiB over the main path's runs")
+        if prod:
+            trunk_bf16_spot_vs_plain(torch, predictor, da, label)
+        else:
+            spotter_errors(torch, "[23]", predictor.model, {
+                "kernels": contextlib.nullcontext,
+                "plain": lambda: patched(
+                    spotter_mod, ms_deform_attn_encoder=da.ms_deform_attn_encoder_plain,
+                    ms_deform_attn_queries=da.ms_deform_attn_queries_plain)})
+        if label.startswith("ViTAEv2"):
+            vitae_peak(torch, predictor, label)
+        del predictor
+        torch.cuda.empty_cache()
+
+
+def trunk_bf16_spot_vs_plain(torch, predictor, da, label):
+    """Phase 23's bf16 spot with the kernels against the plain bf16 samplers, as phase 18's
+    (the encoder memory, then the decoder from the kernels' proposals), and three more things:
+    each of its sampler calls against the plain bf16 sampler on that call's own inputs, every
+    element within one bf16 ulp (phase 17's check); the same path with the plain samplers
+    whose every output is moved one bf16 ulp at a seeded half of its elements (the drift
+    that one rounding of each call's output alone gives this configuration); and each output's
+    drift against max(PATH_ULPS, 2 x that one-ulp drift). PATH_ULPS was set on the ResNet-50
+    spotter (phase 18); other trunks feed the decoder other features, and its six
+    refinements of the sampling points amplify a call's rounding by another factor."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+
+    model = predictor.model
+    spotter = model.detection_transformer
+    dtype = model.compute_dtype
+    imgs = production_frames(torch, predictor)
+    kernels = {"enc": spotter_mod.ms_deform_attn_encoder,
+               "dec": spotter_mod.ms_deform_attn_queries}
+    plains = {"enc": da.ms_deform_attn_encoder_plain_bf16,
+              "dec": da.ms_deform_attn_queries_plain_bf16}
+    calls = []
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def recorded(kind):
+        def fn(*args):
+            out = kernels[kind](*args)
+            calls.append((kind, args, out))
+            return out
+        return fn
+
+    def nudged(kind):
+        def fn(*args):
+            out = plains[kind](*args)
+            move = torch.rand(out.shape, generator=g, device=out.device) < 0.5
+            sign = torch.where(torch.rand(out.shape, generator=g, device=out.device) < 0.5,
+                               -1.0, 1.0)
+            step = bf16_ulp(torch, out) * sign * move
+            return (out.float() + step).to(torch.bfloat16)
+        return fn
+
+    def route(name):
+        if name == "kernels":
+            return patched(spotter_mod, ms_deform_attn_encoder=recorded("enc"),
+                           ms_deform_attn_queries=recorded("dec"))
+        if name == "plain":
+            return patched(spotter_mod, ms_deform_attn_encoder=plains["enc"],
+                           ms_deform_attn_queries=plains["dec"])
+        return patched(spotter_mod, ms_deform_attn_encoder=nudged("enc"),
+                       ms_deform_attn_queries=nudged("dec"))
+
+    def run(name, enc=None, refs=None):
+        with route(name), torch.no_grad():
+            if enc is None:
+                feats, pos = model.features(imgs.to(dtype))
+                return spotter.encode(feats, [p.to(dtype) for p in pos], None)
+            return spotter.decode(enc, refs)
+
+    enc = {n: run(n) for n in ("kernels", "plain", "nudged")}
+    with torch.no_grad():
+        refs = spotter.select_proposals(*spotter.encoder_proposals(enc["kernels"]))
+        enc_p = spotter.select_proposals(*spotter.encoder_proposals(enc["plain"]))
+    # every decoder from the kernels' memory and proposals, as phase 18's
+    out = {n: run(n, enc["kernels"], refs) for n in ("kernels", "plain", "nudged")}
+    for kind, args, got in calls:
+        check_one_ulp(torch, f"[23] {label} {kind} call", got, plains[kind](*args))
+    print(f"[23] {label}: each of the spot's {len(calls)} sampler calls within one bf16 ulp of "
+          "the plain bf16 sampler on its own inputs")
+    over = []
+    pairs = {"encoder memory": tuple(enc[n]["memory"] for n in ("kernels", "plain", "nudged")),
+             **{k: (v, out["plain"][k], out["nudged"][k]) for k, v in out["kernels"].items()
+                if torch.is_tensor(v)}}
+    for k, (a, b, c) in pairs.items():
+        top = b.float().abs().max()
+        ulp = bf16_ulp(torch, top).item()
+        drift = (a.float() - b.float()).abs().max().item() / ulp
+        noise = (c.float() - b.float()).abs().max().item() / ulp
+        limit = max(PATH_ULPS, 2 * noise)
+        print(f"[23] {label} bf16 spotter {k}: max|kernels-plain| {drift:.2f} bf16 ulps of its max "
+              f"{top.item():.3e}; plain with each call's output moved one ulp {noise:.2f}; limit "
+              f"{limit:.2f}")
+        if not (math.isfinite(drift) and drift <= limit):
+            over.append(f"{k} by {drift:.2f} ulps (limit {limit:.2f})")
+    check(not over, f"[23] {label}: kernels and plain differ beyond their limit: {over}")
+    print(f"[23] {label}: top-{spotter.num_queries} proposals of the kernels' and the plain "
+          f"memory {'identical' if torch.equal(refs, enc_p) else 'DIFFERENT'}")
+
+
+def vitae_peak(torch, predictor, label):
+    """One spot batch (TPU.SPOT_BATCH frames) at DSText's 1280x2276: the peak memory of the
+    global attention of ViTAEv2's stage 3 (80 x 143 tokens)."""
+    model = predictor.model
+    n = predictor.spot_batch
+    g = torch.Generator().manual_seed(4)
+    imgs = (torch.rand(n, *DS_TEST_HW, 3, generator=g) * 4 - 2).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    with torch.no_grad():
+        out = model.spot(imgs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(out["pred_logits"].float()).all()), f"[23] {label} at DSText: "
+          "non-finite logits")
+    hw3 = [-(-s // 16) for s in DS_TEST_HW]
+    print(f"[23] {label} spot batch of {n} frames at {DS_TEST_HW[0]}x{DS_TEST_HW[1]} (stage 3 "
+          f"{hw3[0]}x{hw3[1]} = {hw3[0] * hw3[1]} tokens, global attention): peak memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the weights and "
+          f"inputs), {wall * 1e3:.1f} ms")
+    del out, imgs
+
+
+def video_step_inputs(torch, cfg):
+    """The first clip of the video loader over ``chip_smoke_tracker`` at the config's
+    training size, uint8 on its padded canvas with each frame's true size, and its targets."""
+    from gomatching_tpu_torch.data.loader import build_train_loader
+    from gomatching_tpu_torch.engine.pretrain import build_video_spotter_targets
+    from gomatching_tpu_torch.train_net import normalize_clip
+
+    t = cfg.MODEL.TRANSFORMER
+    sample = next(iter(build_train_loader(cfg)))
+    images, frame_hw = normalize_clip(sample, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD, raw=True)
+    return images, frame_hw, build_video_spotter_targets(sample, cfg.TPU.MAX_GT, t.NUM_POINTS,
+                                                         t.VOC_SIZE)
+
+
+def phase_video_pretrain(torch, da, tmp):
+    """Phase 24: video spotter pretraining (TransformerPureVideoDetector) through
+    ``train_net.main`` at INPUT.TRAIN_SIZE 1280 on phase 16's synthetic videos: N_VIDEO_STEPS
+    steps with ResNet-50 and with Swin-T (SWIN.DROP_PATH_RATE 0.2), each clip on a padded
+    canvas with its frames' true sizes, finite losses, B1 and B3 launched ENC_LAYERS +
+    DEC_LAYERS times a step and nothing else, the checkpoints loading back strictly; then one
+    step with the kernels against the same step with the plain samplers (ResNet-50; losses,
+    matches and top-k, per-parameter gradients at phase 7's tolerances) and B3 at the masked
+    encoder's shape (Lq = S) against its plain version and a float64 oracle, with its time
+    and bound. Returns B3's record at that shape."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.config import setup_train_cfg
+    from gomatching_tpu_torch.engine.checkpoint import load_checkpoint
+    from gomatching_tpu_torch.models.gomatching import build_pretrain_model
+    from gomatching_tpu_torch.weights import load_weights
+
+    base = ["MODEL.WEIGHTS", "''", "SEED", "1", "DATASETS.TRAIN", "('chip_smoke_tracker',)",
+            "SOLVER.CHECKPOINT_PERIOD", str(N_VIDEO_STEPS), *VIDEO_OPTS]
+    for label, opts in (("ResNet-50", []),
+                        ("Swin-T", SWIN_OPTS + ["MODEL.SWIN.DROP_PATH_RATE", "0.2"])):
+        out_dir = os.path.join(tmp, f"video_{label}")
+        argv = ["--config-file", CONFIG, "--task", "spotter", "--max-iter", str(N_VIDEO_STEPS),
+                "--opts", *base, *opts, "OUTPUT_DIR", out_dir]
+        cfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:])
+        t = cfg.MODEL.TRANSFORMER
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.reset_launch_counts()
+        history = train_net.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(da.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        layers = t.ENC_LAYERS + t.DEC_LAYERS
+        want = {**{k: 0 for k in counts}, da.QUERIES: layers * N_VIDEO_STEPS,
+                da.QUERIES_BWD: layers * N_VIDEO_STEPS}
+        check(counts == want, f"[24] {label}: launches {counts}, expected {want}")
+        check(len(history) == N_VIDEO_STEPS
+              and all(math.isfinite(h["total_loss"]) for h in history),
+              f"[24] {label}: losses {[h['total_loss'] for h in history]}")
+        ckpt = os.path.join(out_dir, "checkpoints", f"spotter_{N_VIDEO_STEPS:07d}.pth")
+        load_weights(build_pretrain_model(cfg), load_checkpoint(ckpt))
+        steps = sorted(h["step_s"] * 1e3 for h in history[1:])
+        print(f"[24] video pretraining, {label}: {N_VIDEO_STEPS} steps, frames "
+              f"{[h['frames'] for h in history]} on canvases {[h['image_hw'] for h in history]}, "
+              f"losses {[round(h['total_loss'], 4) for h in history]}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; checkpoint loads back strict; "
+              f"steps 2-{N_VIDEO_STEPS} {', '.join(f'{s:.1f}' for s in steps)} ms (data "
+              f"{', '.join(f'{h['data_s'] * 1e3:.1f}' for h in history[1:])} ms); peak memory "
+              f"{peak / 2**30:.2f} GiB")
+    return video_step_ab(torch, da, setup_train_cfg(CONFIG, base))
+
+
+def video_step_ab(torch, da, cfg):
+    """Phase 24's kernel-vs-plain step and B3 at Lq = S (see ``phase_video_pretrain``)."""
+    import gomatching_tpu_torch.models.spotter as spotter_mod
+    from gomatching_tpu_torch.engine.pretrain import SpotterPretrainer
+    from gomatching_tpu_torch.models.spotter import MSDeformAttn
+
+    trainer = SpotterPretrainer(cfg, generator=torch.Generator().manual_seed(1))
+    # small random offset and attention kernels move the samples off the grid lines (phase 7)
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for mod in trainer.model.modules():
+            if isinstance(mod, MSDeformAttn):
+                for lin, scale in ((mod.sampling_offsets, 0.05), (mod.attention_weights, 0.1)):
+                    lin.weight.copy_(torch.randn(lin.weight.shape, generator=g) * scale)
+    images, frame_hw, targets = video_step_inputs(torch, cfg)
+    imgs, tg = trainer.to_device(images, targets, frame_hw)
+    hw = trainer.image_hw(frame_hw)
+    spotter = trainer.model.detection_transformer
+    named = dict(trainer.model.named_parameters())
+    calls, topk = [], {}
+    saved_bwd = da.ms_deform_attn_queries_backward
+
+    def watch_bwd(*args):
+        out = saved_bwd(*args)
+        calls.append((args, out))
+        return out
+
+    def select(enc_class, enc_coords):
+        topk[tag] = torch.sort(enc_class, dim=1, descending=True,
+                               stable=True).indices[:, :spotter.num_queries]
+        return type(spotter).select_proposals(spotter, enc_class, enc_coords)
+
+    spotter.select_proposals = select
+    results = {}
+    try:
+        for tag in ("kernels", "plain"):
+            if tag == "kernels":
+                da.ms_deform_attn_queries_backward = watch_bwd
+                da.reset_launch_counts()
+                losses, matches = trainer.forward_backward(imgs, tg, hw)
+                counts = dict(da.launch_counts)
+                da.ms_deform_attn_queries_backward = saved_bwd
+            else:
+                with patched(spotter_mod, ms_deform_attn_queries=da.ms_deform_attn_queries_plain):
+                    losses, matches = trainer.forward_backward(imgs, tg, hw)
+            results[tag] = ({k: v.item() for k, v in losses.items()}, matches,
+                            {n: p.grad.detach().double().clone() for n, p in named.items()
+                             if p.grad is not None})
+    finally:
+        da.ms_deform_attn_queries_backward = saved_bwd
+        del spotter.select_proposals
+    (lk, mk, gk), (lp, mp, gp) = results["kernels"], results["plain"]
+    t = cfg.MODEL.TRANSFORMER
+    layers = t.ENC_LAYERS + t.DEC_LAYERS
+    check(counts == {**{k: 0 for k in counts}, da.QUERIES: layers, da.QUERIES_BWD: layers},
+          f"[24] step launches {counts}")
+    check(torch.equal(topk["kernels"], topk["plain"]), "[24] the plain step chose other top-k")
+    for k in mk:
+        check(torch.equal(mk[k], mp[k]), f"[24] matches {k} differ")
+    loss_err = max(abs(lk[k] - lp[k]) / max(abs(lp[k]), 1e-12) for k in lp)
+    check(loss_err <= RTOL_LOSS, f"[24] losses differ by {loss_err} (relative)")
+    check(set(gk) == set(gp), "[24] different parameters got gradients")
+    l2 = {n: ((gk[n] - gp[n]).norm() / gp[n].norm().clamp(min=1e-30)).item() for n in gp}
+    mx = {n: ((gk[n] - gp[n]).abs().max() / gp[n].abs().max().clamp(min=1e-30)).item()
+          for n in gp}
+    modules = {}
+    for n in gp:
+        top = n.split(".")[0] if not n.startswith("detection_transformer.transformer.") else \
+            ".".join(n.split(".")[:4])
+        modules.setdefault(top, [0.0, 0.0])
+        modules[top][0] += gk[n].norm().item() ** 2
+        modules[top][1] += gp[n].norm().item() ** 2
+    print(f"[24] masked video step on {tuple(imgs.shape)} (true sizes "
+          f"{sorted({tuple(map(int, r)) for r in frame_hw})}), kernels vs plain: {len(mk)} "
+          f"matches and the top-{spotter.num_queries} identical, losses max rel err "
+          f"{loss_err:.3e} (rtol {RTOL_LOSS}), total {lk['total_loss']:.4f}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print("[24]   gradient norm per module (kernels / plain): " + "; ".join(
+        f"{m} {a ** 0.5:.4e} / {b ** 0.5:.4e}" for m, (a, b) in modules.items()))
+    for label, errs, tol in (("|dg|_2/|g|_2", l2, RTOL_GRAD), ("max|dg|/max|g|", mx, RTOL_GRAD_MAX)):
+        worst = max(errs, key=errs.get)
+        print(f"[24]   {label} kernels vs plain, worst {worst} {errs[worst]:.3e} (limit {tol})")
+        check(errs[worst] <= tol, f"[24] gradient of {worst} differs by {errs[worst]}")
+
+    # B3 at the masked encoder's shape: every encoder call of the step (Lq = S) against the
+    # plain backward in f32 and in f64 on its own inputs
+    S = sum(h * w for h, w in calls[0][0][1])
+    enc_calls = [c for c in calls if c[0][2].shape[1] == S]
+    check(len(enc_calls) == t.ENC_LAYERS, f"[24] {len(enc_calls)} B3 calls at Lq = S")
+    worst = {}
+    for args, got in enc_calls:
+        want32 = da.ms_deform_attn_queries_plain_backward(*args)
+        want64 = da.ms_deform_attn_queries_plain_backward(
+            *(a.double() if torch.is_tensor(a) else a for a in args))
+        for name, k_, p_, e_ in zip(("value", "loc", "attn"), got, want32, want64):
+            scale = e_.abs().max().clamp(min=1e-30)
+            ek = ((k_.double() - e_).abs().max() / scale).item()
+            ep = ((p_.double() - e_).abs().max() / scale).item()
+            ekp = rel_err(k_, p_)
+            w = worst.setdefault(name, [0.0, 0.0, 0.0])
+            w[0], w[1], w[2] = max(w[0], ek), max(w[1], ep), max(w[2], ekp)
+        del want32, want64
+    print(f"[24] B3 at the masked encoder's shape (B = {enc_calls[0][0][0].shape[0]}, "
+          f"Lq = S = {S}), {len(enc_calls)} calls of the step, max|err|/max|f64| kernel; plain "
+          "f32 (and kernel vs plain f32): " + "; ".join(
+              f"d{n} {ek:.2e}; {ep:.2e} ({ekp:.2e})" for n, (ek, ep, ekp) in worst.items()))
+    for n, (ek, ep, ekp) in worst.items():
+        check(ek <= max(F64_RATIO * ep, RTOL_BWD), f"[24] B3 d{n} is {ek} off the f64 "
+              f"gradient, plain f32 {ep}")
+        if n != "loc":
+            check(ekp <= RTOL_BWD, f"[24] B3 d{n} differs from plain by {ekp} (relative)")
+    # dLoc jumps where a sample sits on a grid line and the two versions floor its pixel
+    # coordinate to other cells: held to RTOL_BWD away from the lines (1e-3 px, f64)
+    near, total, loc_err = 0, 0, 0.0
+    for args, got in enc_calls:
+        want = da.ms_deform_attn_queries_plain_backward(*args)[1]
+        shapes, loc = args[1], args[2].double()
+        wh = torch.tensor([[w, h] for h, w in shapes], dtype=loc.dtype, device=loc.device)
+        px = loc * wh[:, None, :] - 0.5
+        on_line = ((px - px.round()).abs() < 1e-3).any(-1, keepdim=True).expand_as(px)
+        scale = want.abs().max().clamp(min=1e-30)
+        loc_err = max(loc_err, ((got[1] - want).abs()[~on_line].max() / scale).item())
+        near += int(on_line[..., 0].sum().item())
+        total += on_line[..., 0].numel()
+        del want
+    print(f"[24] B3 dloc kernel vs plain away from grid lines {loc_err:.2e} (rtol {RTOL_BWD}; "
+          f"{near} of {total} samples within 1e-3 px of a line, where the derivative jumps)")
+    check(loc_err <= RTOL_BWD, f"[24] B3 dloc differs from plain by {loc_err} off the lines")
+    args = enc_calls[-1][0]
+    value, shapes, loc, attn, dout = args
+    ms = cuda_time_ms(lambda: da.ms_deform_attn_queries_backward(*args))
+    dev_us, n_rec = launch_us(torch, lambda: da.ms_deform_attn_queries_backward(*args),
+                              f"{da.QUERIES_BWD}_kernel")
+    plain_ms = cuda_time_ms(lambda: da.ms_deform_attn_queries_plain_backward(*args), iters=3,
+                            warmup=1)
+    Bq = value.shape[0]
+    v_bytes, taps = value_reads(torch, loc, S, D, shapes)
+    samples = Bq * S * M * L * P
+    got = enc_calls[-1][1]
+    b_ms, b_by = bound(v_bytes + nbytes(loc, attn, dout, *got), samples * (30 + D) + taps * 4 * D)
+    torch.cuda.synchronize()
+    profiled_step(torch, lambda: trainer.step(images, targets, frame_hw), "[24]",
+                  [("B3", "ms_deform_attn_queries_bwd_kernel("),
+                   ("B1", "ms_deform_attn_queries_kernel(")])
+    print(f"[24] B3 at Lq = S: kernel {ms:.4f} ms a call (device {fmt_us(dev_us)} a launch over "
+          f"{n_rec} launches the profiler recorded), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {v_bytes / 1e6:.1f} MB of value rows "
+          f"touched of {nbytes(value) / 1e6:.1f} MB, {taps} in-range taps) at B = {Bq}, "
+          f"{Bq * S} queries")
+    del trainer, calls, enc_calls
+
+
+def phase_freeze(torch, da, tmp):
+    """Phase 25: two tracker iterations through ``train_net.main`` on phase 16's dataset
+    under FREEZE_TYPE '' and under Backbone with MODEL.PRECISION bfloat16, a checkpoint after
+    each: every trainable spotter tensor after the first step equals p * (1 - lr * wd) at its
+    group's rate (zero gradient behind the detached spot, decoupled decay) within DECAY_ULPS,
+    the frozen trunk keeps its f32 originals, roi_heads moved; B1 (f32: the spotter is f32
+    under both) launched ENC_LAYERS + DEC_LAYERS times a clip and nothing else;
+    ``OUTPUT_DIR/tb`` holds an event file."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.config import setup_train_cfg
+    from gomatching_tpu_torch.engine.checkpoint import load_checkpoint
+    from gomatching_tpu_torch.data.loader import build_train_loader
+    from gomatching_tpu_torch.engine.optim import build_schedule
+    from gomatching_tpu_torch.engine.train import Trainer, freeze_partition
+    from gomatching_tpu_torch.models.gomatching import build_model
+    from gomatching_tpu_torch.utils.synthetic import make_targets
+    from gomatching_tpu_torch.weights import canonical_key, init_state_dict
+
+    for label, opts in (("FREEZE_TYPE ''", ["MODEL.FREEZE_TYPE", "''"]),
+                        ("FREEZE_TYPE Backbone, bf16",
+                         ["MODEL.FREEZE_TYPE", "Backbone", "MODEL.PRECISION", "bfloat16"])):
+        out_dir = os.path.join(tmp, f"freeze_{len(opts)}")
+        argv = tracker_argv(CONFIG, out_dir, 2, [*FREEZE_OPTS, *opts])
+        cfg = setup_train_cfg(CONFIG, argv[argv.index("--opts") + 1:])
+        t, s = cfg.MODEL.TRANSFORMER, cfg.SOLVER
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        da.reset_launch_counts()
+        history = train_net.main(argv)
+        torch.cuda.synchronize()
+        counts = dict(da.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        want = {**{k: 0 for k in counts}, da.QUERIES: 2 * (t.ENC_LAYERS + t.DEC_LAYERS)}
+        check(counts == want, f"[25] {label}: launches {counts}, expected {want}")
+        check(all(math.isfinite(h["total_loss"]) for h in history), f"[25] {label}: losses")
+        init = train_net.init_rescoring_from_classifier(
+            init_state_dict(cfg, torch.Generator().manual_seed(1)))
+        ckpt = load_checkpoint(os.path.join(out_dir, "checkpoints", "model_0000001_rescore.pth"))
+        lr0 = build_schedule(cfg)(0)
+        frozen_trunk = "Backbone" in opts
+        trainable = {canonical_key(n) for n in freeze_partition(build_model(cfg),
+                                                                cfg.MODEL.FREEZE_TYPE)}
+        n_decayed, worst, n_zero = 0, 0.0, 0
+        for k, p0 in init.items():
+            p1 = ckpt[k]
+            check(p1.dtype == p0.dtype, f"[25] {label}: {k} saved as {p1.dtype}")
+            if k.startswith("roi_heads."):
+                continue
+            if canonical_key(k) not in trainable:
+                check(torch.equal(p1, p0), f"[25] {label}: the frozen {k} moved")
+                continue
+            lr = lr0 * (s.BACKBONE_MULTIPLIER if k.startswith("backbone.") else 1.0)
+            decayed = p0 * (1 - lr * s.WEIGHT_DECAY)
+            ulps = ((p1 - decayed).abs() / (torch.finfo(torch.float32).eps * p0.abs()
+                                            ).clamp(min=1e-38)).max().item()
+            worst = max(worst, ulps)
+            check(ulps <= DECAY_ULPS, f"[25] {label}: {k} is {ulps:.2f} ulps from p*(1-lr*wd)")
+            n_decayed += int(not torch.equal(p1, p0))
+            n_zero += int(not p0.any())
+        moved_head = sum(not torch.equal(ckpt[k], init[k]) for k in init if k.startswith("roi_heads."))
+        check(n_decayed > 0 and moved_head > 0, f"[25] {label}: {n_decayed} spotter tensors "
+              f"decayed, {moved_head} roi_heads tensors moved")
+        # one clip of the loader with synthetic GT, profiled
+        trainer = Trainer(cfg, init, device=None)
+        images, frame_hw = train_net.normalize_clip(next(iter(build_train_loader(cfg))),
+                                                    cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                                    raw=True)
+        targets = make_targets(len(images), t.NUM_POINTS, n_gt=8)
+        trainer.step(images, frame_hw, targets)  # warm-up
+        profiled_step(torch, lambda: trainer.step(images, frame_hw, targets), f"[25] {label}",
+                      [("B1", "ms_deform_attn_queries_kernel("),
+                       ("AdamW", "void at::native::(anonymous namespace)::multi_tensor_apply")])
+        del trainer
+        events = [f for f in os.listdir(os.path.join(out_dir, "tb")) if "tfevents" in f]
+        check(events, f"[25] {label}: no tensorboard event file in {out_dir}/tb")
+        print(f"[25] tracker training, {label}: 2 iterations, losses "
+              f"{[round(h['total_loss'], 4) for h in history]}, "
+              f"{[round(h['step_s'] * 1e3, 1) for h in history]} ms; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; after step 1 {n_decayed} spotter "
+              f"tensors at p * (1 - lr * wd) (lr {lr0:.3e}, wd {s.WEIGHT_DECAY}; worst "
+              f"{worst:.2f} ulps; {n_zero} all-zero tensors unchanged), "
+              + ("the trunk's f32 originals in the checkpoint, " if frozen_trunk else "")
+              + f"{moved_head} roi_heads tensors moved; tensorboard {events[0]}; peak memory "
+              f"{peak / 2**30:.2f} GiB")
+
+
 def main():
     import torch
 
@@ -3426,6 +3974,11 @@ def main():
 
         # the other corpora: GoMatching DSText, BOVText and ArTVideo through eval.main
         phase_corpora(torch, da, tmp, card)
+
+        # the Swin and ViTAEv2 trunks, video pretraining, the other freeze policies
+        phase_trunks(torch, da)
+        phase_video_pretrain(torch, da, tmp)
+        phase_freeze(torch, da, tmp)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},

@@ -2,9 +2,14 @@
 ``gomatching_tpu/engine/train.py``).
 
 Parity targets (as the JAX package realizes them):
-  - ``check_if_freeze_model`` FREEZE_TYPE ExceptROIheads / ExceptROIheadsID
-    (gomatching/modeling/freeze_layers.py:3-37): only ``roi_heads.*`` requires grad and
-    enters the optimizer (JAX ``split_params`` :77, an optimizer partition);
+  - ``check_if_freeze_model`` (gomatching/modeling/freeze_layers.py:3-172) as JAX
+    ``split_params`` (:77-106) partitions the model: ExceptROIheads / ExceptROIheadsID
+    train ``roi_heads`` (the GoMatching recipe), ROIheads everything else, Backbone /
+    BackboneBottomup all but the trunk, '' everything; the cascade policies raise. The
+    trainable part requires grad and enters the optimizer. The spot is detached, so the
+    tracker losses reach only ``roi_heads``: a trainable spotter parameter gets a zero
+    gradient each step, which AdamW's decoupled decay alone moves (``optax.adamw``
+    updates every leaf of its tree), with its moments staying 0;
   - ``build_custom_optimizer`` (costom_solver.py:20-77) through ``engine/optim.py``:
     AdamW, WarmupCosineLR, and the full-model clip over the trainable parameters only,
     before AdamW, as the optax chain of JAX ``build_optimizer`` :174-226 runs it;
@@ -13,11 +18,14 @@ Parity targets (as the JAX package realizes them):
     proposals -> long and short association losses.
 
 One ``Trainer.step``:
-  1. spot: the whole clip in one frozen forward (its deformable sampling on the B1/B2
-     kernels on CUDA), with ``re_pred_logits`` from the CURRENT rescoring head; the
-     fields the host phase reads come back in one copy. Under ``MODEL.PRECISION``
-     bfloat16 the frozen spotter runs in bf16, exactly as in production inference, and
-     ``roi_heads`` trains in f32 (JAX train.py:246-260); a clip on the I420 wire
+  1. spot: the whole clip in one detached forward (its deformable sampling on the B1/B2
+     kernels on CUDA) with the CURRENT parameters: ``re_pred_logits`` from the rescoring
+     head, and a trainable spotter's decayed weights; the fields the host phase reads
+     come back in one copy. Under ``MODEL.PRECISION`` bfloat16 the frozen members of
+     ``backbone`` and ``detection_transformer`` run in bf16, exactly as in production
+     inference when both are frozen, and every trainable part in f32 (JAX
+     train.py:246-260), a bf16 output promoted where it meets f32 weights; a clip on the
+     I420 wire
      (``TPU.TRAIN_UPLOAD_FORMAT`` yuv420, ``encode_train_clip``) is decoded, put in
      ``INPUT.FORMAT``'s channel order and normalized on the device (:295-312);
   2. host: score fusion, the two thresholds, boxes, the 4GM Hungarian
@@ -40,6 +48,7 @@ import torch.nn as nn
 from .. import resolve_device
 from ..data.preprocess import decode_i420, encode_i420
 from ..models.gomatching import FROZEN_SUBMODULES, build_model, compute_dtype
+from ..models.resnet import FrozenBN
 from ..weights import init_weights_, load_weights
 from .losses import asso_ce_loss, build_asso_targets, match_rescore, rescore_loss
 from .optim import build_optimizer, clip_by_global_norm_, clip_max_norm
@@ -47,19 +56,39 @@ from .optim import build_optimizer, clip_by_global_norm_, clip_max_norm
 # FREEZE_TYPEs that train only the tracker head (freeze_layers.py:3-37; identical for
 # this architecture); every shipped config sets one of them
 ROI_HEADS_ONLY = ("ExceptROIheads", "ExceptROIheadsID")
+SUBMODULES = ("backbone", "detection_transformer", "roi_heads")
+
+
+def trainable_submodules(freeze_type: str) -> Tuple[str, ...]:
+    """The top-level submodules a FREEZE_TYPE trains (JAX ``split_params``,
+    train.py:77-106). The cascade-classifier policies (freeze_layers.py:75-137) name a
+    CenterNet2 ``roi_heads.box_predictor`` the GoMatching architecture lacks, and raise
+    as in JAX."""
+    if freeze_type in ROI_HEADS_ONLY:
+        return ("roi_heads",)
+    if freeze_type == "ROIheads":
+        return ("backbone", "detection_transformer")
+    if freeze_type in ("Backbone", "BackboneBottomup"):
+        return ("detection_transformer", "roi_heads")
+    if freeze_type == "":
+        return SUBMODULES
+    raise NotImplementedError(
+        f"MODEL.FREEZE_TYPE={freeze_type!r} targets CenterNet2 submodules absent from the "
+        "GoMatching architecture")
 
 
 def freeze_partition(model: nn.Module, freeze_type: str) -> List[str]:
-    """Leave only ``roi_heads.*`` requiring grad; return the names of the trainable
-    parameters. Other policies (JAX ``split_params`` also knows ROIheads, Backbone,
-    BackboneBottomup and '') raise: the tracker losses reach only ``roi_heads``."""
-    if freeze_type not in ROI_HEADS_ONLY:
-        raise NotImplementedError(
-            f"MODEL.FREEZE_TYPE={freeze_type!r} is not ported: tracker training takes "
-            f"{' or '.join(ROI_HEADS_ONLY)} (only roi_heads trains)")
+    """Leave the parameters of the submodules ``freeze_type`` trains requiring grad, the
+    rest not; return the names of the trainable ones. A trainable trunk's FrozenBN tensors
+    become parameters, as they are in JAX's tree (and so decay like its other leaves)."""
+    train = trainable_submodules(freeze_type)
+    if "backbone" in train:
+        for mod in model.backbone.modules():
+            if isinstance(mod, FrozenBN) and "weight" in mod._buffers:
+                mod.make_trainable_()
     names = []
     for name, p in model.named_parameters():
-        p.requires_grad_(name.startswith("roi_heads."))
+        p.requires_grad_(name.split(".")[0] in train)
         if p.requires_grad:
             names.append(name)
     return names
@@ -131,19 +160,22 @@ class Trainer:
         else:
             load_weights(model, state_dict)
         self.trainable_names = freeze_partition(model, cfg.MODEL.FREEZE_TYPE)
-        # the frozen spotter runs in eval mode; the head in train mode (its dropout)
+        train = trainable_submodules(cfg.MODEL.FREEZE_TYPE)
+        # the spot runs in eval mode; the head in train mode (its dropout)
         self.model = model.to(self.device).eval()
         self.model.roi_heads.train()
-        # a bf16 spotter keeps its f32 originals, which checkpoints hold (JAX frozen_f32,
-        # train.py:253-255); the trainer reads none of the inference keys
-        # (TPU.ASSOC_PRECISION, TPU.UPLOAD_FORMAT), as JAX's does not
+        # MODEL.PRECISION casts the FROZEN members of backbone and detection_transformer
+        # (JAX train.py:253-260): each keeps its f32 originals, which checkpoints hold
+        # (frozen_f32); a trainable part stays f32. The trainer reads none of the
+        # inference keys (TPU.ASSOC_PRECISION, TPU.UPLOAD_FORMAT), as JAX's does not
         dtype = compute_dtype(cfg)
+        self.cast_members = tuple(k for k in FROZEN_SUBMODULES if k not in train)
         self.frozen_f32: Optional[Dict[str, torch.Tensor]] = None
         if dtype != torch.float32:
             self.frozen_f32 = {k: v.detach().cpu().clone()
                                for k, v in self.model.state_dict().items()
-                               if k.split(".")[0] in FROZEN_SUBMODULES}
-        self.model.cast_frozen_(dtype)
+                               if k.split(".")[0] in self.cast_members}
+        self.model.cast_frozen_(dtype, self.cast_members)
         self.input_format = cfg.INPUT.FORMAT  # channel order of the clips
         named = dict(self.model.named_parameters())
         self.trainable = [named[n] for n in self.trainable_names]
@@ -321,9 +353,11 @@ class Trainer:
         and the LR schedule; returns the losses (one copy to the host)."""
         total, losses = self.loss(self.to_device(batch), query_features)
         self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        if total.requires_grad:  # under FREEZE_TYPE ROIheads no loss reaches a trainable one
+            total.backward()
         # optax updates every trainable leaf, a zero gradient included (weight decay
-        # still applies): a parameter this clip did not reach gets a zero gradient
+        # still applies): a parameter the losses did not reach (the detached spot's, or
+        # the head's beyond this clip) gets a zero gradient
         for p in self.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -361,20 +395,32 @@ class Trainer:
         return sd
 
     def state_dict(self) -> Dict:
-        """What a resumed run needs: the trainable head, the optimizer and schedule, the
-        step and the dropout generator's state."""
+        """What a resumed run needs: the head, the trainable parameters outside it (a
+        FREEZE_TYPE that trains the spotter: they decay each step), the optimizer and
+        schedule, the step and the dropout generator's state."""
         gen = self.model.roi_heads.dropout_generator
+        named = dict(self.model.named_parameters())
         return {
             "step": self.step_count,
             "roi_heads": {k: v.detach().cpu() for k, v in
                           self.model.roi_heads.state_dict().items()},
+            "spotter": {n: named[n].detach().cpu() for n in self.trainable_names
+                        if not n.startswith("roi_heads.")},
             "optimizer": self.optimizer.state_dict(),
             "scheduler": self.scheduler.state_dict(),
             "dropout_rng": None if gen is None else gen.get_state(),
         }
 
+    @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
         self.model.roi_heads.load_state_dict(state["roi_heads"], strict=True)
+        named = dict(self.model.named_parameters())
+        spotter = state.get("spotter", {})
+        if set(spotter) != {n for n in self.trainable_names if not n.startswith("roi_heads.")}:
+            raise ValueError("the train state's trainable spotter parameters are not this "
+                             "trainer's (another MODEL.FREEZE_TYPE?)")
+        for n, v in spotter.items():
+            named[n].copy_(v)
         self.optimizer.load_state_dict(state["optimizer"])
         self.scheduler.load_state_dict(state["scheduler"])
         self.step_count = int(state["step"])

@@ -3,7 +3,8 @@ spotter-pretraining meta-architecture.
 
 Port of ``gomatching_tpu/models/gomatching.py`` (reference ``GoMatching``,
 gomatching/modeling/meta_arch/gom_lstmatcher.py:113, and ``TransformerPureDetector``,
-third_party/adet/modeling/text_spotter.py:106), ResNet backbone only.
+third_party/adet/modeling/text_spotter.py:106), on the ResNet, Swin-T/S or ViTAEv2-S
+trunk (``MODEL.BACKBONE.NAME``).
 
   spot_and_detect(images (B, H, W, 3) normalized, NHWC) ->
       per-frame arrays over the fixed query-slot axis + a validity mask
@@ -21,7 +22,7 @@ Joiner/MaskedBackbone nesting), ``detection_transformer``, ``roi_heads``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -31,8 +32,14 @@ from .lst_matcher import LSTMatcherHead
 from .pos_encoding import position_encoding_2d
 from .resnet import FrozenBN, ResNet
 from .spotter import DeepSoloSpotter
+from .swin import SWIN_DEPTHS, SwinTransformer
+from .vitae import ViTAEv2
 
-BACKBONE_CHANNELS = {"build_resnet_backbone": (512, 1024, 2048)}
+BACKBONE_CHANNELS = {
+    "build_resnet_backbone": (512, 1024, 2048),
+    "build_swin_backbone": (192, 384, 768),
+    "build_vitaev2_backbone": (128, 256, 512),
+}
 PRECISIONS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FROZEN_SUBMODULES = ("backbone", "detection_transformer")  # what MODEL.PRECISION casts
 # the tracker head's matcher modules, which TPU.ASSOC_PRECISION casts (JAX predictor.py:51-57);
@@ -69,11 +76,33 @@ def level_masks(pad_hw, image_hw: Optional[torch.Tensor]) -> Optional[List[torch
     return masks
 
 
+def build_trunk(name: str, resnet_depth: int = 50, swin_type: str = "tiny",
+                swin_drop_path: float = 0.0) -> nn.Module:
+    """The trunk ``MODEL.BACKBONE.NAME`` names (JAX gomatching.py:84-97, :302-316)."""
+    if name == "build_resnet_backbone":
+        return ResNet(resnet_depth, ("res3", "res4", "res5"))
+    if name == "build_swin_backbone":
+        return SwinTransformer(depths=SWIN_DEPTHS[swin_type], drop_path_rate=swin_drop_path)
+    if name == "build_vitaev2_backbone":
+        return ViTAEv2()
+    raise ValueError(f"MODEL.BACKBONE.NAME={name!r}: expected one of {sorted(BACKBONE_CHANNELS)}")
+
+
+def _promoted(x: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    """``x`` in the wider of its dtype and ``module``'s parameters': flax promotes a bf16
+    input against f32 weights to f32 (JAX predictor.py:37-38), where torch would raise."""
+    return x.to(torch.promote_types(x.dtype, next(module.parameters()).dtype))
+
+
 def backbone_features(backbone: nn.Module, images: torch.Tensor, hidden_dim: int,
-                      temperature: float, masks: Optional[List[torch.Tensor]] = None):
+                      temperature: float, masks: Optional[List[torch.Tensor]] = None,
+                      generator: Optional[torch.Generator] = None):
     """NHWC normalized images -> (res3..5 NCHW features, NHWC position encodings);
-    ``masks`` (True where padded, one per level) shape the encodings when given."""
-    feats = backbone[0].backbone(images.permute(0, 3, 1, 2).contiguous())
+    ``masks`` (True where padded, one per level) shape the encodings when given.
+    ``generator``: the Swin trunk's drop-path randomness (pretraining only)."""
+    trunk = backbone[0].backbone
+    x = _promoted(images.permute(0, 3, 1, 2).contiguous(), trunk)
+    feats = trunk(x, generator) if generator is not None else trunk(x)
     feats = [feats["res3"], feats["res4"], feats["res5"]]
     pos = [
         position_encoding_2d((f.shape[0], f.shape[2], f.shape[3]), hidden_dim // 2,
@@ -89,7 +118,8 @@ class GoMatchingModel(nn.Module):
     def __init__(self, resnet_depth=50, hidden_dim=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
                  enc_n_points=4, dec_n_points=4, num_queries=100, num_points=25, voc_size=37,
-                 temperature=10000.0, boundary_head=True, asso_feature_dim=1024, asso_num_fc=2,
+                 temperature=10000.0, boundary_head=True, backbone_name="build_resnet_backbone",
+                 swin_type="tiny", asso_feature_dim=1024, asso_num_fc=2,
                  asso_num_heads=8, asso_num_encoder_layers=1, asso_num_decoder_layers=1,
                  asso_num_weight_layers=0, asso_variant="lst", asso_no_pos_emb=True,
                  asso_with_temp_emb=False, with_rescore=True, test_score_threshold=0.3,
@@ -101,15 +131,14 @@ class GoMatchingModel(nn.Module):
         self.test_score_threshold = test_score_threshold
         self.nms_thresh = nms_thresh
         self.backbone = nn.Sequential(
-            MaskedBackbone(ResNet(resnet_depth, ("res3", "res4", "res5")))
-        )
+            MaskedBackbone(build_trunk(backbone_name, resnet_depth, swin_type)))
         self.detection_transformer = DeepSoloSpotter(
             d_model=hidden_dim, n_heads=n_heads, num_encoder_layers=num_encoder_layers,
             num_decoder_layers=num_decoder_layers, dim_feedforward=dim_feedforward,
             num_feature_levels=num_feature_levels, enc_n_points=enc_n_points,
             dec_n_points=dec_n_points, num_queries=num_queries, num_points=num_points,
             voc_size=voc_size, temperature=temperature,
-            in_channels=BACKBONE_CHANNELS["build_resnet_backbone"], boundary_head=boundary_head,
+            in_channels=BACKBONE_CHANNELS[backbone_name], boundary_head=boundary_head,
             sampling_impl=sampling_impl,
         )
         self.roi_heads = LSTMatcherHead(
@@ -124,13 +153,17 @@ class GoMatchingModel(nn.Module):
         )
         self.compute_dtype = torch.float32  # the frozen spotter's; see cast_frozen_
 
-    def cast_frozen_(self, dtype: torch.dtype) -> "GoMatchingModel":
+    def cast_frozen_(self, dtype: torch.dtype,
+                     members: Sequence[str] = FROZEN_SUBMODULES) -> "GoMatchingModel":
         """Run the frozen spotter (``backbone`` and ``detection_transformer``, every
         parameter and buffer, the FrozenBN statistics too) in ``dtype``, as JAX's
-        ``cast_frozen_params`` does (predictor.py:35-46; train.py:246-260); ``roi_heads``
-        stays as it is. The Bernstein basis is a constant of the computation, not a
-        parameter, and stays f32 (JAX spotter.py:555)."""
-        for name in FROZEN_SUBMODULES:
+        ``cast_frozen_params`` does (predictor.py:35-46); ``roi_heads`` stays as it is.
+        ``members``: the frozen ones of the two, which alone the tracker trainer casts
+        (JAX train.py:253-260): under FREEZE_TYPE Backbone only the trunk, under '' none.
+        The frames and position encodings go to ``dtype`` in ``spot`` all the same. The
+        Bernstein basis is a constant of the computation, not a parameter, and stays f32
+        (JAX spotter.py:555)."""
+        for name in members:
             getattr(self, name).to(dtype)
         spotter = self.detection_transformer
         spotter.bernstein = spotter.bernstein.float()
@@ -157,12 +190,15 @@ class GoMatchingModel(nn.Module):
         zero-padded canvas; the level masks it gives reach the position encodings and
         the spotter (its masked encoder samples through B1). None: the whole canvas is
         valid and nothing is masked. The frames and the position encodings (computed f32)
-        go to ``compute_dtype``; the rescoring head computes at the f32 of its weights,
-        as flax promotes bf16 query features against them."""
+        go to ``compute_dtype``; a part of the spotter whose weights are wider computes
+        at their dtype, as flax promotes a bf16 input against f32 weights (the frozen
+        bf16 trunk of FREEZE_TYPE Backbone feeds an f32 spotter); the rescoring head
+        computes at the f32 of its weights."""
         dtype = self.compute_dtype
         masks = level_masks(images.shape[1:3], image_hw)
         feats, pos = self.features(images.to(dtype), masks)
-        out = self.detection_transformer(feats, [p.to(dtype) for p in pos], masks)
+        spotter = self.detection_transformer
+        out = spotter([_promoted(f, spotter) for f in feats], [p.to(dtype) for p in pos], masks)
         out["re_pred_logits"] = (
             self.roi_heads.rescore(out["query_features"].float()) if self.with_rescore else None
         )
@@ -216,22 +252,25 @@ class GoMatchingModel(nn.Module):
 
 
 class SpotterPretrainModel(nn.Module):
-    """Image-spotter pretraining meta-arch (JAX ``SpotterPretrainModel``,
+    """Spotter pretraining meta-arch (JAX ``SpotterPretrainModel``,
     gomatching_tpu/models/gomatching.py:271): backbone + DeepSolo spotter emitting the
     last-layer, aux-layer and encoder outputs ``SpotterCriterion`` reads; no tracker
-    head, and the whole model trains, FrozenBN tensors included as in JAX. Inputs are
-    square canvases with nothing padded, so there are no padding masks."""
+    head, and the whole model trains, FrozenBN tensors included as in JAX. Image
+    pretraining feeds square canvases with nothing padded; video pretraining
+    (TransformerPureVideoDetector) a clip's padded canvas with each frame's true size,
+    which gives the padding masks. ``swin_drop_path``: the Swin trunk's drop-path rate
+    (``SWIN.DROP_PATH_RATE``), applied only when ``forward`` gets a generator."""
 
     def __init__(self, resnet_depth=50, hidden_dim=256, n_heads=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=1024, num_feature_levels=4,
                  enc_n_points=4, dec_n_points=4, num_queries=100, num_points=25, voc_size=37,
-                 temperature=10000.0, boundary_head=True):
+                 temperature=10000.0, boundary_head=True, backbone_name="build_resnet_backbone",
+                 swin_type="tiny", swin_drop_path=0.0):
         super().__init__()
         self.hidden_dim = hidden_dim
         self.temperature = float(temperature)
-        self.backbone = nn.Sequential(
-            MaskedBackbone(ResNet(resnet_depth, ("res3", "res4", "res5")))
-        )
+        self.backbone = nn.Sequential(MaskedBackbone(
+            build_trunk(backbone_name, resnet_depth, swin_type, swin_drop_path)))
         for mod in self.backbone.modules():
             if isinstance(mod, FrozenBN):
                 mod.make_trainable_()
@@ -241,19 +280,20 @@ class SpotterPretrainModel(nn.Module):
             num_feature_levels=num_feature_levels, enc_n_points=enc_n_points,
             dec_n_points=dec_n_points, num_queries=num_queries, num_points=num_points,
             voc_size=voc_size, temperature=temperature,
-            in_channels=BACKBONE_CHANNELS["build_resnet_backbone"], boundary_head=boundary_head,
+            in_channels=BACKBONE_CHANNELS[backbone_name], boundary_head=boundary_head,
         )
 
-    def forward(self, images: torch.Tensor) -> Dict:
-        """NHWC normalized images (B, H, W, 3) -> the spotter's training outputs."""
-        feats, pos = backbone_features(self.backbone, images, self.hidden_dim, self.temperature)
-        return self.detection_transformer(feats, pos, None, train_outputs=True)
-
-
-def _check_ported(cfg) -> None:
-    if cfg.MODEL.BACKBONE.NAME != "build_resnet_backbone":
-        raise NotImplementedError(f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported yet "
-                                  "(ROADMAP A10)")
+    def forward(self, images: torch.Tensor, image_hw: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict:
+        """NHWC normalized images (B, H, W, 3) -> the spotter's training outputs.
+        ``image_hw`` (B, 2): each frame's true (h, w) on the padded canvas, from which the
+        level masks come (JAX gomatching.py:343-360); None: nothing is padded.
+        ``generator``: drop-path's random source for a Swin trunk (JAX ``train=True``
+        with a 'dropout' rng); None runs the trunk deterministically."""
+        masks = level_masks(images.shape[1:3], image_hw)
+        feats, pos = backbone_features(self.backbone, images, self.hidden_dim, self.temperature,
+                                       masks, generator)
+        return self.detection_transformer(feats, pos, masks, train_outputs=True)
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -273,33 +313,33 @@ def _spotter_kwargs(cfg) -> Dict:
         enc_n_points=t.ENC_N_POINTS, dec_n_points=t.DEC_N_POINTS, num_queries=t.NUM_QUERIES,
         num_points=t.NUM_POINTS, voc_size=t.VOC_SIZE, temperature=float(t.TEMPERATURE),
         boundary_head=t.BOUNDARY_HEAD, sampling_impl=cfg.TPU.SAMPLING_IMPL,
+        backbone_name=cfg.MODEL.BACKBONE.NAME, swin_type=cfg.MODEL.SWIN.TYPE,
     )
 
 
 def build_pretrain_model(cfg) -> SpotterPretrainModel:
-    """The spotter-pretraining model of a reference-schema config (ResNet only). The
+    """The spotter-pretraining model of a reference-schema config (any trunk). The
     sampler is always the exact differentiable one (B1/B2 forwards, B3/B4 backwards on
     CUDA), whatever ``TPU.SAMPLING_IMPL`` says: B5 ('pallas') has no backward, and JAX
     too trains through another sampler when 'pallas' is asked for
     (gomatching_tpu/config.py:417-425). ``TPU.TRAIN_SAMPLING_IMPL`` is not read, nor is
     ``MODEL.PRECISION``: pretraining runs f32 whatever it says, as JAX's pretraining
-    model takes no compute dtype (gomatching_tpu/models/gomatching.py:271)."""
-    _check_ported(cfg)
+    model takes no compute dtype (gomatching_tpu/models/gomatching.py:271). A Swin trunk
+    takes ``SWIN.DROP_PATH_RATE`` (JAX gomatching.py:306-311); only this model reads it."""
     kwargs = _spotter_kwargs(cfg)
     del kwargs["sampling_impl"]
-    return SpotterPretrainModel(**kwargs)
+    return SpotterPretrainModel(**kwargs, swin_drop_path=float(cfg.MODEL.SWIN.DROP_PATH_RATE))
 
 
 MATCHER_VARIANTS = {"LSTMatcher": "lst", "SHA_FFN_CRSATTN": "shared"}
 
 
 def build_model(cfg) -> GoMatchingModel:
-    """Construct the meta-arch from a reference-schema config (ResNet backbone):
+    """Construct the meta-arch from a reference-schema config (any of the three trunks):
     GoMatching (``ROI_HEADS.NAME`` LSTMatcher) or GoMatching++ (SHA_FFN_CRSATTN), with
     or without the matcher's positional embeddings (JAX gomatching.py:400-441). The model
     is built f32: ``cast_frozen_`` puts the spotter in ``compute_dtype(cfg)``, which this
     checks."""
-    _check_ported(cfg)
     compute_dtype(cfg)
     if cfg.MODEL.ROI_HEADS.NAME not in MATCHER_VARIANTS:
         raise ValueError(f"ROI_HEADS.NAME={cfg.MODEL.ROI_HEADS.NAME}: expected one of "

@@ -1,5 +1,6 @@
 """Training CLI of the port: GoMatching tracker training (``--task tracker``, the
-default) and DeepSolo image-spotter pretraining (``--task spotter``).
+default) and DeepSolo spotter pretraining (``--task spotter``), on images or, with
+``MODEL.META_ARCHITECTURE TransformerPureVideoDetector``, on video clips.
 
     python -m gomatching_tpu_torch.train_net --config-file configs/GoMatching_ICDAR15.yaml \\
         [--task tracker|spotter] [--cpu] [--resume] [--max-iter N] [--opts KEY VALUE ...]
@@ -8,11 +9,14 @@ default) and DeepSolo image-spotter pretraining (``--task spotter``).
 (:239-487), single card and sequential: ``MODEL.WEIGHTS`` (the JAX package's ``.npz``
 params, a torch checkpoint, or '' for seeded random weights; the rescoring head takes
 the spotter classifier's weights unless the path names a ``_rescore`` checkpoint) ->
-``Trainer`` (only ``roi_heads`` trains) -> per iteration one clip of
-``DATASETS.TRAIN`` from the video clip loader -> ``Trainer.step``. It writes
-``OUTPUT_DIR/config.yaml``, a ``metrics.json`` line every 20 iterations and at the last
-(detectron2's PeriodicWriter), and every ``SOLVER.CHECKPOINT_PERIOD`` iterations and at
-the last ``checkpoints/model_{iter:07d}_rescore.pth`` (the whole model) beside
+``Trainer`` (``MODEL.FREEZE_TYPE`` says what trains; the shipped configs train
+``roi_heads``) -> per iteration one clip of ``DATASETS.TRAIN`` from the video clip loader
+-> ``Trainer.step``. It writes ``OUTPUT_DIR/config.yaml``, a ``metrics.json`` line every
+20 iterations and at the last (detectron2's PeriodicWriter) with the same numbers as
+tensorboard scalars under ``OUTPUT_DIR/tb`` (JAX train_net.py:322-329, :371-374; skipped
+with one printed line where ``torch.utils.tensorboard`` does not import), and every
+``SOLVER.CHECKPOINT_PERIOD`` iterations and at the last
+``checkpoints/model_{iter:07d}_rescore.pth`` (the whole model) beside
 ``checkpoints/state_{iter:07d}.pth`` (the trainer's and the loader's state), from
 which ``--resume`` continues.
 
@@ -30,14 +34,18 @@ per step one random record (a ``RandomState`` seeded by ``SEED``) -> rotate +
 instance-aware crop -> resize to a ``INPUT.TRAIN_SIZE`` square canvas -> normalize ->
 padded targets -> ``SpotterPretrainer.step``; a checkpoint
 ``OUTPUT_DIR/checkpoints/spotter_{iter:07d}.pth`` every ``SOLVER.CHECKPOINT_PERIOD``
-iterations and at the last.
+iterations and at the last. With ``TransformerPureVideoDetector`` it is JAX
+``pretrain_video_main`` (:100-127): per step one clip of the video clip loader, on one
+padded canvas with each frame's true size (the spotter's padding masks), per-frame
+targets (``build_video_spotter_targets``), the same checkpoints.
 
-Pretraining runs f32 whatever ``MODEL.PRECISION`` says, as JAX's does.
+Pretraining runs f32 whatever ``MODEL.PRECISION`` says, as JAX's does. Every trunk
+(``MODEL.BACKBONE.NAME``: ResNet, Swin-T/S, ViTAEv2-S) trains and infers; a Swin trunk
+drops paths in pretraining at ``SWIN.DROP_PATH_RATE``.
 
 Both run on the CUDA card unless ``--cpu``. Not in the port yet (each raises
-``NotImplementedError``): ``MODEL.META_ARCHITECTURE TransformerPureVideoDetector`` (video
-pretraining, A11b), Swin/ViTAEv2 backbones (A10), ``--num-gpus`` > 1 (A12), FREEZE_TYPEs
-that train more than ``roi_heads``, and ``--resume`` of spotter pretraining.
+``NotImplementedError``): ``--num-gpus`` > 1 (A12) and ``--resume`` of spotter
+pretraining.
 """
 
 from __future__ import annotations
@@ -66,9 +74,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def _check_supported(args, cfg) -> None:
-    if cfg.MODEL.META_ARCHITECTURE == "TransformerPureVideoDetector":
-        raise NotImplementedError("video spotter pretraining (TransformerPureVideoDetector) "
-                                  "is not ported yet (ROADMAP A11b)")
     if args.num_gpus != 1:
         raise NotImplementedError("--num-gpus other than 1 is not ported yet (ROADMAP A12)")
     if args.resume and args.task == "spotter":
@@ -179,6 +184,7 @@ def tracker_main(args, cfg) -> List[dict]:
     it = iter(loader)
     history = []
     window: List[dict] = []
+    tb = tensorboard_writer(cfg.OUTPUT_DIR)
     with open(os.path.join(cfg.OUTPUT_DIR, "metrics.json"), "a") as mf:
         for i in range(start_iter, max_iter):
             t0 = time.perf_counter()
@@ -210,6 +216,11 @@ def tracker_main(args, cfg) -> List[dict]:
                         **metrics}
                 mf.write(json.dumps(line) + "\n")
                 mf.flush()
+                if tb is not None:
+                    for k, v in line.items():
+                        if isinstance(v, (int, float)):
+                            tb.add_scalar(k, v, i + 1)
+                    tb.flush()
                 print(f"iter {i + 1}/{max_iter} loss {metrics['total_loss']:.4f} "
                       f"res {metrics.get('loss_res', 0.0):.4f} "
                       f"long {metrics['loss_long_asso']:.4f} "
@@ -221,7 +232,21 @@ def tracker_main(args, cfg) -> List[dict]:
                 save_train_state(ckpt_dir, i + 1,
                                  dict(trainer.state_dict(), loader=loader.state_dict()))
                 print(f"saved checkpoint at iteration {i + 1}")
+    if tb is not None:
+        tb.close()
     return history
+
+
+def tensorboard_writer(output_dir: str):
+    """A ``SummaryWriter`` at ``output_dir/tb`` (the reference's TensorboardXWriter,
+    train_net.py:79-87), or None, with one printed line, where
+    ``torch.utils.tensorboard`` does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        print(f"tensorboard scalars skipped: {e}")
+        return None
+    return SummaryWriter(os.path.join(output_dir, "tb"))
 
 
 # ---------------------------------------------------------------------------
@@ -288,6 +313,44 @@ def pretrain_main(args, cfg) -> List[dict]:
     return history
 
 
+def pretrain_video_main(args, cfg) -> List[dict]:
+    """The video-pretraining loop (JAX ``pretrain_video_main``, train_net.py:100-127):
+    clips of the video clip loader on a padded canvas with each frame's true size,
+    per-frame targets, ``checkpoints/spotter_{iter:07d}.pth``. Returns each step's losses
+    with ``step_s``, ``data_s``, ``frames`` and ``image_hw`` (the canvas)."""
+    from .data.loader import build_train_loader
+    from .engine.checkpoint import save_checkpoint
+    from .engine.pretrain import SpotterPretrainer, build_video_spotter_targets
+
+    t = cfg.MODEL.TRANSFORMER
+    trainer = SpotterPretrainer(cfg, device="cpu" if args.cpu else None)
+    loader = build_train_loader(cfg)
+    max_iter = args.max_iter if args.max_iter > 0 else cfg.SOLVER.MAX_ITER
+    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    raw = bool(cfg.TPU.TRAIN_UPLOAD_UINT8)
+    it = iter(loader)
+    history = []
+    for i in range(max_iter):
+        t0 = time.perf_counter()
+        sample = next(it)
+        images, frame_hw = normalize_clip(sample, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                          raw=raw)
+        targets = build_video_spotter_targets(sample, cfg.TPU.MAX_GT, t.NUM_POINTS,
+                                              t.VOC_SIZE)
+        data_s = time.perf_counter() - t0
+        metrics = trainer.step(images, targets, image_hw=frame_hw)
+        history.append(dict(metrics, step_s=time.perf_counter() - t0, data_s=data_s,
+                            frames=len(images), image_hw=tuple(images.shape[1:3])))
+        if not np.isfinite(metrics["total_loss"]):
+            raise FloatingPointError(f"loss diverged at iteration {i + 1}: {metrics}")
+        if (i + 1) % 20 == 0:
+            print(f"iter {i + 1}/{max_iter} total {metrics['total_loss']:.4f}")
+        if (i + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or (i + 1) == max_iter:
+            save_checkpoint(os.path.join(ckpt_dir, f"spotter_{i + 1:07d}.pth"), trainer.model)
+    return history
+
+
 def main(argv: Optional[List[str]] = None):
     from .config import setup_train_cfg
 
@@ -297,6 +360,8 @@ def main(argv: Optional[List[str]] = None):
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     if args.task == "tracker":
         return tracker_main(args, cfg)
+    if cfg.MODEL.META_ARCHITECTURE == "TransformerPureVideoDetector":
+        return pretrain_video_main(args, cfg)
     return pretrain_main(args, cfg)
 
 

@@ -14,7 +14,7 @@ spotter-pretraining model (``SpotterPretrainModel``): the same keys without
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -24,13 +24,23 @@ from .models.gomatching import build_model, build_pretrain_model
 from .models.layers import MultiHeadAttention
 from .models.lst_matcher import LSTMatcherHead
 from .models.spotter import DeepSoloSpotter, MSDeformAttn, offset_grid_bias
+from .models import vitae
+from .models.swin import SWIN_DEPTHS, WindowAttention
 
 PRIOR_PROB = 0.01
 
 
 # ---------------------------------------------------------------------------
-# key map (copy of tools/convert_torch_weights.py:28-231; ResNet backbone only)
+# key map (copy of tools/convert_torch_weights.py:28-231)
 # ---------------------------------------------------------------------------
+
+# Buffers a reference checkpoint of the Swin or ViTAEv2 trunk holds that the port
+# recomputes or does not use, as JAX's converter leaves them unloaded
+# (tests/test_golden_backbones.py:46-50): the shifted-window masks, the
+# relative-position index tables, ViTAEv2's relative and absolute position embeddings
+# and BatchNorm's step counters. ``load_weights`` skips only these.
+REFERENCE_BUFFERS = ("attn_mask", "relative_position_index", "rcpe", "pos_embed",
+                     "num_batches_tracked")
 
 
 def _linear(out, prefix_t, node, name):
@@ -70,18 +80,11 @@ def _conv(out, prefix_t, node, name, bias=False):
         out[f"{prefix_t}.bias"] = ("copy", (node, name, "bias"))
 
 
-def build_key_map(cfg, pretrain: bool = False) -> Dict[str, tuple]:
-    """torch key -> (transform, (JAX node, JAX path...)); ``pretrain``: the
-    pretraining model's keys (no ``roi_heads``)."""
-    t = cfg.MODEL.TRANSFORMER
-    m: Dict[str, tuple] = {}
-
-    bb = "backbone.0.backbone"
-    if cfg.MODEL.BACKBONE.NAME != "build_resnet_backbone":
-        raise NotImplementedError(f"backbone {cfg.MODEL.BACKBONE.NAME} is not ported yet")
+def resnet_key_map(m: Dict[str, tuple], bb: str, depth: int) -> None:
+    """detectron2's ResNet names under the prefix ``bb``."""
     _conv(m, f"{bb}.stem.conv1", "backbone", "stem_conv1")
     _frozen_bn(m, f"{bb}.stem.conv1.norm", "backbone", "stem_norm1")
-    blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[cfg.MODEL.RESNETS.DEPTH]
+    blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]
     for si, nb in enumerate(blocks):
         stage = f"res{si + 2}"
         for b in range(nb):
@@ -93,6 +96,84 @@ def build_key_map(cfg, pretrain: bool = False) -> Dict[str, tuple]:
             for ci in (1, 2, 3):
                 _conv(m, f"{tb}.conv{ci}", "backbone", f"{ob}/conv{ci}")
                 _frozen_bn(m, f"{tb}.conv{ci}.norm", "backbone", f"{ob}/norm{ci}")
+
+
+def swin_key_map(m: Dict[str, tuple], bb: str, depths=SWIN_DEPTHS["tiny"]) -> None:
+    """adet/modeling/swin/swin_transformer.py names under ``bb``
+    (tools/convert_torch_weights.py:89-112)."""
+    _conv(m, f"{bb}.patch_embed.proj", "backbone", "patch_embed_proj", bias=True)
+    _layernorm(m, f"{bb}.patch_embed.norm", "backbone", "patch_embed_norm")
+    for si, nb in enumerate(depths):
+        for b in range(nb):
+            tb = f"{bb}.layers.{si}.blocks.{b}"
+            ob = f"layers_{si}_blocks_{b}"
+            _layernorm(m, f"{tb}.norm1", "backbone", f"{ob}/norm1")
+            _linear(m, f"{tb}.attn.qkv", "backbone", f"{ob}/attn/qkv")
+            _linear(m, f"{tb}.attn.proj", "backbone", f"{ob}/attn/proj")
+            m[f"{tb}.attn.relative_position_bias_table"] = (
+                "copy", ("backbone", f"{ob}/attn", "relative_position_bias_table"))
+            _layernorm(m, f"{tb}.norm2", "backbone", f"{ob}/norm2")
+            _linear(m, f"{tb}.mlp.fc1", "backbone", f"{ob}/mlp_fc1")
+            _linear(m, f"{tb}.mlp.fc2", "backbone", f"{ob}/mlp_fc2")
+        if si < len(depths) - 1:
+            _layernorm(m, f"{bb}.layers.{si}.downsample.norm", "backbone",
+                       f"layers_{si}_downsample/norm")
+            m[f"{bb}.layers.{si}.downsample.reduction.weight"] = (
+                "linear_w", ("backbone", f"layers_{si}_downsample/reduction", "kernel"))
+        if si in (1, 2, 3):
+            _layernorm(m, f"{bb}.norm{si}", "backbone", f"out_norm{si}")
+
+
+def vitae_key_map(m: Dict[str, tuple], bb: str, nc_depths=vitae.NC_DEPTHS,
+                  dilations=vitae.DILATIONS, tokens_types=vitae.TOKENS_TYPES) -> None:
+    """adet/modeling/vitae_v2 names under ``bb`` (tools/convert_torch_weights.py:113-151)."""
+
+    def pcm(tprefix, oprefix):
+        # the torch PCM is Sequential(conv, BN, SiLU, conv, BN, SiLU, conv): 0, 1, 3, 4, 6
+        for oi, ti in enumerate((0, 3, 6)):
+            _conv(m, f"{tprefix}.{ti}", "backbone", f"{oprefix}/conv{oi}", bias=True)
+        for oi, ti in enumerate((1, 4)):
+            _frozen_bn(m, f"{tprefix}.{ti}", "backbone", f"{oprefix}/bn{oi}")
+
+    def block(tprefix, oprefix, qkv_bias=True):
+        _layernorm(m, f"{tprefix}.norm1", "backbone", f"{oprefix}/norm1")
+        m[f"{tprefix}.attn.qkv.weight"] = (
+            "linear_w", ("backbone", f"{oprefix}/attn/qkv", "kernel"))
+        if qkv_bias:  # the T2T attention of the 'transformer' RCs has no qkv bias
+            m[f"{tprefix}.attn.qkv.bias"] = ("copy", ("backbone", f"{oprefix}/attn/qkv", "bias"))
+        _linear(m, f"{tprefix}.attn.proj", "backbone", f"{oprefix}/attn/proj")
+        _layernorm(m, f"{tprefix}.norm2", "backbone", f"{oprefix}/norm2")
+        _linear(m, f"{tprefix}.mlp.fc1", "backbone", f"{oprefix}/mlp/fc1")
+        _linear(m, f"{tprefix}.mlp.fc2", "backbone", f"{oprefix}/mlp/fc2")
+
+    for si in range(len(nc_depths)):
+        trc, orc = f"{bb}.layers.{si}.RC", f"layers_{si}_rc"
+        for k in range(len(dilations[si])):
+            _conv(m, f"{trc}.PRM.convs.{k}.0", "backbone", f"{orc}/prm/conv{k}", bias=True)
+        pcm(f"{trc}.PCM", f"{orc}/pcm")
+        block(f"{trc}.attn", orc, qkv_bias=tokens_types[si] == "window")
+        for b in range(nc_depths[si]):
+            tnc, onc = f"{bb}.layers.{si}.NC.{b}", f"layers_{si}_nc_{b}"
+            block(tnc, onc)
+            pcm(f"{tnc}.PCM", f"{onc}/pcm")
+
+
+def build_key_map(cfg, pretrain: bool = False) -> Dict[str, tuple]:
+    """torch key -> (transform, (JAX node, JAX path...)); ``pretrain``: the
+    pretraining model's keys (no ``roi_heads``)."""
+    t = cfg.MODEL.TRANSFORMER
+    m: Dict[str, tuple] = {}
+
+    bb = "backbone.0.backbone"
+    name = cfg.MODEL.BACKBONE.NAME
+    if name == "build_resnet_backbone":
+        resnet_key_map(m, bb, cfg.MODEL.RESNETS.DEPTH)
+    elif name == "build_swin_backbone":
+        swin_key_map(m, bb, SWIN_DEPTHS[cfg.MODEL.SWIN.TYPE])
+    elif name == "build_vitaev2_backbone":
+        vitae_key_map(m, bb)
+    else:
+        raise ValueError(f"MODEL.BACKBONE.NAME={name!r}")
 
     # ---- spotter ----
     dt = o = "detection_transformer"
@@ -185,15 +266,18 @@ def _get(tree: Mapping, node: str, path: str) -> np.ndarray:
     return np.asarray(cur)
 
 
-def params_from_jax(tree: Mapping, cfg, pretrain: bool = False) -> Dict[str, np.ndarray]:
+def params_from_jax(tree: Mapping, cfg, pretrain: bool = False,
+                    key_map: Optional[Mapping[str, tuple]] = None) -> Dict[str, np.ndarray]:
     """JAX params ({'params': {...}} or the inner dict of numpy-convertible arrays)
     -> {canonical torch key: array}. Inverse of tools/convert_torch_weights.convert.
-    A tree of gradients converts the same way."""
+    A tree of gradients converts the same way. ``key_map``: another map than
+    ``build_key_map(cfg, pretrain)`` (a trunk's own, say)."""
     if "params" in tree:
         tree = tree["params"]
-    t = cfg.MODEL.TRANSFORMER
     sd: Dict[str, np.ndarray] = {}
-    for tk, (kind, target) in build_key_map(cfg, pretrain).items():
+    if key_map is None:
+        key_map = build_key_map(cfg, pretrain)
+    for tk, (kind, target) in key_map.items():
         node, *path = target
         path = "/".join(path)
         if kind in ("mha_in_w", "mha_in_b"):
@@ -207,7 +291,7 @@ def params_from_jax(tree: Mapping, cfg, pretrain: bool = False) -> Dict[str, np.
         elif kind == "conv_w":
             x = x.transpose(3, 2, 0, 1)
         elif kind == "point_embed":
-            x = x.reshape(t.NUM_QUERIES * t.NUM_POINTS, t.HIDDEN_DIM)
+            x = x.reshape(-1, x.shape[-1])
         elif kind != "copy":
             raise ValueError(kind)
         sd[tk] = np.ascontiguousarray(x, dtype=np.float32)
@@ -234,11 +318,14 @@ def load_weights(model: nn.Module, state_dict: Mapping) -> None:
     """Strictly load a reference-keyed state_dict into a port module. Keys of the
     reference's raw DeepSolo layout are renamed to the decoupled one
     (``detection_transformer.backbone.`` -> ``backbone.``), and aliases of shared
-    heads missing from ``state_dict`` are filled from their canonical key."""
+    heads missing from ``state_dict`` are filled from their canonical key. The reference
+    buffers that the port recomputes (``REFERENCE_BUFFERS``) are skipped, and only they."""
     sd = {}
     for k, v in state_dict.items():
         if k.startswith("detection_transformer.backbone.0.backbone."):
             k = k.replace("detection_transformer.backbone.", "backbone.", 1)
+        if k.rsplit(".", 1)[-1] in REFERENCE_BUFFERS:
+            continue
         sd[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
     for k in model.state_dict():
         if k not in sd and canonical_key(k) in sd:
@@ -257,7 +344,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     N(0, 1/fan_in) with zero biases, norms at identity, the sampling-offset grid
     bias and zero offset/attention kernels (spotter.py:54, ms_deform_attn.py:101-109),
     N(0, 1) level/point embeddings, and the prior-probability class bias
-    (spotter.py:427), and N(0, 1) tables of the matcher's positional embeddings."""
+    (spotter.py:427), N(0, 1) tables of the matcher's positional embeddings, and N(0, 0.02)
+    relative-position tables of Swin's window attention."""
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d)):
             mod.weight.normal_(0.0, mod.weight[0].numel() ** -0.5, generator=generator)
@@ -269,6 +357,8 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, WindowAttention):
+            mod.relative_position_bias_table.normal_(0.0, 0.02, generator=generator)
     bias_prior = -float(np.log((1 - PRIOR_PROB) / PRIOR_PROB))
     for mod in model.modules():
         if isinstance(mod, MSDeformAttn):

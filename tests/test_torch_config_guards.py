@@ -4,8 +4,7 @@
 tracker trainer whose frozen spotter is bf16 and samples through B5 on bf16 value
 (tests/test_torch_pallas_bf16.py holds that path against JAX). The shipped configs still
 build a predictor and a trainer.
-The tracker trainer refuses the freeze policies that train more than ``roi_heads``; it
-reads neither of the inference keys ``TPU.ASSOC_PRECISION`` and ``TPU.UPLOAD_FORMAT``, as
+The tracker trainer refuses only the freeze policies JAX rejects; it reads neither of the inference keys ``TPU.ASSOC_PRECISION`` and ``TPU.UPLOAD_FORMAT``, as
 JAX's ``Trainer`` does not, so it builds with both at their production values. The
 pretraining model takes no compute dtype, as JAX's does not: it builds f32 under
 ``MODEL.PRECISION`` bfloat16.
@@ -63,16 +62,32 @@ def _train_cfg(name, *opts):
                            ["MODEL.WEIGHTS", "''", *opts])
 
 
-@pytest.mark.parametrize("key,value,match", [
-    ("MODEL.FREEZE_TYPE", "ROIheads", r"MODEL\.FREEZE_TYPE='ROIheads'"),
-    ("MODEL.FREEZE_TYPE", "''", r"MODEL\.FREEZE_TYPE=''"),
+@pytest.mark.parametrize("value,jax_trains", [
+    ("ROIheads", ("backbone", "detection_transformer")),
+    ("''", ("backbone", "detection_transformer", "roi_heads")),
+    ("ExceptCascadeROIheads", None),
 ])
-def test_trainer_refuses_unported_training_keys(key, value, match):
-    """The tracker trainer refuses freeze policies that train more than roi_heads."""
+def test_trainer_refuses_unported_training_keys(value, jax_trains):
+    """The tracker trainer refuses only the freeze policies JAX's ``split_params``
+    rejects (the cascade ones, which name CenterNet2 modules); ROIheads and '' build a
+    trainer at full width whose optimizer holds exactly the submodules JAX trains."""
+    from gomatching_tpu.engine.train import split_params
     from gomatching_tpu_torch.engine.train import Trainer
 
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(_train_cfg("GoMatching_ICDAR15", key, value), device="cpu")
+    cfg = _train_cfg("GoMatching_ICDAR15", "MODEL.FREEZE_TYPE", value)
+    tree = {"params": {k: {} for k in ("backbone", "detection_transformer", "roi_heads")}}
+    if jax_trains is None:
+        with pytest.raises(NotImplementedError, match="CenterNet2"):
+            split_params(tree, cfg.MODEL.FREEZE_TYPE)
+        with pytest.raises(NotImplementedError, match=r"MODEL\.FREEZE_TYPE='ExceptCascade"):
+            Trainer(cfg, device="cpu")
+        return
+    assert tuple(sorted(split_params(tree, cfg.MODEL.FREEZE_TYPE)[0])) == jax_trains
+    tr = Trainer(cfg, device="cpu")
+    in_opt = {id(p) for g in tr.optimizer.param_groups for p in g["params"]}
+    named = dict(tr.model.named_parameters())
+    assert in_opt == {id(p) for n, p in named.items() if n.split(".")[0] in jax_trains}
+    assert {n.split(".")[0] for n in tr.trainable_names} == set(jax_trains)
 
 
 @pytest.mark.parametrize("name", ["GoMatching_ICDAR15", "GoMatching_PP_ICDAR15"])

@@ -29,7 +29,8 @@ def test_importing_the_port_pulls_in_no_jax():
               "engine.checkpoint", "data.bezier", "data.datasets", "data.image_augment",
               "train_net", "ops.deform_attn_merged", "ops.deform_attn_vmem",
               "ops.deform_attn_fused", "tools.bench_deform_attn", "ops.gather_probe",
-              "ops.onehot_g", "tools.bench_gather", "tools.probe_bf16_g"):
+              "ops.onehot_g", "tools.bench_gather", "tools.probe_bf16_g", "models.swin",
+              "models.vitae", "utils.synthetic"):
         assert f"gomatching_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

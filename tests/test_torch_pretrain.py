@@ -325,19 +325,15 @@ def test_train_net_cli_trains_and_writes_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--task", "tracker", "--opts", "MODEL.BACKBONE.NAME", "build_vitaev2_backbone"),
     ("--num-gpus", "2"),
     ("--resume",),
-    ("--opts", "MODEL.META_ARCHITECTURE", "TransformerPureVideoDetector"),
-    ("--opts", "MODEL.BACKBONE.NAME", "build_swin_backbone"),
-    ("--task", "tracker", "--opts", "MODEL.FREEZE_TYPE", "ROIheads"),
     ("--task", "tracker", "--num-gpus", "2"),
+    ("--task", "tracker", "--opts", "MODEL.FREEZE_TYPE", "ExceptCascadeROIheads"),
 ])
 def test_train_net_refuses_what_is_not_ported(tmp_path, extra):
-    """What neither task ports yet raises NotImplementedError before any step: for
-    tracker training the ViTAEv2 backbone (A10), a freeze policy that trains more than
-    roi_heads and data parallelism (A12); for pretraining data parallelism, --resume,
-    video pretraining (A11b) and the Swin backbone (A10)."""
+    """What neither task ports raises NotImplementedError before any step: data
+    parallelism (A12) for either task, --resume of pretraining, and for tracker training
+    a freeze policy JAX rejects too (a cascade one)."""
     from gomatching_tpu_torch import train_net
 
     task = "spotter"
@@ -349,3 +345,30 @@ def test_train_net_refuses_what_is_not_ported(tmp_path, extra):
         args = list(extra) + _cli_args(tmp_path, task=task)
     with pytest.raises(NotImplementedError):
         train_net.main(args)
+
+
+@pytest.mark.parametrize("task,opts", [
+    ("tracker", ("MODEL.BACKBONE.NAME", "build_vitaev2_backbone")),
+    ("spotter", ("MODEL.META_ARCHITECTURE", "TransformerPureVideoDetector")),
+    ("spotter", ("MODEL.BACKBONE.NAME", "build_swin_backbone")),
+    ("tracker", ("MODEL.FREEZE_TYPE", "ROIheads")),
+])
+def test_train_net_runs_what_was_refused(tmp_path, task, opts):
+    """Tracker training on the ViTAEv2-S trunk and under FREEZE_TYPE ROIheads, video
+    pretraining, and image pretraining on the Swin-T trunk (drop-path 0.2) each run one
+    step at the tiny config on a synthetic dataset and write their checkpoints."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.data.datasets import register_dataset
+    from test_torch_train_tracker_cli import TINY as TRACKER_TINY, _write_dataset as write_videos
+
+    name = f"synth_port_now_ported_{task}_{opts[1]}"
+    video = task == "tracker" or "Video" in opts[1]
+    register_dataset(name, *(write_videos(tmp_path) if video else _write_dataset(tmp_path)))
+    args = _cli_args(tmp_path, *(TRACKER_TINY if task == "tracker" else ()), *opts,
+                     "DATASETS.TRAIN", f"('{name}',)", task=task)
+    args[args.index("--max-iter") + 1] = "1"
+    history = train_net.main(args)
+    assert len(history) == 1 and np.isfinite(history[0]["total_loss"])
+    prefix = "model_" if task == "tracker" else "spotter_"
+    assert f"{prefix}0000001{'_rescore' if task == 'tracker' else ''}.pth" in os.listdir(
+        tmp_path / "out" / "checkpoints")
