@@ -215,6 +215,22 @@ Phases (any failure exits non-zero and prints no result line):
      DECAY_ULPS of p * (1 - lr * wd) (zero gradient behind the detached spot, AdamW's
      decoupled decay), every frozen one unchanged and f32, roi_heads moved; a tensorboard
      event file in OUTPUT_DIR/tb.
+ 26. data parallel on this card: DP_RANKS processes (``parallel.launch``, a gloo group,
+     every rank on cuda:0, which NCCL refuses), for ICDAR15 GoMatching tracker training at
+     full width on phase 16's dataset in f32 and in bf16 with the I420 training wire: one
+     averaged step (``Trainer.step_multi``, one clip a rank, padded to the common canvas
+     and frame count) against the one-process ``step_multi`` of the same two clips
+     (losses within DP_LOSS_RTOL, the updated roi_heads within RTOL_LOSS, thresholds in a
+     gap of the fused scores), the ranks' heads the same bits; then N_DP_STEPS iterations
+     through ``train_net.main --num-gpus 2`` on each rank: finite averaged losses, B1 (f32
+     or bf16) launched ENC_LAYERS + DEC_LAYERS times a step on each rank and nothing else,
+     the ranks' heads the same bits after the last step, one checkpoint holding rank 0's
+     head and one metrics.json line; ms/iter, data stage, the all-reduce's host wall and
+     peak memory per rank; then phase 4's frames through ``VideoPredictor`` with a group
+     (TPU.SPOT_BATCH DP_SPOT_BATCH split over the ranks, the rows gathered on the host)
+     against the single-process predictor: B2 and B1 launched on each rank for its share,
+     scores within DP_SCORE_ATOL, track ids and XML identical unless a score lies within
+     DP_SCORE_ATOL of the threshold; a rank that fails or outlives DP_TIMEOUT_S fails it.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1, T2, B1 and B2 on bf16 value, and B5, its table build and the four B6 entries
 on bf16 value); the last is {"ok": true, "device": {...}}.
@@ -3871,6 +3887,346 @@ def phase_freeze(torch, da, tmp):
               f"{peak / 2**30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# phase 26: data parallel on the card (two gloo ranks on cuda:0)
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2  # ranks of phase 26, both on cuda:0 (NCCL refuses two ranks on one card)
+N_DP_STEPS = 3  # tracker iterations of each data-parallel CLI run
+DP_SPOT_BATCH = 4  # TPU.SPOT_BATCH of the sharded inference: 2 frames a rank
+DP_LOSS_RTOL = 1e-5  # the averaged step against the one-process step_multi
+DP_SCORE_ATOL = 1e-4  # sharded against single-process detections (scores)
+DP_TIMEOUT_S = 420  # a launch that outlives it fails the phase
+
+
+def dp_opts(data, extra=()):
+    """The opts of a phase-26 tracker run: phase 16's, the dataset by its paths (the
+    spawned ranks have no registry entry)."""
+    return ["MODEL.WEIGHTS", "''", "SEED", "1", "DATASETS.TRAIN", f"('{data}',)",
+            "MODEL.TRANSFORMER.INFERENCE_TH_TRAIN", str(TRACK_THRESH),
+            "MODEL.ASSO_HEAD.ASSO_THRESH", str(TRACK_THRESH), *extra]
+
+
+def dp_clips(torch, cfg, i420):
+    """The two clips of a data-parallel step: each rank's first clip of its loader, on the
+    common canvas and frame count, with frame sizes and targets (``frame_valid``), on the
+    I420 wire when ``i420``."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.data.loader import build_train_loader
+    from gomatching_tpu_torch.engine.train import encode_train_clip
+
+    samples = [next(iter(build_train_loader(cfg, r, DP_RANKS))) for r in range(DP_RANKS)]
+    t_max = max(len(s.images) for s in samples)
+    canvas = tuple(int(max(max(im.shape[i] for im in s.images) for s in samples))
+                   for i in (0, 1))
+    clips = []
+    for s in samples:
+        images, hw = train_net.normalize_clip(s, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
+                                              raw=True, canvas=canvas, pad_t=t_max)
+        if i420:
+            images = encode_train_clip(images, cfg.INPUT.FORMAT)
+        clips.append((images, hw, train_net.targets_from_sample(s, pad_t=t_max)))
+    return clips
+
+
+def dp_rank(jobs, infer_opts, xml_dir):
+    """What each rank of phase 26 runs (spawned by ``parallel.launch`` on cuda:0 in a gloo
+    group of DP_RANKS): per training job (label, opts of the averaged step, the two clips,
+    CLI argv) one ``step_multi`` on its clip from the seeded weights, then N_DP_STEPS
+    iterations through ``train_net.main`` (its Trainer recorded, for its final head);
+    then the sharded inference of phase 4's frames. Returns this rank's results,
+    launch counts and peak memory."""
+    import torch
+    import torch.distributed as dist
+
+    import gomatching_tpu_torch.engine.train as engine_train
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.config import setup_eval_cfg, setup_train_cfg
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor
+    from gomatching_tpu_torch.eval import annotate
+    from gomatching_tpu_torch.evaluation.writer import write_video_results
+    from gomatching_tpu_torch.ops import deform_attn as da
+    from gomatching_tpu_torch.weights import init_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, group = dist.get_rank(), dist.group.WORLD
+    out = {"rank": rank, "device": str(torch.device("cuda", torch.cuda.current_device()))}
+    for label, opts, clips, argv in jobs:
+        cfg = setup_train_cfg(CONFIG, opts)
+        sd = train_net.init_rescoring_from_classifier(
+            init_state_dict(cfg, torch.Generator().manual_seed(cfg.SEED)))
+        tr = engine_train.Trainer(cfg, sd, group=group)
+        da.reset_launch_counts()
+        metrics = tr.step_multi([clips[rank]])
+        step_counts = dict(da.launch_counts)
+        head = {k: v.detach().cpu() for k, v in tr.model.roi_heads.state_dict().items()}
+        del tr, sd
+        torch.cuda.empty_cache()
+        made = []
+        real = engine_train.Trainer
+
+        class Recorded(real):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                made.append(self)
+
+        engine_train.Trainer = Recorded
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            da.reset_launch_counts()
+            history = train_net.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            engine_train.Trainer = real
+        out[label] = {"step": metrics, "step_counts": step_counts, "head": head,
+                      "history": history, "counts": dict(da.launch_counts),
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "final": {k: v.detach().cpu() for k, v in
+                                made[0].model.roi_heads.state_dict().items()}}
+        del made
+        torch.cuda.empty_cache()
+
+    pred = VideoPredictor(setup_eval_cfg(CONFIG, infer_opts), group=group)
+    frames = synthetic_frames()
+    pred.process_video([f.copy() for f in frames[:2]])  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launch_counts()
+    t0 = time.time()
+    tracked = pred.process_video([f.copy() for f in frames])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    if rank == 0:
+        os.makedirs(xml_dir, exist_ok=True)
+        write_video_results(annotate(pred, tracked), os.path.join(xml_dir, "video_1.json"),
+                            os.path.join(xml_dir, "res_video_1.xml"))
+    out["infer"] = {"wall": wall, "counts": dict(da.launch_counts),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "frames": [{k: np.asarray(getattr(f, k)) for k in
+                                ("scores", "boxes", "bd", "ctrl_points", "track_ids")}
+                               for f in tracked]}
+    return out
+
+
+def dp_reference_step(torch, cfg, clips):
+    """The one-process ``step_multi`` over both clips from the seeded weights, its
+    thresholds moved into the widest gap of the middle fused scores of the clips' real
+    frames (so that last-bit differences cannot move a proposal across them); returns
+    the thresholds, the losses, the updated head and AdamW's first moments (float64)."""
+    from gomatching_tpu_torch import train_net
+    from gomatching_tpu_torch.engine.train import Trainer
+    from gomatching_tpu_torch.weights import init_state_dict
+
+    sd = train_net.init_rescoring_from_classifier(
+        init_state_dict(cfg, torch.Generator().manual_seed(cfg.SEED)))
+    tr = Trainer(cfg, sd)
+    sig = lambda x: 1 / (1 + np.exp(-x.mean(2)[..., 0]))
+    fused = []
+    for images, hw, tg in clips:
+        host = tr.host_fields(tr.spot(images, hw))
+        fused.append(np.maximum(sig(host["pred_logits"]),
+                                sig(host["re_pred_logits"]))[tg["frame_valid"]].ravel())
+    fused = np.sort(np.concatenate(fused))
+    lo, hi = len(fused) * 3 // 10, len(fused) * 7 // 10
+    i = lo + int(np.argmax(np.diff(fused[lo:hi + 1])))
+    th, gap = float(fused[i] + fused[i + 1]) / 2, float(fused[i + 1] - fused[i])
+    tr.train_thresh = tr.asso_thresh = th
+    metrics = tr.step_multi(clips)
+    named = dict(tr.model.roi_heads.named_parameters())
+    moments = {k: tr.optimizer.state[p]["exp_avg"].double().cpu() for k, p in named.items()}
+    head = {k: v.detach().double().cpu() for k, v in tr.model.roi_heads.state_dict().items()}
+    init = {k[len("roi_heads."):]: v.double() for k, v in sd.items()
+            if k.startswith("roi_heads.")}
+    del tr
+    torch.cuda.empty_cache()
+    return th, gap, metrics, head, moments, init
+
+
+def dp_head_err(head, ref, moments, lr):
+    """The largest difference of an updated roi_heads tensor from the reference's, per
+    tensor against its largest weight (or the LR), entries whose clipped gradient is
+    below 100 AdamW eps left out, as phase 16 holds a tracker step."""
+    worst, name = 0.0, None
+    for k, r in ref.items():
+        noise = 10 * moments[k].abs() < 100 * ADAMW_EPS
+        if (~noise).any():
+            err = (head[k].double() - r).abs()[~noise].max().item() / max(r.abs().max().item(), lr)
+            if err > worst:
+                worst, name = err, k
+    return worst, name
+
+
+def phase_dp(torch, da, tmp, data, card):
+    """Phase 26: data-parallel tracker training and sharded inference over DP_RANKS gloo
+    ranks on cuda:0 (``parallel.launch``), each rank a process of its own: per precision
+    (f32; bf16 + the I420 wire) the averaged step against the one-process ``step_multi``
+    of the same two clips, N_DP_STEPS iterations through ``train_net.main --num-gpus 2``
+    (B1 ENC_LAYERS + DEC_LAYERS launches a step on each rank, the ranks' weights the same
+    bits, rank 0's checkpoint and metrics alone), then phase 4's frames through the
+    sharded ``VideoPredictor`` (TPU.SPOT_BATCH DP_SPOT_BATCH) against the single-process
+    one. A rank that fails or hangs fails the phase."""
+    from gomatching_tpu_torch.config import setup_eval_cfg, setup_train_cfg
+    from gomatching_tpu_torch.engine.checkpoint import load_checkpoint
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor
+    from gomatching_tpu_torch.eval import annotate
+    from gomatching_tpu_torch.evaluation.writer import write_video_results
+    from gomatching_tpu_torch.parallel.launch import launch
+
+    jobs, refs = [], {}
+    for label, extra, b1 in (("f32", [], da.QUERIES),
+                             ("bf16 + I420", TRAIN_PROD_OPTS, da.QUERIES_BF16)):
+        cfg = setup_train_cfg(CONFIG, dp_opts(data, extra))
+        clips = dp_clips(torch, cfg, "TPU.TRAIN_UPLOAD_FORMAT" in extra)
+        th, gap, metrics, head, moments, init = dp_reference_step(torch, cfg, clips)
+        refs[label] = (th, gap, metrics, head, moments, init, b1, cfg, clips)
+        step_opts = dp_opts(data, extra) + ["MODEL.TRANSFORMER.INFERENCE_TH_TRAIN", repr(th),
+                                            "MODEL.ASSO_HEAD.ASSO_THRESH", repr(th)]
+        out_dir = os.path.join(tmp, f"dp_{len(extra)}")
+        argv = ["--config-file", CONFIG, "--task", "tracker", "--num-gpus", str(DP_RANKS),
+                "--max-iter", str(N_DP_STEPS), "--opts", *dp_opts(data, extra),
+                "OUTPUT_DIR", out_dir, "SOLVER.CHECKPOINT_PERIOD", str(N_DP_STEPS)]
+        jobs.append((label, step_opts, clips, argv))
+    infer_opts = ["MODEL.WEIGHTS", "''", "MODEL.TRANSFORMER.INFERENCE_TH_TEST", "0.05",
+                  "SEED", "0", "TPU.SPOT_BATCH", str(DP_SPOT_BATCH)]
+    xml_dir = os.path.join(tmp, "dp_xml")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ranks = launch(dp_rank, DP_RANKS, dist_url=f"file://{os.path.join(tmp, 'dp_rendezvous')}",
+                   args=(jobs, infer_opts, xml_dir), backend="gloo", device="cuda:0",
+                   timeout_s=DP_TIMEOUT_S)
+    print(f"[26] {DP_RANKS} gloo ranks on {ranks[0]['device']} ({card}): the launch took "
+          f"{time.time() - t0:.1f} s")
+
+    for label, (th, gap, ref_metrics, ref_head, moments, init, b1, cfg, clips) in refs.items():
+        t = cfg.MODEL.TRANSFORMER
+        layers = t.ENC_LAYERS + t.DEC_LAYERS
+        lr = float(cfg.SOLVER.BASE_LR) * float(cfg.SOLVER.WARMUP_FACTOR)
+        a, b = (r[label] for r in ranks)
+        check(a["step"] == b["step"], f"[26] {label}: the ranks' averaged losses differ")
+        loss_err = max(abs(a["step"][k] - v) / max(abs(v), 1e-12) for k, v in ref_metrics.items())
+        check(all(torch.equal(a["head"][k], b["head"][k]) for k in a["head"]),
+              f"[26] {label}: the ranks' heads differ after the averaged step")
+        head_err, worst = dp_head_err(a["head"], ref_head, moments, lr)
+        moved = sum(not torch.equal(ref_head[k], init[k]) for k in ref_head)
+        for r in ranks:
+            want = {**{k: 0 for k in r[label]["step_counts"]}, b1: layers}
+            check(r[label]["step_counts"] == want,
+                  f"[26] {label}: rank {r['rank']} step launches {r[label]['step_counts']}")
+        print(f"[26] {label}: the averaged step of {DP_RANKS} ranks (clips of "
+              f"{[len(c[2]['gt_ids']) for c in clips]} frames, "
+              f"{[int(c[2]['frame_valid'].sum()) for c in clips]} of them real, wire "
+              f"{clips[0][0].shape} {clips[0][0].dtype}, true sizes "
+              f"{[tuple(c[1][0].tolist()) for c in clips]}, thresholds {th:.6f} in a "
+              f"gap of {gap:.2e}) against the one-process step_multi of both clips: losses "
+              f"max rel err {loss_err:.3e} (rtol {DP_LOSS_RTOL}), updated roi_heads max rel "
+              f"err {head_err:.3e} ({worst}; rtol {RTOL_LOSS}; {moved} of {len(ref_head)} "
+              f"tensors moved), the ranks' heads the same bits; launches a rank "
+              f"{ {k: v for k, v in a['step_counts'].items() if v} }")
+        check(loss_err <= DP_LOSS_RTOL, f"[26] {label}: losses differ by {loss_err}")
+        check(head_err <= RTOL_LOSS, f"[26] {label}: roi_heads differ by {head_err} ({worst})")
+
+        # the CLI run: N_DP_STEPS iterations on each rank
+        out_dir = next(j[3][j[3].index("OUTPUT_DIR") + 1] for j in jobs if j[0] == label)
+        hist = [r[label]["history"] for r in ranks]
+        for r, h in zip(ranks, hist):
+            check(len(h) == N_DP_STEPS and all(math.isfinite(x["total_loss"]) for x in h),
+                  f"[26] {label}: rank {r['rank']} history {[x['total_loss'] for x in h]}")
+            want = {**{k: 0 for k in r[label]["counts"]}, b1: layers * N_DP_STEPS}
+            check(r[label]["counts"] == want,
+                  f"[26] {label}: rank {r['rank']} launches {r[label]['counts']}, expected {want}")
+        check([x["total_loss"] for x in hist[0]] == [x["total_loss"] for x in hist[1]],
+              f"[26] {label}: the ranks logged other averaged losses")
+        check(all(torch.equal(v, b["final"][k]) for k, v in a["final"].items()),
+              f"[26] {label}: the ranks' heads differ after {N_DP_STEPS} iterations")
+        ckpt_dir = os.path.join(out_dir, "checkpoints")
+        check(sorted(os.listdir(ckpt_dir)) == [f"model_{N_DP_STEPS:07d}_rescore.pth",
+                                               f"state_{N_DP_STEPS:07d}.pth"],
+              f"[26] {label}: checkpoints {sorted(os.listdir(ckpt_dir))}")
+        with open(os.path.join(out_dir, "metrics.json")) as f:
+            lines = f.read().splitlines()
+        check(len(lines) == 1 and json.loads(lines[0])["iteration"] == N_DP_STEPS,
+              f"[26] {label}: metrics.json holds {len(lines)} lines (rank 0's one expected)")
+        sd = load_checkpoint(os.path.join(ckpt_dir, f"model_{N_DP_STEPS:07d}_rescore.pth"))
+        check(all(torch.equal(sd["roi_heads." + k], v) for k, v in a["final"].items()),
+              f"[26] {label}: the checkpoint's roi_heads are not rank 0's")
+        ranks_s = ", ".join(
+            f"rank {r['rank']}: " + ", ".join(
+                f"{x['step_s'] * 1e3:.1f}" for x in h) + " ms/iter (data "
+            + ", ".join(f"{x['data_s'] * 1e3:.1f}" for x in h) + "; waiting for the other "
+            "rank's clip size " + ", ".join(f"{x['wait_s'] * 1e3:.1f}" for x in h)
+            + "; all-reduce "
+            + ", ".join(f"{x['phase_t']['allreduce'] * 1e3:.1f}" for x in h)
+            + f"), peak {r[label]['peak'] / 2**30:.2f} GiB"
+            for r, h in zip(ranks, hist))
+        print(f"[26] {label}: train_net.main --num-gpus {DP_RANKS}, {N_DP_STEPS} iterations, "
+              f"averaged losses {[round(x['total_loss'], 4) for x in hist[0]]}, frames a clip "
+              f"{[[x['frames'] for x in h] for h in hist]}, canvases "
+              f"{[x['image_hw'] for x in hist[0]]}; {ranks_s}; B1 launches a rank "
+              f"{[r[label]['counts'][b1] for r in ranks]}; the ranks' weights the same bits; "
+              f"rank 0's checkpoint and one metrics.json line")
+
+    refs.clear()
+
+    # sharded inference against the single-process predictor
+    single = VideoPredictor(setup_eval_cfg(CONFIG, infer_opts))
+    frames = synthetic_frames()
+    single.process_video([f.copy() for f in frames[:2]])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tracked = single.process_video([f.copy() for f in frames])
+    torch.cuda.synchronize()
+    wall1 = time.time() - t0
+    n_batches = -(-N_FRAMES // DP_SPOT_BATCH)
+    for r in ranks:
+        inf = r["infer"]
+        want = {**{k: 0 for k in inf["counts"]}, da.ENCODER: 6 * n_batches,
+                da.QUERIES: 6 * n_batches}
+        check(inf["counts"] == want, f"[26] inference: rank {r['rank']} launches {inf['counts']}")
+    th = float(single.score_thresh)
+    near, score_err, box_err, same = False, 0.0, 0.0, True
+    for r in ranks:
+        for i, (got, f) in enumerate(zip(r["infer"]["frames"], tracked)):
+            if len(got["scores"]) != len(f.scores):
+                extra = np.concatenate([got["scores"], f.scores])
+                near |= bool((np.abs(extra - th) < DP_SCORE_ATOL).any())
+                same = False
+                continue
+            score_err = max(score_err, float(np.abs(got["scores"] - f.scores).max(initial=0)))
+            box_err = max(box_err, float(np.abs(got["boxes"] - f.boxes).max(initial=0)))
+            same &= bool(np.array_equal(got["track_ids"], f.track_ids))
+    check(same or near, "[26] inference: the sharded run kept other detections or ids, and no "
+          f"score lies within {DP_SCORE_ATOL} of the threshold {th}")
+    with tempfile.TemporaryDirectory() as d:
+        write_video_results(annotate(single, tracked), os.path.join(d, "video_1.json"),
+                            os.path.join(d, "res_video_1.xml"))
+        with open(os.path.join(d, "res_video_1.xml")) as f1, \
+                open(os.path.join(xml_dir, "res_video_1.xml")) as f2:
+            xml_same = f1.read() == f2.read()
+    check(sorted(os.listdir(xml_dir)) == ["res_video_1.xml", "video_1.json"],
+          f"[26] inference: {sorted(os.listdir(xml_dir))}")
+    if not near:
+        check(score_err <= DP_SCORE_ATOL, f"[26] inference: scores differ by {score_err}")
+        check(box_err <= ATOL_PATH * 1280, f"[26] inference: boxes differ by {box_err} px")
+        check(xml_same, "[26] inference: the sharded run's XML differs from the single one's")
+    walls = [r["infer"]["wall"] for r in ranks]
+    print(f"[26] sharded inference ({CONFIG}, TPU.SPOT_BATCH {DP_SPOT_BATCH}, "
+          f"{DP_SPOT_BATCH // DP_RANKS} frames a rank a batch) over {N_FRAMES} frames: "
+          + ("detections and track ids identical" if same else "detections differ near the "
+             "threshold (not compared)")
+          + f", scores max |diff| {score_err:.3e} (atol {DP_SCORE_ATOL}), boxes {box_err:.3e} px, "
+          f"XML {'identical' if xml_same else 'DIFFERENT'} to the single-process run; "
+          f"{N_FRAMES / max(walls):.3f} frames/s on {DP_RANKS} ranks of one card against "
+          f"{N_FRAMES / wall1:.3f} in one process; peak "
+          + ", ".join(f"rank {r['rank']} {r['infer']['peak'] / 2**30:.2f} GiB" for r in ranks)
+          + f"; launches a rank {[r['infer']['counts'][da.ENCODER] for r in ranks]} (B2), "
+          f"{[r['infer']['counts'][da.QUERIES] for r in ranks]} (B1)")
+    del single
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3957,7 +4313,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = os.path.join(tmp, "data")
         os.makedirs(data_dir)
-        register_dataset("chip_smoke_tracker", *write_tracker_dataset(data_dir))
+        tracker_data = write_tracker_dataset(data_dir)
+        register_dataset("chip_smoke_tracker", *tracker_data)
         # GoMatching tracker training (the spotter frozen; its sampling on B1)
         f32_step = phase_tracker(torch, da, tmp)
 
@@ -3979,6 +4336,9 @@ def main():
         phase_trunks(torch, da)
         phase_video_pretrain(torch, da, tmp)
         phase_freeze(torch, da, tmp)
+
+        # data parallel: two gloo ranks on this card, training and sharded inference
+        phase_dp(torch, da, tmp, "::".join(tracker_data), card)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},

@@ -3,7 +3,9 @@
 Parity: ``build_vts_train_loader`` and its samplers (gomatching/data/
 vts_dataset_dataloader.py:27-159, custom_dataset_dataloader.py:77-151). Videos are the
 sampling unit; each step takes one clip (IMS_PER_BATCH / world size is 1 in every
-shipped config).
+shipped config). Under data parallelism rank r of N takes elements r, r + N, ... of the
+one seeded stream of videos, as the reference's samplers do; its clip's augmentation
+draws from the mapper's generator, seeded ``SEED + r``.
 
 Samplers: TrainingSampler (a uniform shuffle per epoch, forever), MultiDatasetSampler
 (ratio-weighted draws across the dataset sources) and RepeatFactorTrainingSampler
@@ -64,19 +66,27 @@ class VideoClipLoader:
             rf = np.asarray([max(max(1.0, np.sqrt(repeat_threshold / max(freq[c], 1e-9)))
                                  for c in cats) for cats in vid_cats])
             self.weights = rf / rf.sum()
-        self._order: Optional[np.ndarray] = None  # this rank's videos of the epoch
-        self._pos = 0
+        self._order: Optional[np.ndarray] = None  # the stream's current epoch
+        self._pos = 0  # where in it this rank's next video is
+
+    def _epoch(self) -> np.ndarray:
+        n = len(self.videos)
+        if self.weights is None:
+            return self.rng.permutation(n)
+        return self.rng.choice(n, size=n, replace=True, p=self.weights)
 
     def _next_index(self) -> int:
-        if self._order is None or self._pos >= len(self._order):
-            n = len(self.videos)
-            if self.weights is None:
-                order = self.rng.permutation(n)
-            else:
-                order = self.rng.choice(n, size=n, replace=True, p=self.weights)
-            self._order, self._pos = order[self.rank::self.world_size], 0
-        self._pos += 1
-        return int(self._order[self._pos - 1])
+        """This rank's next video: elements rank, rank + world, ... of the one stream of
+        epochs that every rank draws from the same seed (detectron2's samplers slice
+        their infinite stream so, ``islice(indices, rank, None, world)``); with one rank,
+        the JAX loader's sequence."""
+        if self._order is None:
+            self._order, self._pos = self._epoch(), self.rank
+        while self._pos >= len(self._order):
+            self._pos -= len(self._order)
+            self._order = self._epoch()
+        self._pos += self.world_size
+        return int(self._order[self._pos - self.world_size])
 
     def __iter__(self) -> Iterator[ClipSample]:
         while True:
@@ -111,7 +121,7 @@ def build_train_loader(cfg, rank: int = 0, world_size: int = 1) -> VideoClipLoad
         not_clamp_box=cfg.INPUT.NOT_CLAMP_BOX, input_format=cfg.INPUT.FORMAT,
         train_h=cfg.INPUT.TRAIN_H, train_w=cfg.INPUT.TRAIN_W,
         num_points=cfg.MODEL.TRANSFORMER.NUM_POINTS,
-        seed=cfg.SEED if cfg.SEED >= 0 else None,
+        seed=cfg.SEED + rank if cfg.SEED >= 0 else None,
     )
     return VideoClipLoader(
         cfg.DATASETS.TRAIN, mapper, num_points=cfg.MODEL.TRANSFORMER.NUM_POINTS,

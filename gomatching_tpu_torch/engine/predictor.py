@@ -19,6 +19,13 @@ driver loop of the reference ``eval.py``:
 
 Stage wall-clock is tracked in the reference's ``time_cost`` buckets
 (eval.py:303-304).
+
+With a ``torch.distributed`` group (JAX's mesh predictor, predictor.py:104-122,
+:296-351), each spot batch's frames are split evenly over the ranks, a short last batch
+padded to a multiple of the ranks (the padding's outputs dropped); each rank spots its
+share and the packed rows are gathered to every rank on the host (over gloo), where every
+rank runs the same host tracker on the same detections. ``TPU.SPOT_BATCH`` must be a
+multiple of the ranks, as JAX's sharding requires.
 """
 
 from __future__ import annotations
@@ -69,12 +76,23 @@ class VideoPredictor:
     pass ``"cpu"`` to run on the CPU. ``state_dict``: reference-keyed weights; by
     default ``MODEL.WEIGHTS`` is loaded (the JAX package's ``.npz`` params, or a torch
     checkpoint in the reference's layout), and when it is '' the model gets seeded
-    random weights (``SEED``, or 0 when it is negative).
+    random weights (``SEED``, or 0 when it is negative). ``group``: a process group
+    whose ranks share each spot batch (only rank 0 should write results).
     """
 
-    def __init__(self, cfg, state_dict=None, device=None):
+    def __init__(self, cfg, state_dict=None, device=None, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = group
+        self.host_group = None
+        if group is not None:
+            from ..parallel.mesh import host_group, rank_and_world
+
+            self.rank, self.world = rank_and_world(group)
+            if int(cfg.TPU.SPOT_BATCH) % self.world:
+                raise ValueError(f"TPU.SPOT_BATCH {cfg.TPU.SPOT_BATCH} is not a multiple of "
+                                 f"the {self.world} ranks")
+            self.host_group = host_group(group)
         model = build_model(cfg)
         if state_dict is None:
             state_dict = model_weights(cfg)
@@ -170,6 +188,22 @@ class VideoPredictor:
         )
         return packed.cpu().numpy()
 
+    def spot_batch_sharded(self, frames_u8: np.ndarray, target_hw) -> np.ndarray:
+        """``spot_batch_packed`` over the group: the batch padded with zero frames to a
+        multiple of the ranks, each rank's contiguous share spotted there, every rank's
+        packed rows gathered on the host; the padding's rows dropped."""
+        from ..parallel.mesh import gather_objects
+
+        n = len(frames_u8)
+        pad = (-n) % self.world
+        if pad:
+            frames_u8 = np.concatenate([frames_u8, np.zeros((pad,) + frames_u8.shape[1:],
+                                                            frames_u8.dtype)])
+        share = len(frames_u8) // self.world
+        mine = self.spot_batch_packed(frames_u8[self.rank * share:(self.rank + 1) * share],
+                                      target_hw)
+        return np.concatenate(gather_objects(mine, self.host_group))[:n]
+
     def unpack_spot(self, flat: np.ndarray) -> Dict[str, np.ndarray]:
         """Inverse of the packing: (B, nq, K) f32 -> output dict."""
         npts = self.cfg.MODEL.TRANSFORMER.NUM_POINTS
@@ -208,7 +242,8 @@ class VideoPredictor:
             batch = np.stack([np.ascontiguousarray(f) for f in frames[s : s + self.spot_batch]])
             tc["pre_process"] = tc.get("pre_process", 0) + time.time() - t0
             t0 = time.time()
-            outs = self.unpack_spot(self.spot_batch_packed(batch, in_hw))
+            outs = self.unpack_spot(self.spot_batch_packed(batch, in_hw) if self.group is None
+                                    else self.spot_batch_sharded(batch, in_hw))
             tc["detector"] = tc.get("detector", 0) + time.time() - t0
             for i in range(len(batch)):
                 valid = outs["valid"][i]

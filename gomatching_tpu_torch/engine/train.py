@@ -34,10 +34,18 @@ One ``Trainer.step``:
      clip, AdamW and the LR schedule; the losses come back in one copy.
 ``phase_t`` holds each step's host wall by phase; each phase ends in a copy to the host,
 so the device has finished its work when the phase's clock stops.
+
+``Trainer.step_multi`` is JAX's data-parallel step (train.py:648-728): several clips on
+one padded canvas and frame count, their padding frames masked by ``frame_valid``, the
+loss the mean over clips of each clip's loss (each normalized by its own ``num_inst``).
+With a process group of N ranks, each holding as many clips, the gradient and the losses
+are then averaged over the ranks in one all-reduce, before the clip and AdamW, so N ranks
+of one clip each compute what one process computes with all N clips.
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,9 +57,19 @@ from .. import resolve_device
 from ..data.preprocess import decode_i420, encode_i420
 from ..models.gomatching import FROZEN_SUBMODULES, build_model, compute_dtype
 from ..models.resnet import FrozenBN
+from ..parallel.mesh import all_reduce_mean_, gather_objects, host_group, rank_and_world
 from ..weights import init_weights_, load_weights
 from .losses import asso_ce_loss, build_asso_targets, match_rescore, rescore_loss
 from .optim import build_optimizer, clip_by_global_norm_, clip_max_norm
+
+DROPOUT_KEY = 17  # JAX folds the step into PRNGKey(17) for the matchers' dropout
+
+
+def clip_dropout_seed(step: int, clip: int) -> int:
+    """The dropout seed of a clip in a data-parallel step, from (17, step, the clip's
+    index over all ranks): JAX folds the clip index into ``fold_in(PRNGKey(17), step)``
+    (train.py:661-667); the bits differ, the schedule of randomness is the same."""
+    return int(np.random.SeedSequence([DROPOUT_KEY, step, clip]).generate_state(1)[0])
 
 # FREEZE_TYPEs that train only the tracker head (freeze_layers.py:3-37; identical for
 # this architecture); every shipped config sets one of them
@@ -148,12 +166,15 @@ class Trainer:
 
     ``device``: None runs on the current CUDA device and raises when there is none; pass
     ``"cpu"`` to run on the CPU. ``state_dict``: reference-keyed weights of the whole
-    model; by default seeded random weights (``SEED``, 0 when negative).
+    model; by default seeded random weights (``SEED``, 0 when negative). ``group``: a
+    ``torch.distributed`` process group whose ranks train one replica each
+    (``step_multi``); every rank must start from the same weights, which is checked.
     """
 
-    def __init__(self, cfg, state_dict=None, device=None):
+    def __init__(self, cfg, state_dict=None, device=None, group=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = group
         model = build_model(cfg)
         if state_dict is None:
             init_weights_(model, torch.Generator().manual_seed(max(int(cfg.SEED), 0)))
@@ -198,7 +219,11 @@ class Trainer:
         self.pixel_std = list(cfg.MODEL.PIXEL_STD)
         self.step_count = 0
         self.phase_t: Dict[str, float] = {}  # the last step's host wall by phase
-        self.last_batch: Optional[Dict[str, np.ndarray]] = None  # its host-built batch
+        self.last_batches: List[Dict[str, np.ndarray]] = []  # its host-built batches
+        if group is not None:
+            digests = gather_objects(self.replica_digest(), host_group(group))
+            if len(set(digests)) != 1:
+                raise ValueError("the ranks start from different trainable weights")
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -230,10 +255,12 @@ class Trainer:
             pos += n
         return out
 
-    def prepare_batch(self, spot_out: Dict[str, Optional[np.ndarray]], targets: Dict
-                      ) -> Dict[str, np.ndarray]:
+    def prepare_batch(self, spot_out: Dict[str, Optional[np.ndarray]], targets: Dict,
+                      frame_valid: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
         """Host phase (JAX train.py:456): score fusion, the proposal thresholds, boxes,
-        the rescore Hungarian and the association targets."""
+        the rescore Hungarian and the association targets. ``frame_valid`` (T,) marks the
+        real frames of a clip padded to a longer one (``step_multi``): the padding
+        frames' proposals are dropped, and with no GT they add nothing to any loss."""
         logits = np.asarray(spot_out["pred_logits"], np.float32)  # (T, nq, npts, 1)
         T, nq = logits.shape[:2]
         scores = 1 / (1 + np.exp(-logits.mean(2)[..., 0]))
@@ -245,6 +272,8 @@ class Trainer:
         # the detection threshold then the association threshold (gom_lstmatcher.py:608,
         # lstmatcher.py:276-278)
         prop_valid = (fused > self.train_thresh) & (fused > self.asso_thresh)
+        if frame_valid is not None:
+            prop_valid &= np.asarray(frame_valid, bool)[:, None]
         # boxes from the boundary points' extremes, normalized
         pts = np.asarray(spot_out["pred_bd_points"], np.float32).reshape(T, nq, -1, 2)
         boxes = np.stack([pts[..., 0].min(-1), pts[..., 1].min(-1), pts[..., 0].max(-1),
@@ -355,35 +384,116 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         if total.requires_grad:  # under FREEZE_TYPE ROIheads no loss reaches a trainable one
             total.backward()
-        # optax updates every trainable leaf, a zero gradient included (weight decay
-        # still applies): a parameter the losses did not reach (the detached spot's, or
-        # the head's beyond this clip) gets a zero gradient
+        losses["total_loss"] = total
+        values = torch.stack([v.detach() for v in losses.values()])
+        self.apply_gradients(values)
+        return dict(zip(losses, values.cpu().tolist()))
+
+    def apply_gradients(self, losses: torch.Tensor) -> float:
+        """The tail of every update, after ``backward()``: a zero gradient for each
+        trainable parameter the losses did not reach (optax updates every trainable leaf,
+        so weight decay still applies to the detached spot's, or to the head's beyond
+        this clip), under a process group one all-reduce averaging the gradients and
+        ``losses`` in place over the ranks, then the global-norm clip, AdamW and the LR
+        schedule (JAX's ``tx`` chain). Returns the all-reduce's host wall (0 without a
+        group)."""
         for p in self.trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        allreduce_s = 0.0
+        if self.group is not None:
+            self._sync()
+            t0 = time.perf_counter()
+            all_reduce_mean_([p.grad for p in self.trainable] + [losses], self.group)
+            self._sync()
+            allreduce_s = time.perf_counter() - t0
         if self.max_norm is not None:
             clip_by_global_norm_(self.trainable, self.max_norm)
         self.optimizer.step()
         self.scheduler.step()
         self.step_count += 1
-        losses["total_loss"] = total
-        values = torch.stack([v.detach() for v in losses.values()]).cpu().tolist()
-        return dict(zip(losses, values))
+        return allreduce_s
 
     def step(self, images: np.ndarray, image_hw: Optional[np.ndarray], targets: Dict
              ) -> Dict[str, float]:
-        """One training iteration on one clip: spot, host phase, update."""
+        """One training iteration on one clip: spot, host phase, update. JAX's
+        single-device ``step``, which the one-rank loop keeps: its dropout draws from one
+        generator that persists across steps (and a resumed run's state), where
+        ``step_multi`` seeds one per clip from the step and the clip's index."""
         t0 = time.perf_counter()
         spot_out = self.spot(images, image_hw)
         host = self.host_fields(spot_out)
         t1 = time.perf_counter()
         batch = self.prepare_batch(host, targets)
-        self.last_batch = batch
+        self.last_batches = [batch]
         t2 = time.perf_counter()
         metrics = self.update(batch, spot_out["query_features"])
         t3 = time.perf_counter()
         self.phase_t = {"spot": t1 - t0, "host": t2 - t1, "update": t3 - t2}
         return metrics
+
+    def step_multi(self, clips: Sequence[Tuple[np.ndarray, Optional[np.ndarray], Dict]]
+                   ) -> Dict[str, float]:
+        """One data-parallel iteration over this process's ``clips``, each (images,
+        image_hw or None, targets) on one canvas and frame count (the caller pads; a
+        ``targets["frame_valid"]`` masks the padding frames). The loss is the mean over
+        the clips of each clip's loss; under a process group the gradient of that mean
+        and the losses are averaged over the ranks (all holding as many clips) before the
+        global-norm clip and AdamW (JAX ``step_multi``, train.py:686-728, and its
+        ``_sharded_update_fn``). Returns the losses averaged over every clip of every
+        rank. ``image_hw`` None: each frame fills the canvas (JAX :700-706)."""
+        rank = rank_and_world(self.group)[0] if self.group is not None else 0
+        t0 = time.perf_counter()
+        spots = []
+        for images, image_hw, _ in clips:
+            if image_hw is None and np.ndim(images) == 4:
+                image_hw = np.tile(np.asarray(images.shape[1:3], np.float32)[None],
+                                   (len(images), 1))
+            out = self.spot(images, image_hw)
+            spots.append((out["query_features"], self.host_fields(out)))
+        t1 = time.perf_counter()
+        batches = [self.prepare_batch(host, targets, frame_valid=targets.get("frame_valid"))
+                   for (_, host), (_, _, targets) in zip(spots, clips)]
+        self.last_batches = batches
+        t2 = time.perf_counter()
+        n = len(clips)
+        head = self.model.roi_heads
+        self.optimizer.zero_grad(set_to_none=True)
+        sums: Dict[str, torch.Tensor] = {}
+        for i, ((qf, _), batch) in enumerate(zip(spots, batches)):
+            head.dropout_generator = torch.Generator(device=self.device).manual_seed(
+                clip_dropout_seed(self.step_count, rank * n + i))
+            total, losses = self.loss(self.to_device(batch), qf)
+            if total.requires_grad:
+                (total / n).backward()
+            losses["total_loss"] = total
+            for k, v in losses.items():
+                sums[k] = sums.get(k, 0) + v.detach()
+        means = torch.stack([v / n for v in sums.values()])
+        allreduce_s = self.apply_gradients(means)
+        metrics = dict(zip(sums, means.cpu().tolist()))
+        t3 = time.perf_counter()
+        self.phase_t = {"spot": t1 - t0, "host": t2 - t1, "update": t3 - t2 - allreduce_s,
+                        "allreduce": allreduce_s}
+        return metrics
+
+    @property
+    def last_batch(self) -> Dict[str, np.ndarray]:
+        """The host-built batch of the last step's (last) clip."""
+        return self.last_batches[-1]
+
+    def _sync(self) -> None:
+        """Wait for the device, so that a phase's clock stops when its work is done."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def replica_digest(self) -> str:
+        """A digest of the trainable parameters' bytes: equal on two replicas only when
+        their weights are the same bits."""
+        h = hashlib.sha256()
+        for p in self.trainable:
+            h.update(p.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
 
     # ------------------------------------------------------------------
     def model_state_dict(self) -> Dict[str, torch.Tensor]:

@@ -3,10 +3,11 @@ default) and DeepSolo spotter pretraining (``--task spotter``), on images or, wi
 ``MODEL.META_ARCHITECTURE TransformerPureVideoDetector``, on video clips.
 
     python -m gomatching_tpu_torch.train_net --config-file configs/GoMatching_ICDAR15.yaml \\
-        [--task tracker|spotter] [--cpu] [--resume] [--max-iter N] [--opts KEY VALUE ...]
+        [--task tracker|spotter] [--cpu] [--resume] [--max-iter N] [--num-gpus N] \\
+        [--num-machines M --machine-rank R --dist-url tcp://host:port] [--opts KEY VALUE ...]
 
 ``--task tracker`` is the counterpart of the JAX ``train_net.py`` tracker loop
-(:239-487), single card and sequential: ``MODEL.WEIGHTS`` (the JAX package's ``.npz``
+(:239-487), sequential on one card by default: ``MODEL.WEIGHTS`` (the JAX package's ``.npz``
 params, a torch checkpoint, or '' for seeded random weights; the rescoring head takes
 the spotter classifier's weights unless the path names a ``_rescore`` checkpoint) ->
 ``Trainer`` (``MODEL.FREEZE_TYPE`` says what trains; the shipped configs train
@@ -43,9 +44,24 @@ Pretraining runs f32 whatever ``MODEL.PRECISION`` says, as JAX's does. Every tru
 (``MODEL.BACKBONE.NAME``: ResNet, Swin-T/S, ViTAEv2-S) trains and infers; a Swin trunk
 drops paths in pretraining at ``SWIN.DROP_PATH_RATE``.
 
-Both run on the CUDA card unless ``--cpu``. Not in the port yet (each raises
-``NotImplementedError``): ``--num-gpus`` > 1 (A12) and ``--resume`` of spotter
-pretraining.
+Both run on the CUDA card unless ``--cpu``.
+
+**Data parallel** (JAX train_net.py:276-286, :444-476): with ``--num-gpus`` N > 1 (0: every
+visible card; under ``--cpu`` a count of CPU processes) and ``--num-machines`` M, tracker
+training runs N x M ranks, one process per card (``parallel/launch.py``: NCCL on cards,
+gloo on the CPU). ``--machine-rank`` and ``--dist-url`` (``tcp://host:port``,
+``host:port`` or ``auto``, the launcher's ``MASTER_ADDR`` / ``MASTER_PORT``) join the
+machines, as the reference's DDP launch (train_net.py:198-208); with one machine
+``auto`` takes a free local port. Each rank reads its own share of the one seeded clip
+stream (the reference's sampler); per iteration the ranks exchange their clips' sizes,
+pad to the common canvas and frame count (``normalize_clip(canvas=, pad_t=)``, the
+padding frames masked by ``frame_valid``) and take ``Trainer.step_multi``, whose
+gradient and losses are averaged over the ranks. Rank 0 alone writes ``config.yaml``,
+``metrics.json`` (the averaged losses), tensorboard and the checkpoints; the train state
+holds every rank's loader state, and ``--resume`` restores each rank's own and refuses a
+state written by another number of ranks. ``--task spotter`` runs on one device whatever
+``--num-gpus`` says, and ignores ``--resume``, as JAX's ``pretrain_main`` does; each
+prints one line saying so.
 """
 
 from __future__ import annotations
@@ -53,8 +69,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -65,7 +82,14 @@ def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config-file", required=True, metavar="FILE")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--num-gpus", "--num-chips", type=int, default=1, dest="num_gpus")
+    p.add_argument("--num-gpus", "--num-chips", type=int, default=1, dest="num_gpus",
+                   help="data-parallel processes on this machine; 0 = every visible card")
+    p.add_argument("--num-machines", type=int, default=1,
+                   help="machines of a multi-machine run (the reference's DDP launch)")
+    p.add_argument("--machine-rank", type=int, default=0, help="this machine's index")
+    p.add_argument("--dist-url", default="auto",
+                   help="rendezvous: tcp://host:port, host:port, or auto (MASTER_ADDR / "
+                   "MASTER_PORT; one machine: a free local port)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--max-iter", type=int, default=-1, help="override SOLVER.MAX_ITER")
     p.add_argument("--task", choices=("tracker", "spotter"), default="tracker")
@@ -73,30 +97,29 @@ def get_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_supported(args, cfg) -> None:
-    if args.num_gpus != 1:
-        raise NotImplementedError("--num-gpus other than 1 is not ported yet (ROADMAP A12)")
-    if args.resume and args.task == "spotter":
-        raise NotImplementedError("--resume of spotter pretraining is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # tracker training
 # ---------------------------------------------------------------------------
 
 
-def normalize_clip(sample, pixel_mean, pixel_std, pad_multiple: int = 32, raw: bool = False):
+def normalize_clip(sample, pixel_mean, pixel_std, pad_multiple: int = 32, raw: bool = False,
+                   canvas: Optional[Sequence[int]] = None, pad_t: int = 0):
     """Stack a clip's frames on one zero-padded canvas (T, Hp, Wp, 3), each side the
     largest frame's rounded up to ``pad_multiple`` (ImageList.from_tensors); returns it
     with each frame's true (h, w) as a (T, 2) array. ``raw``: uint8 pixels, normalized
-    on the device (``TPU.TRAIN_UPLOAD_UINT8``); else normalized float32.
+    on the device (``TPU.TRAIN_UPLOAD_UINT8``); else normalized float32. ``canvas`` (h, w)
+    and ``pad_t`` force at least that canvas and frame count (JAX train_net.py:50-73),
+    so that the clips of a data-parallel step share one shape: the extra frames are zero
+    and take the last frame's size.
 
-    JAX ``normalize_clip`` (train_net.py:50) pads to the LAST frame's size, which a
-    GEN_IMAGE_MOTION clip, whose frames change size, does not fit; where every frame
-    has one size, as every video clip's has, the two give the same canvas."""
+    JAX ``normalize_clip`` pads to the LAST frame's size, which a GEN_IMAGE_MOTION clip,
+    whose frames change size, does not fit; where every frame has one size, as every
+    video clip's has, the two give the same canvas."""
     frame_hw = np.asarray([img.shape[:2] for img in sample.images], np.int64)
-    hp, wp = (-(-frame_hw.max(0) // pad_multiple) * pad_multiple).tolist()
-    t = len(sample.images)
+    hp, wp = np.maximum(frame_hw.max(0), canvas if canvas is not None else 0).tolist()
+    hp, wp = -(-hp // pad_multiple) * pad_multiple, -(-wp // pad_multiple) * pad_multiple
+    t = max(len(sample.images), pad_t)
+    frame_hw = np.concatenate([frame_hw, np.repeat(frame_hw[-1:], t - len(frame_hw), 0)])
     if raw:
         batch = np.zeros((t, hp, wp, 3), np.uint8)
         for i, img in enumerate(sample.images):
@@ -110,15 +133,27 @@ def normalize_clip(sample, pixel_mean, pixel_std, pad_multiple: int = 32, raw: b
     return batch, frame_hw
 
 
-def targets_from_sample(sample) -> Dict[str, list]:
+def targets_from_sample(sample, pad_t: int = 0) -> Dict[str, list]:
     """GT normalized to [0, 1] by each frame's own size (GoMatching.prepare_targets,
-    gom_lstmatcher.py:192-211, _get_boxes_time :478-495)."""
-    out: Dict[str, list] = {"gt_ctrl": [], "gt_boxes": [], "gt_ids": sample.gt_ids,
-                            "gt_texts": sample.gt_texts}
+    gom_lstmatcher.py:192-211, _get_boxes_time :478-495). ``pad_t``: empty GT for the
+    padding frames up to that count and ``frame_valid`` marking the real ones (JAX
+    train_net.py:463-471)."""
+    out: Dict[str, list] = {"gt_ctrl": [], "gt_boxes": [], "gt_ids": list(sample.gt_ids),
+                            "gt_texts": list(sample.gt_texts)}
     for img, ctrl, boxes in zip(sample.images, sample.gt_ctrl, sample.gt_boxes):
         h, w = img.shape[:2]
         out["gt_ctrl"].append(ctrl / np.asarray([w, h], np.float32))
         out["gt_boxes"].append(boxes / np.asarray([w, h, w, h], np.float32))
+    t_real = len(sample.images)
+    if pad_t > t_real:
+        npts = out["gt_ctrl"][0].shape[1] if out["gt_ctrl"] else 25
+        for _ in range(pad_t - t_real):
+            out["gt_ctrl"].append(np.zeros((0, npts, 2), np.float32))
+            out["gt_boxes"].append(np.zeros((0, 4), np.float32))
+            out["gt_ids"].append(np.zeros((0,), np.int64))
+            out["gt_texts"].append([])
+    if pad_t:
+        out["frame_valid"] = np.arange(max(pad_t, t_real)) < t_real
     return out
 
 
@@ -138,10 +173,14 @@ def tracker_main(args, cfg) -> List[dict]:
     """The tracker-training loop; returns each iteration's losses with ``step_s``, its
     host wall from taking the clip to the losses' copy after the optimizer step (a
     checkpoint's write not included), ``data_s``, the part spent reading, augmenting and
-    stacking the clip and building its targets, ``phase_t`` (the step's wall by phase),
+    stacking the clip and building its targets, ``wait_s``, the part spent waiting for the
+    other ranks' clip sizes (0 on one rank), ``phase_t`` (the step's wall by phase),
     ``frames`` and ``image_hw`` (the canvas), and ``proposals`` and ``matched``, the
-    proposal slots that passed the thresholds and those matched to a GT track."""
+    proposal slots that passed the thresholds and those matched to a GT track. In a
+    process group (data parallel) each rank runs this loop on its own clips; the losses
+    are the averages over the ranks, the rest this rank's."""
     import torch
+    import torch.distributed as dist
 
     from .data.loader import build_train_loader
     from .engine.checkpoint import (latest_train_state, load_train_state, save_checkpoint,
@@ -149,34 +188,51 @@ def tracker_main(args, cfg) -> List[dict]:
     from .engine.optim import build_schedule
     from .engine.predictor import model_weights
     from .engine.train import Trainer, encode_train_clip
+    from .parallel.mesh import (gather_objects, gather_shapes, host_group, is_main,
+                                rank_and_world)
     from .weights import init_state_dict
 
-    with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
-        f.write(cfg.dump())
+    group = dist.group.WORLD if dist.is_initialized() else None
+    rank, world = rank_and_world(group)
+    main = is_main(group)
+    hgroup = host_group(group) if group is not None else None
+    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path, start_iter, state = None, 0, None
+    if args.resume:
+        path, start_iter = latest_train_state(ckpt_dir)
+        if path is not None:
+            state = load_train_state(path)
+            # a state of one rank written before the data-parallel loop holds "loader" alone
+            loaders = state.get("loaders", [state["loader"]])
+            if len(loaders) != world:
+                raise ValueError(f"{path} was written by {len(loaders)} ranks; this run has "
+                                 f"{world}: resume with --num-gpus x --num-machines = "
+                                 f"{len(loaders)}")
+    if main:
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as f:
+            f.write(cfg.dump())
     sd = model_weights(cfg)
     if sd is None:
-        print("MODEL.WEIGHTS is '': training from seeded random weights")
+        if main:
+            print("MODEL.WEIGHTS is '': training from seeded random weights")
         sd = init_state_dict(cfg, torch.Generator().manual_seed(max(int(cfg.SEED), 0)))
     if cfg.MODEL.ROI_HEADS.WITH_RESR and "_rescore" not in cfg.MODEL.WEIGHTS:
         sd = init_rescoring_from_classifier(sd)
-    trainer = Trainer(cfg, sd, device="cpu" if args.cpu else None)
-    n_train = sum(p.numel() for p in trainer.trainable)
-    n_total = sum(p.numel() for p in trainer.model.parameters())
-    print(f"trainable params: {n_train / 1e6:.2f}M / total {n_total / 1e6:.2f}M")
+    trainer = Trainer(cfg, sd, device="cpu" if args.cpu else None, group=group)
+    if main:
+        n_train = sum(p.numel() for p in trainer.trainable)
+        n_total = sum(p.numel() for p in trainer.model.parameters())
+        print(f"trainable params: {n_train / 1e6:.2f}M / total {n_total / 1e6:.2f}M"
+              + (f"; data parallel over {world} ranks" if world > 1 else ""))
 
-    loader = build_train_loader(cfg)
+    loader = build_train_loader(cfg, rank, world)
     max_iter = args.max_iter if args.max_iter > 0 else cfg.SOLVER.MAX_ITER
-    ckpt_dir = os.path.join(cfg.OUTPUT_DIR, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    start_iter = 0
-    if args.resume:
-        path, step = latest_train_state(ckpt_dir)
-        if path is not None:
-            state = load_train_state(path)
-            trainer.load_state_dict(state)
-            loader.load_state_dict(state["loader"])
-            start_iter = step
-            print(f"resumed from {path} at iteration {step}")
+    if state is not None:
+        trainer.load_state_dict(state)
+        loader.load_state_dict(loaders[rank])
+        if main:
+            print(f"resumed from {path} at iteration {start_iter}")
 
     raw = bool(cfg.TPU.TRAIN_UPLOAD_UINT8)
     i420 = raw and cfg.TPU.TRAIN_UPLOAD_FORMAT == "yuv420"
@@ -184,31 +240,52 @@ def tracker_main(args, cfg) -> List[dict]:
     it = iter(loader)
     history = []
     window: List[dict] = []
-    tb = tensorboard_writer(cfg.OUTPUT_DIR)
-    with open(os.path.join(cfg.OUTPUT_DIR, "metrics.json"), "a") as mf:
+    tb = tensorboard_writer(cfg.OUTPUT_DIR) if main else None
+    mf = open(os.path.join(cfg.OUTPUT_DIR, "metrics.json"), "a") if main else None
+    try:
         for i in range(start_iter, max_iter):
             t0 = time.perf_counter()
             sample = next(it)
-            images, frame_hw = normalize_clip(sample, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
-                                              raw=raw)
-            canvas = tuple(images.shape[1:3])
+            wait_s = 0.0
+            if world == 1:
+                images, frame_hw = normalize_clip(sample, cfg.MODEL.PIXEL_MEAN,
+                                                  cfg.MODEL.PIXEL_STD, raw=raw)
+                targets = targets_from_sample(sample)
+            else:
+                # every rank's clip on the common canvas and frame count (JAX :450-473)
+                tw = time.perf_counter()
+                shapes = gather_shapes((len(sample.images),
+                                        *np.max([im.shape[:2] for im in sample.images], 0)),
+                                       hgroup)
+                wait_s = time.perf_counter() - tw
+                t_max = max(sh[0] for sh in shapes)
+                canvas = (max(sh[1] for sh in shapes), max(sh[2] for sh in shapes))
+                images, frame_hw = normalize_clip(sample, cfg.MODEL.PIXEL_MEAN,
+                                                  cfg.MODEL.PIXEL_STD, raw=raw, canvas=canvas,
+                                                  pad_t=t_max)
+                targets = targets_from_sample(sample, pad_t=t_max)
+            canvas_hw = tuple(images.shape[1:3])
             if i420:
                 images = encode_train_clip(images, cfg.INPUT.FORMAT)
-            targets = targets_from_sample(sample)
-            data_s = time.perf_counter() - t0
-            # as in JAX (train_net.py:344-350): the frames' sizes go with the uint8 wire
-            metrics = trainer.step(images, frame_hw if raw else None, targets)
+            data_s = time.perf_counter() - t0 - wait_s
+            if world == 1:
+                # as in JAX (train_net.py:344-350): the frames' sizes go with the uint8 wire
+                metrics = trainer.step(images, frame_hw if raw else None, targets)
+            else:
+                # JAX's data-parallel loop passes the sizes on either wire (:472)
+                metrics = trainer.step_multi([(images, frame_hw, targets)])
             step_s = time.perf_counter() - t0
             if not np.isfinite(metrics["total_loss"]):
                 raise FloatingPointError(f"loss diverged at iteration {i + 1}: {metrics}")
-            batch = trainer.last_batch
-            history.append(dict(metrics, step_s=step_s, data_s=data_s,
+            history.append(dict(metrics, step_s=step_s, data_s=data_s, wait_s=wait_s,
                                 phase_t=dict(trainer.phase_t), frames=len(images),
-                                image_hw=canvas,
-                                proposals=int(batch["prop_valid"].sum()),
-                                matched=int((batch["match_cues"] >= 0).sum())))
+                                image_hw=canvas_hw,
+                                proposals=sum(int(b["prop_valid"].sum())
+                                              for b in trainer.last_batches),
+                                matched=sum(int((b["match_cues"] >= 0).sum())
+                                            for b in trainer.last_batches)))
             window.append(history[-1])
-            if (i + 1) % LOG_PERIOD == 0 or i + 1 == max_iter:
+            if main and ((i + 1) % LOG_PERIOD == 0 or i + 1 == max_iter):
                 lr = schedule(i)  # the rate this iteration's update used, as JAX logs it
                 line = {"iteration": i + 1, "lr": lr,
                         "data_time": sum(h["data_s"] for h in window) / len(window),
@@ -227,13 +304,24 @@ def tracker_main(args, cfg) -> List[dict]:
                       f"short {metrics['loss_short_asso']:.4f} lr {lr:.2e}")
                 window = []
             if (i + 1) % cfg.SOLVER.CHECKPOINT_PERIOD == 0 or i + 1 == max_iter:
-                save_checkpoint(os.path.join(ckpt_dir, f"model_{i + 1:07d}_rescore.pth"),
-                                trainer.model_state_dict())
-                save_train_state(ckpt_dir, i + 1,
-                                 dict(trainer.state_dict(), loader=loader.state_dict()))
-                print(f"saved checkpoint at iteration {i + 1}")
-    if tb is not None:
-        tb.close()
+                loaders = [loader.state_dict()]
+                if world > 1:
+                    loaders = gather_objects(loaders[0], hgroup)
+                    # the replicas must hold the same bits; a divergence is a fault, never
+                    # repaired by a broadcast
+                    if len(set(gather_objects(trainer.replica_digest(), hgroup))) != 1:
+                        raise RuntimeError(f"the ranks' weights differ at iteration {i + 1}")
+                if main:
+                    save_checkpoint(os.path.join(ckpt_dir, f"model_{i + 1:07d}_rescore.pth"),
+                                    trainer.model_state_dict())
+                    save_train_state(ckpt_dir, i + 1, dict(trainer.state_dict(),
+                                                           loader=loaders[0], loaders=loaders))
+                    print(f"saved checkpoint at iteration {i + 1}")
+    finally:
+        if mf is not None:
+            mf.close()
+        if tb is not None:
+            tb.close()
     return history
 
 
@@ -352,17 +440,43 @@ def pretrain_video_main(args, cfg) -> List[dict]:
 
 
 def main(argv: Optional[List[str]] = None):
-    from .config import setup_train_cfg
+    """Parse ``argv`` and train. A tracker run over more than one rank launches one
+    process per rank of this machine (unless this process already belongs to a process
+    group of that size), with no deadline: it lasts as long as its iterations do. It
+    returns the history of this machine's local rank 0 (global rank machine_rank x
+    num_gpus): its losses are the averages over every rank, its times, frames and
+    proposals that rank's own."""
+    import torch.distributed as dist
 
+    from .config import setup_train_cfg
+    from .parallel.launch import launch, resolve_num_gpus
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = get_parser().parse_args(argv)
     cfg = setup_train_cfg(args.config_file, args.opts)
-    _check_supported(args, cfg)
+    if args.task == "spotter":
+        # JAX builds no mesh for pretraining (train_net.py:246-247) and its pretrain_main
+        # never reads --resume
+        if args.num_gpus != 1 or args.num_machines != 1:
+            print(f"--task spotter runs on one device, as JAX's pretraining does: "
+                  f"--num-gpus {args.num_gpus} --num-machines {args.num_machines} ignored")
+        if args.resume:
+            print("--task spotter: --resume is ignored, as JAX's pretrain_main ignores it")
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        if cfg.MODEL.META_ARCHITECTURE == "TransformerPureVideoDetector":
+            return pretrain_video_main(args, cfg)
+        return pretrain_main(args, cfg)
+    num_gpus = resolve_num_gpus(args.num_gpus, args.cpu)
+    world = num_gpus * args.num_machines
+    if world > 1 and not dist.is_initialized():
+        results = launch(main, num_gpus, args.num_machines, args.machine_rank, args.dist_url,
+                         args=(argv,), device="cpu" if args.cpu else None)
+        return results[0]
+    if dist.is_initialized() and dist.get_world_size() != world:
+        raise ValueError(f"this process group has {dist.get_world_size()} ranks; the flags "
+                         f"ask for {world}")
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    if args.task == "tracker":
-        return tracker_main(args, cfg)
-    if cfg.MODEL.META_ARCHITECTURE == "TransformerPureVideoDetector":
-        return pretrain_video_main(args, cfg)
-    return pretrain_main(args, cfg)
+    return tracker_main(args, cfg)
 
 
 if __name__ == "__main__":

@@ -325,15 +325,12 @@ def test_train_net_cli_trains_and_writes_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ("--num-gpus", "2"),
-    ("--resume",),
-    ("--task", "tracker", "--num-gpus", "2"),
     ("--task", "tracker", "--opts", "MODEL.FREEZE_TYPE", "ExceptCascadeROIheads"),
 ])
 def test_train_net_refuses_what_is_not_ported(tmp_path, extra):
-    """What neither task ports raises NotImplementedError before any step: data
-    parallelism (A12) for either task, --resume of pretraining, and for tracker training
-    a freeze policy JAX rejects too (a cascade one)."""
+    """What JAX rejects raises NotImplementedError before any step: for tracker training
+    a cascade freeze policy. (Data parallelism and pretraining's --resume, refused here
+    before they were ported, are cases of ``test_train_net_runs_what_was_refused``.)"""
     from gomatching_tpu_torch import train_net
 
     task = "spotter"
@@ -352,23 +349,43 @@ def test_train_net_refuses_what_is_not_ported(tmp_path, extra):
     ("spotter", ("MODEL.META_ARCHITECTURE", "TransformerPureVideoDetector")),
     ("spotter", ("MODEL.BACKBONE.NAME", "build_swin_backbone")),
     ("tracker", ("MODEL.FREEZE_TYPE", "ROIheads")),
+    ("spotter", ("--num-gpus", "2")),
+    ("spotter", ("--resume",)),
+    ("tracker", ("--num-gpus", "2")),
 ])
-def test_train_net_runs_what_was_refused(tmp_path, task, opts):
+def test_train_net_runs_what_was_refused(tmp_path, capsys, task, opts):
     """Tracker training on the ViTAEv2-S trunk and under FREEZE_TYPE ROIheads, video
     pretraining, and image pretraining on the Swin-T trunk (drop-path 0.2) each run one
-    step at the tiny config on a synthetic dataset and write their checkpoints."""
+    step at the tiny config on a synthetic dataset and write their checkpoints. So do the
+    flags JAX's train_net reads and these raised before they were ported: pretraining
+    with ``--num-gpus 2`` or ``--resume`` prints one line and runs on one device, as JAX's
+    ``pretrain_main`` does; tracker training with ``--num-gpus 2 --cpu`` runs two ranks."""
     from gomatching_tpu_torch import train_net
     from gomatching_tpu_torch.data.datasets import register_dataset
     from test_torch_train_tracker_cli import TINY as TRACKER_TINY, _write_dataset as write_videos
 
-    name = f"synth_port_now_ported_{task}_{opts[1]}"
-    video = task == "tracker" or "Video" in opts[1]
-    register_dataset(name, *(write_videos(tmp_path) if video else _write_dataset(tmp_path)))
-    args = _cli_args(tmp_path, *(TRACKER_TINY if task == "tracker" else ()), *opts,
-                     "DATASETS.TRAIN", f"('{name}',)", task=task)
+    flags = opts if opts[0].startswith("--") else ()
+    opts = () if flags else opts
+    name = f"synth_port_now_ported_{task}_{(opts or flags)[-1]}"
+    video = task == "tracker" or any("Video" in o for o in opts)
+    data = write_videos(tmp_path) if video else _write_dataset(tmp_path)
+    register_dataset(name, *data)
+    if flags == ("--num-gpus", "2") and task == "tracker":
+        # the spawned ranks read the dataset by its paths, over a file rendezvous
+        name = "::".join(data)
+        flags += ("--dist-url", f"file://{tmp_path / 'rendezvous'}")
+    args = list(flags) + _cli_args(tmp_path, *(TRACKER_TINY if task == "tracker" else ()),
+                                   *opts, "DATASETS.TRAIN", f"('{name}',)", task=task)
     args[args.index("--max-iter") + 1] = "1"
     history = train_net.main(args)
     assert len(history) == 1 and np.isfinite(history[0]["total_loss"])
+    said = capsys.readouterr().out
+    if task == "spotter" and flags:
+        line = ("runs on one device, as JAX's pretraining does" if flags[0] == "--num-gpus"
+                else "--resume is ignored, as JAX's pretrain_main ignores it")
+        assert sum(line in x for x in said.splitlines()) == 1, said
+    if task == "tracker" and flags:
+        assert set(history[0]["phase_t"]) == {"spot", "host", "update", "allreduce"}
     prefix = "model_" if task == "tracker" else "spotter_"
     assert f"{prefix}0000001{'_rescore' if task == 'tracker' else ''}.pth" in os.listdir(
         tmp_path / "out" / "checkpoints")
