@@ -231,6 +231,17 @@ Phases (any failure exits non-zero and prints no result line):
      against the single-process predictor: B2 and B1 launched on each rank for its share,
      scores within DP_SCORE_ATOL, track ids and XML identical unless a score lies within
      DP_SCORE_ATOL of the threshold; a rank that fails or outlives DP_TIMEOUT_S fails it.
+ 27. every checkpoint form ``MODEL.WEIGHTS`` reads, and the training throughput tool: phase
+     4's seeded state_dict written as a detectron2 ``.pkl`` (a protocol 2 pickle of numpy
+     arrays with the model zoo's extra keys), as a ``.pth`` whose optimizer state and
+     iteration are numpy, and as the port converter's ``.npz``; each loaded through
+     ``model_weights`` to phase 4's tensors bit for bit; phase 4's frames through
+     ``VideoPredictor`` from the ``.pkl``: every tracked field the same bits as phase 4's
+     run, with its B1 / B2 launches; then ``tools/bench_train.main`` at its defaults (the
+     tracker step on a 4-frame 736x736 clip), with every proposal passing, and with
+     ``--pretrain --iters 3``: ms/iter with the upload / spot / host / update split, the
+     projected hours for 30 000 iterations, peak memory, finite losses, B1 12 launches a
+     tracker step and B1-B4 6 each a pretraining step, nothing else.
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
 entries, T1, T2, B1 and B2 on bf16 value, and B5, its table build and the four B6 entries
 on bf16 value); the last is {"ok": true, "device": {...}}.
@@ -4227,6 +4238,122 @@ def phase_dp(torch, da, tmp, data, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 27: every checkpoint form MODEL.WEIGHTS reads, and the training throughput tool
+# ---------------------------------------------------------------------------
+
+
+def write_checkpoint_forms(sd, cfg, tmp):
+    """``sd`` as a detectron2 ``.pkl`` (protocol 2, latin1-readable, with the model zoo's
+    extra keys), as a ``.pth`` whose optimizer state and iteration are numpy, and as the
+    port converter's ``.npz``; returns {form: path}."""
+    import pickle
+
+    import torch
+
+    from gomatching_tpu_torch.engine.checkpoint import save_params
+    from gomatching_tpu_torch.weights import convert
+
+    paths = {form: os.path.join(tmp, f"phase27{form}") for form in (".pkl", ".pth", ".npz")}
+    with open(paths[".pkl"], "wb") as f:
+        pickle.dump({"model": {k: v.numpy() for k, v in sd.items()},
+                     "__author__": "Detectron2 Model Zoo", "matching_heuristics": True}, f,
+                    protocol=2)
+    torch.save({"model": sd, "iteration": np.int64(30000),
+                "optimizer": {"param_groups": [{"lr": np.float64(5e-5)}],
+                              "state": {0: {"step": np.float32(30000.0)}}}}, paths[".pth"])
+    params, missing, unused = convert(sd, cfg)
+    check(not missing, f"phase 27: the converter misses {missing[:5]}")
+    save_params(paths[".npz"], params)
+    print(f"[27] phase 4's state_dict written as .pkl / .pth / .npz: "
+          + ", ".join(f"{os.path.getsize(p) / 2**20:.1f} MiB" for p in paths.values())
+          + f" ({len(unused)} alias or buffer keys the .npz leaves out)")
+    return paths
+
+
+def phase_checkpoints(torch, da, cfg, sd, ref_tracked, ref_counts, tmp):
+    """Phase 27a: phase 4's seeded state_dict in each checkpoint form loads, through
+    ``model_weights`` (``MODEL.WEIGHTS``), to the same tensors bit for bit; phase 4's frames
+    through ``VideoPredictor`` from the ``.pkl`` give phase 4's tracked results bit for bit,
+    with phase 4's B1 / B2 launches."""
+    from gomatching_tpu_torch.config import setup_eval_cfg
+    from gomatching_tpu_torch.engine.predictor import VideoPredictor, model_weights
+    from gomatching_tpu_torch.models.gomatching import build_model
+    from gomatching_tpu_torch.weights import load_weights
+
+    t0 = time.time()
+    paths = write_checkpoint_forms(sd, cfg, tmp)
+    opts = ["MODEL.TRANSFORMER.INFERENCE_TH_TEST", "0.05", "SEED", "0"]
+    for form, path in paths.items():
+        t1 = time.time()
+        model = build_model(cfg)
+        load_weights(model, model_weights(setup_eval_cfg(CONFIG, opts + ["MODEL.WEIGHTS", path])))
+        got = model.state_dict()
+        check(set(got) == set(sd), f"phase 27: {form} gives other keys")
+        bad = [k for k in sd if got[k].dtype != sd[k].dtype or not torch.equal(got[k], sd[k])]
+        check(not bad, f"phase 27: {form} loads other tensors at {bad[:5]}")
+        print(f"[27] {form}: {len(got)} tensors the same bits as phase 4's "
+              f"({time.time() - t1:.1f} s to read and load)")
+        del model, got
+    predictor = VideoPredictor(setup_eval_cfg(CONFIG, opts + ["MODEL.WEIGHTS", paths[".pkl"]]))
+    torch.cuda.synchronize()
+    da.reset_launch_counts()
+    tracked = predictor.process_video(synthetic_frames())
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in da.launch_counts.items() if v}
+    ref_counts = {k: v for k, v in ref_counts.items() if v}
+    check(counts == ref_counts, f"phase 27: launches {counts}, phase 4's {ref_counts}")
+    check(len(tracked) == len(ref_tracked), "phase 27: frame count")
+    fields = ("boxes", "scores", "ctrl_points", "recs", "bd", "track_ids")
+    for i, (a, b) in enumerate(zip(tracked, ref_tracked)):
+        for f in fields:
+            x, y = getattr(a, f), getattr(b, f)
+            check(x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y),
+                  f"phase 27: frame {i} {f} differs from phase 4's run")
+        check(a.image_hw == b.image_hw, f"phase 27: frame {i} image_hw")
+    n_det = sum(len(f) for f in tracked)
+    print(f"[27] VideoPredictor from the .pkl over phase 4's {len(tracked)} frames: {n_det} "
+          f"detections, {len({int(t) for f in tracked for t in f.track_ids})} tracks, every "
+          f"field the same bits as phase 4's run; launches {counts} (phase 4's); "
+          f"{time.time() - t0:.1f} s in all")
+    del predictor
+    torch.cuda.empty_cache()
+
+
+def phase_bench_train(torch, da, card):
+    """Phase 27b: ``tools/bench_train.main`` at its defaults (the tracker step, 4 frames of
+    736x736, 8 timed iterations after one untimed), with every proposal passing (thresholds
+    0.001), and ``--pretrain --iters 3``: finite losses, B1 (tracker: the masked encoder and
+    the decoder) and B1-B4 (pretraining) launched ENC_LAYERS / DEC_LAYERS times a step and
+    nothing else."""
+    from gomatching_tpu_torch.config import setup_train_cfg
+    from gomatching_tpu_torch.tools import bench_train
+
+    t = setup_train_cfg(CONFIG, ["MODEL.WEIGHTS", "''"]).MODEL.TRANSFORMER
+    layers = t.ENC_LAYERS + t.DEC_LAYERS
+    runs = (("defaults", [], {da.QUERIES: layers * 9}),
+            ("every proposal passing", ["--opts", "MODEL.TRANSFORMER.INFERENCE_TH_TRAIN",
+                                        str(TRACK_THRESH), "MODEL.ASSO_HEAD.ASSO_THRESH",
+                                        str(TRACK_THRESH)], {da.QUERIES: layers * 9}),
+            ("--pretrain --iters 3", ["--pretrain", "--iters", "3"],
+             {da.ENCODER: t.ENC_LAYERS * 4, da.QUERIES: t.DEC_LAYERS * 4,
+              da.ENCODER_BWD: t.ENC_LAYERS * 4, da.QUERIES_BWD: t.DEC_LAYERS * 4}))
+    for label, argv, want in runs:
+        torch.cuda.synchronize()
+        da.reset_launch_counts()
+        t0 = time.time()
+        out = bench_train.main(argv)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in da.launch_counts.items() if v}
+        (r,) = out.values()
+        check(math.isfinite(r["first_loss"]) and math.isfinite(r["loss"]),
+              f"phase 27: bench_train {label} losses {r['first_loss']}, {r['loss']}")
+        check(counts == want, f"phase 27: bench_train {label} launches {counts}, expected {want}")
+        print(f"[27] bench_train {label}: launches {counts} (expected); {time.time() - t0:.1f} s "
+              f"of wall; {card}")
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -4277,7 +4404,8 @@ def main():
                         {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS})
     phase_profile(torch, predictor, shares=[("B2", "ms_deform_attn_encoder_kernel("),
                                             ("B1", "ms_deform_attn_queries_kernel(")])
-    ref_tracked = predictor.process_video(synthetic_frames())  # phase 18's f32 / RGB reference
+    ref_tracked = predictor.process_video(synthetic_frames())  # phases 18 and 27's reference
+    ref_sd = {k: v.detach().cpu().clone() for k, v in predictor.model.state_dict().items()}
     del predictor
     bwd_records = phase_backward(torch, da)
     phase_train_step(torch, da)
@@ -4339,6 +4467,10 @@ def main():
 
         # data parallel: two gloo ranks on this card, training and sharded inference
         phase_dp(torch, da, tmp, "::".join(tracker_data), card)
+
+        # every checkpoint form MODEL.WEIGHTS reads, and the training throughput tool
+        phase_checkpoints(torch, da, cfg, ref_sd, ref_tracked, counts, tmp)
+        phase_bench_train(torch, da, card)
 
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},

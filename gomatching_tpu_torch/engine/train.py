@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import hashlib
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -227,14 +227,17 @@ class Trainer:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def spot(self, images: np.ndarray, image_hw: Optional[np.ndarray] = None
-             ) -> Dict[str, Optional[torch.Tensor]]:
+    def spot(self, images: Union[np.ndarray, torch.Tensor],
+             image_hw: Optional[np.ndarray] = None) -> Dict[str, Optional[torch.Tensor]]:
         """The frozen spot forward of a clip on the device: uint8 frames (T, H, W, 3) are
         normalized there and their padding zeroed from ``image_hw`` (T, 2); a uint8 I420
         clip (T, H*3//2, W) is decoded to BGR, put in ``INPUT.FORMAT``'s order and then
         treated the same (JAX ``_decode_wire``, train.py:295-305); float frames are taken
-        as normalized. ``image_hw`` None: no padding masks."""
-        x = torch.from_numpy(np.ascontiguousarray(images)).to(self.device)
+        as normalized. ``images`` may be a tensor already on the device (JAX's ``step``
+        takes a device array, tools/bench_train.py:94-95), else it is copied there.
+        ``image_hw`` None: no padding masks."""
+        x = (images if isinstance(images, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(images))).to(self.device)
         hw = None if image_hw is None else torch.from_numpy(
             np.asarray(image_hw, np.float32)).to(self.device)
         if x.ndim == 3:
@@ -414,8 +417,8 @@ class Trainer:
         self.step_count += 1
         return allreduce_s
 
-    def step(self, images: np.ndarray, image_hw: Optional[np.ndarray], targets: Dict
-             ) -> Dict[str, float]:
+    def step(self, images: Union[np.ndarray, torch.Tensor], image_hw: Optional[np.ndarray],
+             targets: Dict) -> Dict[str, float]:
         """One training iteration on one clip: spot, host phase, update. JAX's
         single-device ``step``, which the one-rank loop keeps: its dropout draws from one
         generator that persists across steps (and a resumed run's state), where

@@ -5,7 +5,9 @@ reference checkpoint loads with ``load_state_dict``. This module keeps its own c
 of the key map of ``tools/convert_torch_weights.py`` (``build_key_map``: torch key ->
 (transform, JAX params path)) and runs it backwards in ``params_from_jax``, which
 turns a JAX parameter tree (nested dict of arrays) into the port's state_dict -- the
-inverse of that tool's ``convert``. ``init_state_dict`` draws random weights from a
+inverse of that tool's ``convert``, and forwards in ``convert``, its copy, which turns a
+reference checkpoint into the JAX package's params tree (the ``.npz`` the shipped configs
+name) without JAX. ``init_state_dict`` draws random weights from a
 ``torch.Generator`` with the reference init scheme. ``pretrain=True`` selects the
 spotter-pretraining model (``SpotterPretrainModel``): the same keys without
 ``roi_heads.*``.
@@ -14,7 +16,7 @@ spotter-pretraining model (``SpotterPretrainModel``): the same keys without
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -296,6 +298,59 @@ def params_from_jax(tree: Mapping, cfg, pretrain: bool = False,
             raise ValueError(kind)
         sd[tk] = np.ascontiguousarray(x, dtype=np.float32)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# port / reference state_dict -> JAX params
+# ---------------------------------------------------------------------------
+
+
+def _set_path(tree: Dict, node: str, path: str, value) -> None:
+    cur = tree.setdefault(node, {})
+    parts = path.split("/")
+    for p in parts[:-1]:
+        cur = cur.setdefault(p, {})
+    cur[parts[-1]] = value
+
+
+def convert(state_dict: Mapping, cfg, pretrain: bool = False
+            ) -> Tuple[Dict, List[str], List[str]]:
+    """A reference-keyed state_dict ({name: array}) -> ({'params': JAX tree}, missing
+    torch keys, unused torch keys): tools/convert_torch_weights.py:255-287 on the port's
+    key map. Raw-DeepSolo keys (``detection_transformer.backbone.``) are renamed to the
+    decoupled layout; Linear and Conv kernels are transposed to flax's layout, a packed
+    MHA ``in_proj`` is split into q/k/v, ``point_embed`` takes its (queries, points,
+    width) shape, and every other array is kept as it is."""
+    sd = {}
+    for k, v in state_dict.items():
+        if k.startswith("detection_transformer.backbone.0.backbone."):
+            k = k.replace("detection_transformer.backbone.", "backbone.")
+        sd[k] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+    t = cfg.MODEL.TRANSFORMER
+    tree: Dict = {}
+    missing, used = [], set()
+    for tk, (kind, target) in build_key_map(cfg, pretrain).items():
+        if tk not in sd:
+            missing.append(tk)
+            continue
+        used.add(tk)
+        node, *path = target
+        path, x = "/".join(path), sd[tk]
+        if kind in ("mha_in_w", "mha_in_b"):
+            leaf = "kernel" if kind == "mha_in_w" else "bias"
+            for name, part in zip(("q_proj", "k_proj", "v_proj"), np.split(x, 3, axis=0)):
+                _set_path(tree, node, f"{path}/{name}/{leaf}", part.T if leaf == "kernel" else part)
+            continue
+        if kind == "linear_w":
+            x = x.T
+        elif kind == "conv_w":
+            x = x.transpose(2, 3, 1, 0)
+        elif kind == "point_embed":
+            x = x.reshape(t.NUM_QUERIES, t.NUM_POINTS, t.HIDDEN_DIM)
+        elif kind != "copy":
+            raise ValueError(kind)
+        _set_path(tree, node, path, x)
+    return {"params": tree}, missing, [k for k in sd if k not in used]
 
 
 # ---------------------------------------------------------------------------

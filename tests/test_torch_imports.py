@@ -31,7 +31,8 @@ def test_importing_the_port_pulls_in_no_jax():
               "ops.deform_attn_fused", "tools.bench_deform_attn", "ops.gather_probe",
               "ops.onehot_g", "tools.bench_gather", "tools.probe_bf16_g", "models.swin",
               "models.vitae", "utils.synthetic", "parallel", "parallel.mesh",
-              "parallel.launch", "parallel.dryrun", "tools.bovtext_sample_recovery"):
+              "parallel.launch", "parallel.dryrun", "tools.bovtext_sample_recovery",
+              "tools.bench_train", "tools.convert_torch_weights"):
         assert f"gomatching_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
