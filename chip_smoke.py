@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device check and kernel build (nvcc, from the sources in this checkout); ptxas's
      registers, stack and spills of the lane-layout kernels B1-B5 (and B1, B2 and B5 on bf16
      value) and of B5's table build (f32 and bf16), and from the runtime
-     their registers, local memory (which must be 0; B3 at most 64 registers) and resident
+     their registers, local memory (which must be 0; B3 at most 64 registers), static shared
+     memory a block (B1's and B2's bf16 kernels keep their corner pairs there) and resident
      warps per SM; the same for the footprint kernel's three instantiations (B6a-c), on
      f32 and on bf16 value, at the dynamic shared memory of a block under the shipped
      budget (local memory 0), and for the
@@ -103,12 +104,12 @@ Phases (any failure exits non-zero and prints no result line):
      profiler's device time), plain, library and bound times; then the path of this
      slice, both probe tools' ``main`` (``gomatching_tpu_torch.tools.bench_gather``,
      ``.probe_bf16_g``), each kernel launched;
- 15. B1 (decoder and encoder shapes), B2 and B5 from a measurement build of
-     ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0: every gathered row is row 0 of its
-     base, an L1 hit) against the real build on the same inputs, in turns: how much of
-     each kernel's time the memory system adds; and B4 and B3 from a build without their
-     dValue atomics (-DMSDA_NO_SCATTER) against the real build at the pretraining shape,
-     in turns: what the scatter costs beside the gather;
+ 15. B1 (decoder and encoder shapes), B2 and B5, and B1 (both shapes) and B2 on bf16 value,
+     from a measurement build of ``csrc/ms_deform_attn.cu`` (-DMSDA_GATHER_ROW0: every
+     gathered row is row 0 of its base, an L1 hit) against the real build on the same
+     inputs, in turns: how much of each kernel's time the memory system adds; and B4 and B3
+     from a build without their dValue atomics (-DMSDA_NO_SCATTER) against the real build
+     at the pretraining shape, in turns: what the scatter costs beside the gather;
  16. the tracker-training path: ``gomatching_tpu_torch.train_net.main`` (--task tracker) on
      configs/GoMatching_ICDAR15.yaml at full width, seeded random weights and both
      proposal thresholds at TRACK_THRESH, over a synthetic dataset of two 12-frame
@@ -130,7 +131,10 @@ Phases (any failure exits non-zero and prints no result line):
      plain (ATOL_KERNEL where the value is so near 0 that its ulp is below the f32 sums'
      reordering noise), the same bits twice; kernel times beside the f32 kernels' on the
      same values in turns, device times, plain times, byte bounds (value and output bytes
-     halved), and registers and local memory;
+     halved), the corner-line count (one 128-byte line request a corner) and its time at one
+     line an SM cycle, and registers and local memory; then both at the EDGE_CASES shapes
+     (B1 at EDGE_LQ queries, B2 with 1% of its offsets 100 times farther), each within one
+     bf16 ulp of plain and the same bits twice;
  18. the production inference path: ``VideoPredictor`` on both shipped configs with
      MODEL.PRECISION bfloat16, TPU.UPLOAD_FORMAT yuv420 and the default sampler, at full
      width over phase 4's frames: frames/s (median of N_REPEATS), B2 and B1 on bf16 value
@@ -433,7 +437,8 @@ def phase_resources(da, dav, _build):
         check(report[name], f"{name}: no ptxas report for {names[name]}")
         print(f"[1] {name} ({names[name]}): ptxas: {'; '.join(report[name])}; runtime: "
               f"{info[name]['registers']} registers, {info[name]['local_bytes']} bytes of local "
-              f"memory a thread, {info[name]['warps_per_sm']} resident warps per SM")
+              f"memory a thread, {info[name]['static_smem_bytes']} bytes of static shared memory "
+              f"a block, {info[name]['warps_per_sm']} resident warps per SM")
         check(info[name]["local_bytes"] == 0, f"{name}: {info[name]['local_bytes']} bytes of "
               "local memory a thread (stack or spills)")
     check(info[da.QUERIES_BWD]["registers"] <= 64,
@@ -484,10 +489,11 @@ def lib_kernel_info(lib, which, smem_bytes):
     ``deform_attn._kernel_info`` gives it for the wrappers' library."""
     import ctypes
 
-    info = (ctypes.c_int * 3)()
+    info = (ctypes.c_int * 4)()
     rc = lib.ms_deform_attn_kernel_info(which, smem_bytes, info)
     check(rc == 0, f"ms_deform_attn_kernel_info({which}): cudaError {rc}")
-    return {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2]}
+    return {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2],
+            "static_smem_bytes": info[3]}
 
 
 def same_bits(torch, name, fn, got):
@@ -1438,11 +1444,11 @@ def in_turns(name, call, libs, builds, what):
 
 
 def phase_gather_floor(torch, da, dam, _build):
-    """B1, B2 and B5 from the measurement build in which every gathered row is row 0 of
-    its base (an L1 hit) against the real build, on the same inputs and in turns (real,
-    row 0, row 0, real): what the memory system adds to each kernel's time; and B4 and B3
-    from the build without their dValue atomics against the real build, in turns: what
-    the scatter adds to each."""
+    """B1, B2 and B5, and B1 and B2 on bf16 value, from the measurement build in which every
+    gathered row is row 0 of its base (an L1 hit) against the real build, on the same inputs
+    and in turns (real, row 0, row 0, real): what the memory system adds to each kernel's
+    time; and B4 and B3 from the build without their dValue atomics against the real build,
+    in turns: what the scatter adds to each."""
     import ctypes
 
     S = sum(h * w for h, w in SHAPES)
@@ -1460,6 +1466,8 @@ def phase_gather_floor(torch, da, dam, _build):
     dec_attn = torch.randn(B, Lq, M, L * P, generator=g).softmax(-1).view(B, Lq, M, L, P).to(dev)
     table = dam.merged_table(value, SHAPES)
     out = torch.empty(B, S, M * D, device=dev)
+    value16 = value.bfloat16()
+    out16 = torch.empty(B, S, M * D, device=dev, dtype=torch.bfloat16)
     flat = (ctypes.c_int * (2 * L))(*[x for hw in SHAPES for x in hw])
     stream = torch.cuda.current_stream().cuda_stream
     libs = {build: measurement_lib(_build, da, flags)
@@ -1479,10 +1487,21 @@ def phase_gather_floor(torch, da, dam, _build):
             table.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), flat,
             B, S, S, M, D, L, P, stream),
     }
-    for name, call in calls.items():
+    bf16_calls = {
+        f"{da.QUERIES_BF16} at B={B}, Lq={Lq}": lambda lib: lib.ms_deform_attn_queries_fwd_bf16(
+            value16.data_ptr(), dec_loc.data_ptr(), dec_attn.data_ptr(), out16.data_ptr(), flat,
+            B, S, Lq, M, D, L, P, stream),
+        f"{da.QUERIES_BF16} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_queries_fwd_bf16(
+            value16.data_ptr(), loc.data_ptr(), attn.data_ptr(), out16.data_ptr(), flat,
+            B, S, S, M, D, L, P, stream),
+        f"{da.ENCODER_BF16} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_encoder_fwd_bf16(
+            value16.data_ptr(), off.data_ptr(), logits.data_ptr(), out16.data_ptr(), flat,
+            B, S, M, D, L, P, stream),
+    }
+    for name, call in {**calls, **bf16_calls}.items():
         in_turns(name, call, libs, ("real", "row 0"),
                  "every gathered row an L1 hit; the memory system adds")
-    del value, off, logits, loc, attn, dec_loc, dec_attn, table, out
+    del value, off, logits, loc, attn, dec_loc, dec_attn, table, out, value16, out16
 
     # B4 at the pretraining shape, as phase 6 (dValue accumulates over the timed calls)
     S = sum(h * w for h, w in TRAIN_SHAPES)
@@ -2434,6 +2453,7 @@ def phase_bf16_kernels(torch, da):
     value32 = torch.randn(B, S, M, D, generator=g).bfloat16().float().to(dev)
     value = value32.bfloat16()
     info = da.kernel_info()
+    clock_mhz = sm_clock_mhz()
     wh = torch.tensor([[w, h] for h, w in SHAPES], dtype=torch.float32, device=dev)
     cases = []
     for label, Lq in (("decoder", NQ * NPTS), ("encoder", S)):
@@ -2477,6 +2497,11 @@ def phase_bf16_kernels(torch, da):
         v32_bytes, _ = value_reads(torch, loc, S, D)
         b32_ms, _ = bound(v32_bytes + nbytes(*small, got.float()),
                           samples * (per_sample + 2 * D) + taps * (2 * D + 1))
+        # every corner is one 128-byte line request (a bf16 head row is 64 bytes of a 512-byte
+        # token; a corner off the map reads row 0): the L1's floor at one line an SM cycle
+        lines = 4 * samples
+        line_ms = lines / (torch.cuda.get_device_properties(0).multi_processor_count
+                           * clock_mhz * 1e3)
         ms = (t16a + t16b) / 2
         print(f"[17] {name} at the {label} shape (value ({B}, {S}, {M}, {D}) bf16, Lq "
               f"{loc.shape[1]}): within one bf16 ulp of plain ({n_diff} of {got.numel()} "
@@ -2486,8 +2511,10 @@ def phase_bf16_kernels(torch, da):
               f"recorded) against f32's {t32a:.4f} / {t32b:.4f} ms (device {fmt_us(dev32)} over "
               f"{n32}) on the same values in turns; "
               f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: {v_bytes / 1e6:.1f} MB of bf16 "
-              f"value rows touched) against f32's {b32_ms:.4f} ms; {info[name]['registers']} "
-              f"registers, {info[name]['local_bytes']} bytes of local memory a thread")
+              f"value rows touched) against f32's {b32_ms:.4f} ms; {lines / 1e6:.2f}M corner lines "
+              f"({taps / 1e6:.2f}M in the maps), {line_ms:.4f} ms at one line an SM cycle "
+              f"({clock_mhz:.0f} MHz); {info[name]['registers']} registers, "
+              f"{info[name]['local_bytes']} bytes of local memory a thread")
         if label == "decoder" or name == da.ENCODER_BF16:
             src = ("gomatching_tpu/ops/deform_attn_dec_vmem.py:208" if name == da.QUERIES_BF16
                    else "gomatching_tpu/ops/deform_attn_vmem.py:428")
@@ -2495,7 +2522,43 @@ def phase_bf16_kernels(torch, da):
                 name=name, route="cuda", source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
                 replaces=src, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+    del value32, value, cases, off, far, logits, enc_loc
+    edge_bf16(torch, da)
     return records
+
+
+def edge_bf16(torch, da):
+    """Phase 17: B1 (EDGE_LQ queries) and B2 on bf16 value against their plain bf16 versions
+    at the EDGE_CASES shapes (L*P = 12 and 64, one level, 1-wide and 1-tall levels, B = 2 with
+    M = 3: an idle half-warp), locations partly off the maps and 1% of B2's offsets 100 times
+    farther: every element within one bf16 ulp (check_one_ulp), the same bits twice."""
+    g = torch.Generator().manual_seed(17)
+    for name, b, m, shapes, p in EDGE_CASES:
+        S, L = sum(h * w for h, w in shapes), len(shapes)
+        value = torch.randn(b, S, m, D, generator=g).bfloat16().cuda()
+        loc = (torch.rand(b, EDGE_LQ, m, L, p, 2, generator=g) * 1.3 - 0.15).cuda()
+        attn = (torch.randn(b, EDGE_LQ, m, L * p, generator=g).softmax(-1)
+                .view(b, EDGE_LQ, m, L, p).cuda())
+        off = torch.randn(b, S, m, L, p, 2, generator=g) * 3.0
+        far = torch.rand(b, S, m, L, p, 2, generator=g) < 0.01
+        off = torch.where(far, off * 100.0, off).cuda()
+        logits = torch.randn(b, S, m, L * p, generator=g).cuda()
+        for kname, call, plain, lq in (
+                (da.QUERIES_BF16, lambda: da.ms_deform_attn_queries(value, shapes, loc, attn),
+                 lambda: da.ms_deform_attn_queries_plain_bf16(value, shapes, loc, attn), EDGE_LQ),
+                (da.ENCODER_BF16, lambda: da.ms_deform_attn_encoder(value, shapes, off, logits),
+                 lambda: da.ms_deform_attn_encoder_plain_bf16(value, shapes, off, logits), S)):
+            before = da.launch_counts[kname]
+            got = call()
+            check(da.launch_counts[kname] == before + 1, f"{kname} {name}: no launch")
+            want = plain()
+            torch.cuda.synchronize()
+            err, n_diff, n_over, near0 = check_one_ulp(torch, f"{kname} {name}", got, want)
+            same_bits(torch, f"{kname} {name}", call, got)
+            print(f"[17] {kname} at {name} (B={b}, M={m}, levels {shapes}, P={p}, Lq={lq}): within "
+                  f"one bf16 ulp of plain ({n_diff} of {got.numel()} elements differ, max |diff| "
+                  f"{err:.3e}; {n_over} more than an ulp apart, all within {near0:.2e} <= "
+                  f"ATOL_KERNEL), same bits twice")
 
 
 def production_frames(torch, predictor):
@@ -4384,7 +4447,8 @@ def main():
     t0 = time.time()
     builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS),
               ("ms_deform_attn.cu", NO_SCATTER_FLAGS), ("ms_deform_attn.cu", FP_WARPS8_FLAGS),
-              ("probes.cu", T1_L2_FLAGS), ("probes.cu", T1_NO_COPY_FLAGS))
+              ("probes.cu", T1_L2_FLAGS),
+              ("probes.cu", T1_NO_COPY_FLAGS))
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda sf: _build.build(sf[0], flags=_build.NVCC_FLAGS + sf[1]), builds))
     print(f"[1] kernels built in {time.time() - t0:.1f} s ("

@@ -74,17 +74,33 @@
 //
 // The production precision path (MODEL.PRECISION bfloat16) runs B1 and B2 on bf16 value:
 //
-//   ms_deform_attn_queries_fwd_bf16, ms_deform_attn_encoder_fwd_bf16  -- the same bodies
-//       (queries_fwd<T>, encoder_fwd<T>) instantiated for __nv_bfloat16 value and output;
-//       locations, offsets, attention and logits stay f32. Replace the bf16 runs of
+//   ms_deform_attn_queries_fwd_bf16, ms_deform_attn_encoder_fwd_bf16  -- one body of their
+//       own (paired_fwd_bf16, below the f32 kernels); locations, offsets, attention and
+//       logits stay f32. Replace the bf16 runs of
 //       gomatching_tpu/ops/deform_attn_dec_vmem.py:_fwd_impl and
 //       gomatching_tpu/ops/deform_attn_vmem.py:_v2_impl (value and output in the value
-//       dtype there too). A bf16 head row is 64 bytes: lane l reads channels 4(l%8)..+3
-//       as one 8-byte word and widens them exactly, so the lane layout, the row offsets
-//       (8 words a head row) and the sums are the f32 kernels'; the weights, the softmax
-//       and the sums are f32, and the output is rounded once to nearest even. The TPU
-//       kernels round each one-hot weight G (bilinear weight x attention) to bf16 before
-//       their MXU product; these keep it f32, which is more exact.
+//       dtype there too). The weights, the softmax and the sums are f32, and the output is
+//       rounded once to nearest even. The TPU kernels round each one-hot weight G (bilinear
+//       weight x attention) to bf16 before their MXU product; these keep it f32, which is
+//       more exact.
+// Their first form instantiated the f32 bodies for bf16 value, each lane
+// reading 8 bytes where f32 reads 16: the f32 kernels' instructions, shuffles and chain,
+// 0.7813 ms for B2 at the encoder shape against f32's 0.7908, B1 0.0473 ms of device time at
+// the decoder's. The paired-head layout (its note is at paired_fwd_bf16) gives a warp two
+// heads, one a half-warp, so two chains a warp and the per-query work once for both; a lane
+// moves 16 bytes (8 channels) a corner row, so one warp load gathers 8 corner rows, and the
+// samples' corner (row, weight) pairs reach the gatherers through a 1 KB slice of shared
+// memory a warp instead of two shuffles a sample. ptxas: 64 registers each, no stack, no
+// spills, 9344 bytes of static shared memory a block; 32 warps per SM. On an NVIDIA H100
+// 80GB HBM3 at 700 W (chip_smoke.py phases 15 and 17): B2 0.420 ms at the encoder shape
+// (B = 3, value (3, 37171, 8, 32)) against a byte bound of 0.085 ms and f32's 0.79 in turns;
+// B1 36.7 us of device time at the decoder shape (bound 16.9 us) and 0.376 ms at the
+// encoder's. What bounds them now is still their own instructions and the L1's data path,
+// not memory: with every gathered row an L1 hit B2 takes 0.395 ms of its 0.420 (B1 0.320 of
+// 0.376 at the encoder shape; 0.025 of 0.038 ms at the decoder's, whose few waves wait on
+// device memory), against a floor of 0.22 ms for the 57.1M corner line requests at one line
+// an SM cycle. Eight samples' loads in flight a gatherer were 0.4-6% faster than four in a
+// measurement build on the same card, which is not kept.
 //
 // Their backwards (the VJPs the training path needs) recompute the taps:
 //
@@ -269,7 +285,9 @@ __device__ int msda_row_mask = 0;
 
 // A lane's 4 channels of a head row are one word: a float4 of f32 value, or 8 bytes of 4
 // bf16 (a bf16 head row is 64 bytes, 8 lanes x 8 B, so the lane layout and the row
-// offsets in words are the same for both types). ``as_float4`` widens a word exactly;
+// offsets in words are the same for both types where a kernel reads bf16 through it: B5
+// and the footprint kernels; B1's and B2's bf16 kernels read four 16-byte words a head
+// row, paired_fwd_bf16). ``as_float4`` widens a word exactly;
 // ``store_row`` rounds a lane's 4 f32 sums to the output type, to nearest even for bf16.
 template <typename T>
 struct RowWord {
@@ -498,19 +516,17 @@ __device__ __forceinline__ float4 sample_loop(const Word* __restrict__ base, int
   return acc;
 }
 
-// value (B, S, M, 32) of type T (float or __nv_bfloat16); loc (B, Lq, M, L, P, 2)
-// normalized; attn (B, Lq, M, L*P) softmaxed; out (B, Lq, M*32) of type T. B2's design on
-// normalized locations: blockIdx.y is the (batch, head) pair and warp w of block x takes
-// query 8x + w, so the warps of a block sample one head around neighbouring queries (the
-// 25 points of one text instance are neighbours). L*P <= 64. Locations, weights and the
-// sums are f32 for either T; a bf16 output is rounded once, at the store.
-template <typename T>
-__device__ __forceinline__ void queries_fwd(const T* __restrict__ value,
+// value (B, S, M, 32); loc (B, Lq, M, L, P, 2) normalized; attn (B, Lq, M, L*P) softmaxed;
+// out (B, Lq, M*32); all f32. B2's design on normalized locations: blockIdx.y is the (batch,
+// head) pair and warp w of block x takes query 8x + w, so the warps of a block sample one
+// head around neighbouring queries (the 25 points of one text instance are neighbours).
+// L*P <= 64.
+__device__ __forceinline__ void queries_fwd(const float* __restrict__ value,
                                             const float* __restrict__ loc,
-                                            const float* __restrict__ attn, T* __restrict__ out,
-                                            const LevelInfo& lv, int S, int Lq, int M, int L,
-                                            int P) {
-  using Word = typename RowWord<T>::type;
+                                            const float* __restrict__ attn,
+                                            float* __restrict__ out, const LevelInfo& lv, int S,
+                                            int Lq, int M, int L, int P) {
+  using Word = float4;
   const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (q >= Lq) return;
@@ -534,19 +550,17 @@ __device__ __forceinline__ void queries_fwd(const T* __restrict__ value,
   store_corners(acc, lane, out + bqm * 32);
 }
 
-// value (B, S, M, 32) of type T; off (B, S, M, L, P, 2) raw target-level cells;
-// logits (B, S, M, L*P); out (B, S, M*32) of type T. blockIdx.y is the (batch, head) pair
-// and warp w of block x takes token 8x + w: warps in (b, m, s) order, tokens fastest, so
-// the warps of one block sample one head around neighbouring tokens, and no lane
-// divides 64-bit indices. L*P <= 64. Offsets, the softmax, the weights and the sums are
-// f32 for either T; a bf16 output is rounded once, at the store.
-template <typename T>
-__device__ __forceinline__ void encoder_fwd(const T* __restrict__ value,
+// value (B, S, M, 32); off (B, S, M, L, P, 2) raw target-level cells; logits (B, S, M,
+// L*P); out (B, S, M*32); all f32. blockIdx.y is the (batch, head) pair and warp w of block
+// x takes token 8x + w: warps in (b, m, s) order, tokens fastest, so the warps of one block
+// sample one head around neighbouring tokens, and no lane divides 64-bit indices.
+// L*P <= 64.
+__device__ __forceinline__ void encoder_fwd(const float* __restrict__ value,
                                             const float* __restrict__ off,
                                             const float* __restrict__ logits,
-                                            T* __restrict__ out, const LevelInfo& lv, int S,
+                                            float* __restrict__ out, const LevelInfo& lv, int S,
                                             int M, int L, int P) {
-  using Word = typename RowWord<T>::type;
+  using Word = float4;
   const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (s >= S) return;
@@ -572,20 +586,11 @@ __device__ __forceinline__ void encoder_fwd(const T* __restrict__ value,
   store_corners(acc, lane, out + bsm * 32);
 }
 
-// B1 and B2 on f32 value, and their bf16-value variants (the production precision path):
-// one body each, instantiated by value type.
+// B1 and B2 on f32 value.
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
 ms_deform_attn_queries_kernel(const float* __restrict__ value, const float* __restrict__ loc,
                               const float* __restrict__ attn, float* __restrict__ out,
                               LevelInfo lv, int S, int Lq, int M, int L, int P) {
-  queries_fwd(value, loc, attn, out, lv, S, Lq, M, L, P);
-}
-
-__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
-ms_deform_attn_queries_bf16_kernel(const __nv_bfloat16* __restrict__ value,
-                                   const float* __restrict__ loc, const float* __restrict__ attn,
-                                   __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int Lq,
-                                   int M, int L, int P) {
   queries_fwd(value, loc, attn, out, lv, S, Lq, M, L, P);
 }
 
@@ -596,13 +601,247 @@ ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __re
   encoder_fwd(value, off, logits, out, lv, S, M, L, P);
 }
 
+// ---------------------------------------------------------------------------
+// B1 and B2 on bf16 value (the production precision path): the paired-head lane layout.
+//
+// A warp takes one query (B1) or token (B2) and TWO heads, m = 2 blockIdx.y + (lane >> 4):
+// each half-warp is one head's chain, so a warp runs two independent chains and the
+// per-query work (indices, the token's reference point, the level table) is paid once for
+// both. Within a half, lane h = 4c + w plays two roles:
+//   - owner of sample k = c0 + h of a chunk of MSDA_BF16_CHUNK = 16 samples (one a lane
+//     at the configs' L*P = 16; larger L*P loops over chunks): it loads the sample's
+//     coordinate pair and weight or logit (coalesced), computes its cell once, and writes
+//     its four corners' (16-byte word row, weight) pairs to the warp's slice of shared
+//     memory (4 stores; a corner off the map gets row 0, a valid address, and weight 0);
+//   - gatherer of corner c = h >> 2, word w = h & 3 (channels 8w..8w+7) of every sample:
+//     it reads two samples' (row, weight) pairs of its corner with one 16-byte shared load
+//     and the rows with one 16-byte global load each, widens the 8 bf16 exactly (a shift
+//     or a mask) and adds them into 8 f32 sums with f32 FMAs. A head row (64 bytes) is 4
+//     lanes' words, so one warp load gathers 8 corner rows: the 4 corners of one sample of
+//     each head. MSDA_BF16_GROUP samples' loads are in flight before the first is used.
+// The shared slice replaces the per-sample row and weight shuffles of the f32 layout (a
+// transpose of the owners' corner pairs to the gatherers; value itself is not staged). The
+// softmax of B2 runs over a half in 4 shuffle steps; its normalization is deferred to the
+// output (sum_k e_k w_kc v_kc, times 1 / sum_k e_k), so the sum's shuffles leave the chain.
+// A 6-shuffle reduce-scatter over the corners (xor 8, then 4) leaves lane 4c + w with
+// channels 8w + 2c, +1 of the head, which it rounds to bf16 once, to nearest even, and
+// stores as one 4-byte word: the warp writes both heads' 128 bytes in one store. Sums run in
+// a fixed order, no atomics: a call gives the same bits every time.
+// B2 places a sample at ref * (W, H) - 0.5 + off, one FMA and an add: the same point as the
+// reference's and the f32 kernel's (ref + off / (W, H)) * (W, H) - 0.5 without its
+// division, so x and y can differ from theirs by a few f32 roundings (well under one bf16
+// ulp of the output; chip_smoke.py phase 17 holds it to the plain version).
+#define MSDA_BF16_CHUNK 16
+// samples whose loads a gatherer has in flight at once (a divisor of MSDA_BF16_CHUNK)
+#define MSDA_BF16_GROUP 8
+// int2 entries a (half, corner) row of the shared slice: 16 samples plus 16 bytes of pad,
+// so that the 8 (half, corner) rows one gather load reads start in distinct bank groups
+#define MSDA_GEO_STRIDE 18
+
+// acc[i] += w * channel i of a 16-byte word of 8 bf16 (little-endian: channel 2j is the low
+// half of 32-bit word j), each widened exactly.
+__device__ __forceinline__ void fma_bf16x8(float (&acc)[8], float w, uint4 v) {
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc[2 * j] = fmaf(w, __uint_as_float(u[j] << 16), acc[2 * j]);
+    acc[2 * j + 1] = fmaf(w, __uint_as_float(u[j] & 0xffff0000u), acc[2 * j + 1]);
+  }
+}
+
+// ENCODER: B2 (xy are raw offsets in target-level cells from the token's reference point,
+// wq the attention logits); else B1 (xy normalized locations, wq softmaxed weights).
+// value (B, S, M, 32) bf16; xy (B, Nq, M, L, P, 2), wq (B, Nq, M, L*P) f32; out
+// (B, Nq, M*32) bf16; Nq = S for B2. Grid (ceil(Nq / 8), ceil(M / 2), B).
+template <bool ENCODER>
+__device__ __forceinline__ void paired_fwd_bf16(const __nv_bfloat16* __restrict__ value,
+                                                const float* __restrict__ xy,
+                                                const float* __restrict__ wq,
+                                                __nv_bfloat16* __restrict__ out,
+                                                const LevelInfo& lv, int S, int Nq, int M,
+                                                int L, int P) {
+  __shared__ int4 s_lv[MSDA_MAX_LEVELS];  // (h, w, start) of each level
+  __shared__ __align__(16) int2 s_geo[MSDA_WARPS_PER_BLOCK][2][4][MSDA_GEO_STRIDE];
+  if (threadIdx.x < MSDA_MAX_LEVELS) {
+    int h, w, start;
+    level_dims(lv, threadIdx.x, h, w, start);
+    s_lv[threadIdx.x] = make_int4(h, w, start, 0);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + warp;
+  if (q >= Nq) return;
+  const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int h = lane & 15;
+  const int m = 2 * blockIdx.y + half;
+  const bool mval = m < M;  // an odd M leaves the last pair's second half idle
+  const int mc = mval ? m : M - 1;
+  const int b = blockIdx.z;
+  const int LP = L * P;
+  const int64_t bqm = ((int64_t)b * Nq + q) * M + mc;
+  const float2* xy2 = reinterpret_cast<const float2*>(xy + bqm * LP * 2);
+  const float* wk = wq + bqm * LP;
+  const float neg_inf = __int_as_float(0xff800000);
+
+  // the token's reference point on its own level: ((col + 0.5) / W, (row + 0.5) / H)
+  float2 ref = make_float2(0.f, 0.f);
+  if (ENCODER) {
+    int l1 = 0;
+#pragma unroll
+    for (int i = 1; i < MSDA_MAX_LEVELS; ++i) l1 += (i < L && q >= lv.start[i]);
+    const int4 ql = s_lv[l1];
+    const int t = q - ql.z;
+    const int qrow = t / ql.y;
+    const int qcol = t - qrow * ql.y;
+    ref = make_float2(((float)qcol + 0.5f) / (float)ql.y, ((float)qrow + 0.5f) / (float)ql.x);
+  }
+
+  // chunk 0's inputs, and B2's softmax max over the half (later chunks reread theirs)
+  bool kv = mval && h < LP;
+  float2 o = kv ? __ldg(xy2 + h) : make_float2(0.f, 0.f);
+  float a = kv ? __ldg(wk + h) : (ENCODER ? neg_inf : 0.f);
+  float mx = 0.f;
+  if (ENCODER) {
+    mx = a;
+    for (int c0 = MSDA_BF16_CHUNK; c0 < LP; c0 += MSDA_BF16_CHUNK)
+      mx = fmaxf(mx, mval && c0 + h < LP ? __ldg(wk + c0 + h) : neg_inf);
+#pragma unroll
+    for (int k = 8; k > 0; k >>= 1) mx = fmaxf(mx, __shfl_xor_sync(MSDA_FULL, mx, k));
+  }
+
+  const int tw = M * 4;  // 16-byte words a token
+  const int magic = level_magic(P);
+  const uint4* base =
+      reinterpret_cast<const uint4*>(value + ((int64_t)b * S * M + mc) * 32) + (h & 3);
+  int2(*geo)[MSDA_GEO_STRIDE] = s_geo[warp][half];
+  const int2* mine = geo[h >> 2];  // the gatherer's corner row
+#ifdef MSDA_GATHER_ROW0
+  const int row_mask = *(volatile int*)&msda_row_mask;
+#endif
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  float esum = 0.f;
+  for (int c0 = 0; c0 < LP; c0 += MSDA_BF16_CHUNK) {
+    const int k = c0 + h;
+    if (c0 > 0) {
+      kv = mval && k < LP;
+      o = kv ? __ldg(xy2 + k) : make_float2(0.f, 0.f);
+      a = kv ? __ldg(wk + k) : 0.f;
+    }
+    float e = a;  // the sample's weight before the bilinear factors
+    if (ENCODER) {
+      e = kv ? expf(a - mx) : 0.f;
+      esum += e;
+    }
+    // owner: sample k's cell on its level (level k / P; k < 64 here) and its four corners
+    {
+      const int4 lvl = s_lv[min((k * magic) >> 16, MSDA_MAX_LEVELS - 1)];
+      const float wf = (float)lvl.y;
+      const float hf = (float)lvl.x;
+      float x, y;
+      if (ENCODER) {  // ref * (W, H) - 0.5 + off
+        x = fmaf(ref.x, wf, -0.5f) + o.x;
+        y = fmaf(ref.y, hf, -0.5f) + o.y;
+      } else {
+        x = fmaf(o.x, wf, -0.5f);
+        y = fmaf(o.y, hf, -0.5f);
+      }
+      // clamped where every corner is off the map anyway, so the int casts are safe
+      x = fminf(fmaxf(x, -2.f), wf + 1.f);
+      y = fminf(fmaxf(y, -2.f), hf + 1.f);
+      const float x0 = floorf(x);
+      const float y0 = floorf(y);
+      const float fx = x - x0;
+      const float fy = y - y0;
+      const int ix = (int)x0;
+      const int iy = (int)y0;
+      const bool vx0 = (unsigned)ix < (unsigned)lvl.y;
+      const bool vx1 = (unsigned)(ix + 1) < (unsigned)lvl.y;
+      const bool vy0 = (unsigned)iy < (unsigned)lvl.x;
+      const bool vy1 = (unsigned)(iy + 1) < (unsigned)lvl.x;
+      const float ax0 = vx0 ? e * (1.f - fx) : 0.f;
+      const float ax1 = vx1 ? e * fx : 0.f;
+      const float wy0 = vy0 ? 1.f - fy : 0.f;
+      const float wy1 = vy1 ? fy : 0.f;
+      const int r00 = (lvl.z + iy * lvl.y + ix) * tw;
+      const int r10 = r00 + lvl.y * tw;
+      geo[0][h] = make_int2(vx0 && vy0 ? r00 : 0, __float_as_int(wy0 * ax0));
+      geo[1][h] = make_int2(vx1 && vy0 ? r00 + tw : 0, __float_as_int(wy0 * ax1));
+      geo[2][h] = make_int2(vx0 && vy1 ? r10 : 0, __float_as_int(wy1 * ax0));
+      geo[3][h] = make_int2(vx1 && vy1 ? r10 + tw : 0, __float_as_int(wy1 * ax1));
+    }
+    __syncwarp();
+    // gatherer: this chunk's samples, MSDA_BF16_GROUP at a time, every load of a group
+    // issued before the first is used (entries past L*P have weight 0)
+    const int n = min(LP - c0, MSDA_BF16_CHUNK);
+    for (int j = 0; j < n; j += MSDA_BF16_GROUP) {
+      int4 p[MSDA_BF16_GROUP / 2];  // two samples' (row, weight) pairs each
+#pragma unroll
+      for (int i = 0; i < MSDA_BF16_GROUP / 2; ++i) {
+        p[i] = *reinterpret_cast<const int4*>(mine + j + 2 * i);
+#ifdef MSDA_GATHER_ROW0
+        p[i].x &= row_mask;
+        p[i].z &= row_mask;
+#endif
+      }
+      uint4 v[MSDA_BF16_GROUP];
+#pragma unroll
+      for (int i = 0; i < MSDA_BF16_GROUP / 2; ++i) {
+        v[2 * i] = __ldg(base + p[i].x);
+        v[2 * i + 1] = __ldg(base + p[i].z);
+      }
+#pragma unroll
+      for (int i = 0; i < MSDA_BF16_GROUP / 2; ++i) {
+        fma_bf16x8(acc, __int_as_float(p[i].y), v[2 * i]);
+        fma_bf16x8(acc, __int_as_float(p[i].w), v[2 * i + 1]);
+      }
+    }
+    __syncwarp();
+  }
+
+  // reduce-scatter over the corners: lanes h, h ^ 4, h ^ 8, h ^ 12 hold the same channels
+  float r[4];
+  const bool up8 = lane & 8;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = up8 ? acc[i] : acc[i + 4];
+    r[i] = (up8 ? acc[i + 4] : acc[i]) + __shfl_xor_sync(MSDA_FULL, send, 8);
+  }
+  const bool up4 = lane & 4;
+  float s0 = (up4 ? r[2] : r[0]) + __shfl_xor_sync(MSDA_FULL, up4 ? r[0] : r[2], 4);
+  float s1 = (up4 ? r[3] : r[1]) + __shfl_xor_sync(MSDA_FULL, up4 ? r[1] : r[3], 4);
+  if (ENCODER) {
+#pragma unroll
+    for (int k = 8; k > 0; k >>= 1) esum += __shfl_xor_sync(MSDA_FULL, esum, k);
+    const float inv_sum = 1.f / esum;
+    s0 *= inv_sum;
+    s1 *= inv_sum;
+  }
+  if (mval) {
+    const __nv_bfloat162 pair = __floats2bfloat162_rn(s0, s1);
+    unsigned word;
+    memcpy(&word, &pair, 4);
+    reinterpret_cast<unsigned*>(out + bqm * 32)[4 * (h & 3) + (h >> 2)] = word;
+  }
+}
+
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_queries_bf16_kernel(const __nv_bfloat16* __restrict__ value,
+                                   const float* __restrict__ loc, const float* __restrict__ attn,
+                                   __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int Lq,
+                                   int M, int L, int P) {
+  paired_fwd_bf16<false>(value, loc, attn, out, lv, S, Lq, M, L, P);
+}
+
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
 ms_deform_attn_encoder_bf16_kernel(const __nv_bfloat16* __restrict__ value,
                                    const float* __restrict__ off,
                                    const float* __restrict__ logits,
                                    __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int M,
                                    int L, int P) {
-  encoder_fwd(value, off, logits, out, lv, S, M, L, P);
+  paired_fwd_bf16<true>(value, off, logits, out, lv, S, S, M, L, P);
 }
 
 // Lane 8c + j holds p[k] = its channels' share of corner c's dot for sample k of the batch
@@ -1449,36 +1688,45 @@ static LevelInfo make_levels(const int* shapes, int L) {
 // The limits of the lane-layout kernels B1-B4 (ops/deform_attn.py check_lane_layout
 // raises on the same): D == 32, one row word per lane and corner; at most two samples a
 // lane; the (batch, head) pairs within gridDim.y; the word index of every token row of one
-// batch item in int (8 words a head row for either value type: float4s of f32, 8-byte
-// words of bf16).
+// batch item in int (8 float4 words a head row of f32; a bf16 head row is 4 16-byte words,
+// paired_fwd_bf16).
 static bool lane_layout_ok(int B, int S, int M, int D, int L, int P) {
   return L >= 1 && L <= MSDA_MAX_LEVELS && D == 32 && P >= 1 && L * P <= MSDA_MAX_SAMPLES &&
          (int64_t)B * M <= 65535 && (int64_t)S * M * 8 <= INT32_MAX;
 }
 
-template <typename T>
-static int launch_queries(void (*kernel)(const T*, const float*, const float*, T*, LevelInfo,
+// The forwards' grids: 8 queries (tokens) a block on x. The f32 kernels take a (batch,
+// head) pair a y index; the paired-head bf16 kernels a head pair a y index and the batch
+// item on z (B * M <= 65535 by lane_layout_ok). Returns 0 where there is nothing to launch.
+static dim3 fwd_grid(bool paired, int B, int Nq, int M) {
+  if (B * M == 0 || Nq == 0) return dim3(0);
+  const int x = (Nq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK;
+  return paired ? dim3(x, (M + 1) / 2, B) : dim3(x, B * M);
+}
+
+template <typename V>
+static int launch_queries(void (*kernel)(const V*, const float*, const float*, V*, LevelInfo,
                                          int, int, int, int, int),
-                          const T* value, const float* loc, const float* attn, T* out,
-                          const int* shapes, int B, int S, int Lq, int M, int D, int L, int P,
-                          void* stream) {
+                          bool paired, const V* value, const float* loc, const float* attn,
+                          V* out, const int* shapes, int B, int S, int Lq, int M, int D, int L,
+                          int P, void* stream) {
   if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
-  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
-  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  const dim3 grid = fwd_grid(paired, B, Lq, M);
+  if (grid.x == 0) return (int)cudaSuccess;
   kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       value, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_encoder(void (*kernel)(const T*, const float*, const float*, T*, LevelInfo,
+template <typename V>
+static int launch_encoder(void (*kernel)(const V*, const float*, const float*, V*, LevelInfo,
                                          int, int, int, int),
-                          const T* value, const float* off, const float* logits, T* out,
-                          const int* shapes, int B, int S, int M, int D, int L, int P,
+                          bool paired, const V* value, const float* off, const float* logits,
+                          V* out, const int* shapes, int B, int S, int M, int D, int L, int P,
                           void* stream) {
   if (!lane_layout_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
-  if (B * M == 0 || S == 0) return (int)cudaSuccess;
-  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  const dim3 grid = fwd_grid(paired, B, S, M);
+  if (grid.x == 0) return (int)cudaSuccess;
   kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       value, off, logits, out, make_levels(shapes, L), S, M, L, P);
   return (int)cudaGetLastError();
@@ -1488,8 +1736,8 @@ extern "C" int ms_deform_attn_queries_fwd(const float* value, const float* loc,
                                           const float* attn, float* out, const int* shapes,
                                           int B, int S, int Lq, int M, int D, int L, int P,
                                           void* stream) {
-  return launch_queries(ms_deform_attn_queries_kernel, value, loc, attn, out, shapes, B, S, Lq,
-                        M, D, L, P, stream);
+  return launch_queries(ms_deform_attn_queries_kernel, false, value, loc, attn, out, shapes, B,
+                        S, Lq, M, D, L, P, stream);
 }
 
 // B1 on bf16 value: value and out __nv_bfloat16, loc and attn f32.
@@ -1497,16 +1745,16 @@ extern "C" int ms_deform_attn_queries_fwd_bf16(const __nv_bfloat16* value, const
                                                const float* attn, __nv_bfloat16* out,
                                                const int* shapes, int B, int S, int Lq, int M,
                                                int D, int L, int P, void* stream) {
-  return launch_queries(ms_deform_attn_queries_bf16_kernel, value, loc, attn, out, shapes, B, S,
-                        Lq, M, D, L, P, stream);
+  return launch_queries(ms_deform_attn_queries_bf16_kernel, true, value, loc, attn, out, shapes,
+                        B, S, Lq, M, D, L, P, stream);
 }
 
 extern "C" int ms_deform_attn_encoder_fwd(const float* value, const float* off,
                                           const float* logits, float* out, const int* shapes,
                                           int B, int S, int M, int D, int L, int P,
                                           void* stream) {
-  return launch_encoder(ms_deform_attn_encoder_kernel, value, off, logits, out, shapes, B, S, M,
-                        D, L, P, stream);
+  return launch_encoder(ms_deform_attn_encoder_kernel, false, value, off, logits, out, shapes,
+                        B, S, M, D, L, P, stream);
 }
 
 // B2 on bf16 value: value and out __nv_bfloat16, offsets and logits f32.
@@ -1514,8 +1762,8 @@ extern "C" int ms_deform_attn_encoder_fwd_bf16(const __nv_bfloat16* value, const
                                                const float* logits, __nv_bfloat16* out,
                                                const int* shapes, int B, int S, int M, int D,
                                                int L, int P, void* stream) {
-  return launch_encoder(ms_deform_attn_encoder_bf16_kernel, value, off, logits, out, shapes, B,
-                        S, M, D, L, P, stream);
+  return launch_encoder(ms_deform_attn_encoder_bf16_kernel, true, value, off, logits, out,
+                        shapes, B, S, M, D, L, P, stream);
 }
 
 // What the runtime made of a kernel (which: 0 B1, 1 B2, 2 B4, 3 B5, 4 B3; 5, 6, 7 the
@@ -1524,7 +1772,7 @@ extern "C" int ms_deform_attn_encoder_fwd_bf16(const __nv_bfloat16* value, const
 // 11 its table build on bf16; 12, 13, 14 the footprint kernel's three on bf16 value; 15 B5's
 // table build on f32):
 // info[0] registers a thread, info[1] local memory a thread in bytes (stack and spills),
-// info[2] resident warps per SM.
+// info[2] resident warps per SM, info[3] static shared memory a block in bytes.
 extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) {
   const void* fns[] = {(const void*)ms_deform_attn_queries_kernel,
                        (const void*)ms_deform_attn_encoder_kernel,
@@ -1560,6 +1808,7 @@ extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) 
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[which], 32 * warps, smem_bytes);
   info[2] = blocks * warps;
+  info[3] = (int)attr.sharedSizeBytes;
   return (int)e;
 }
 

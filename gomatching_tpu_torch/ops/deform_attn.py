@@ -34,12 +34,14 @@ The plain backwards (``*_plain_backward``) are ``torch.autograd.grad`` through t
 forwards; the tests and ``chip_smoke.py`` hold the kernels against them.
 
 A bfloat16 value (``MODEL.PRECISION`` bfloat16, the frozen spotter) takes B1's and B2's
-bf16 variants, the same kernels instantiated for bf16 value and output
-(``ms_deform_attn_queries_bf16``, ``ms_deform_attn_encoder_bf16``; the bf16 runs of the
-same TPU kernels): locations, offsets, attention and logits stay float32, the sums are f32
-and the output is rounded once to bf16. Their plain versions (``*_plain_bf16``) widen the
-value to f32, run the plain sampler and round the output. They have no backward: the bf16
-spotter is frozen. B5 with its table and the footprint entries take bf16 value the same
+bf16 kernels (``ms_deform_attn_queries_bf16``, ``ms_deform_attn_encoder_bf16``; the bf16
+runs of the same TPU kernels), one body of their own on a lane layout for bf16 (two heads
+a warp, 16-byte words of 8 channels a lane): locations, offsets, attention and logits stay
+float32, the sums are f32 and the output is rounded once to bf16. Their plain versions
+(``*_plain_bf16``) widen the value to f32, run the plain sampler and round the output. They
+have no backward: the bf16 spotter is frozen. Every input must start at a multiple of the
+width the kernel reads it in (``LANE_WIDTHS``; ``check_aligned`` raises otherwise). B5
+with its table and the footprint entries take bf16 value the same
 way (``ops/deform_attn_merged.py``, ``ops/deform_attn_vmem.py``; ``kernel_dtype`` names
 the dtype mixes their kernels take), counted under the ``*_BF16`` names. B1-B4 take
 D == 32 channels per head (one float4 per lane and corner) within the limits that
@@ -262,26 +264,46 @@ def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
                          f"autograd differentiates the plain forward")
 
 
+# The widths in bytes in which the lane-layout kernels B1-B4 read their inputs: value in
+# 16-byte words (a float4 of f32; 8 bf16 in B1's and B2's bf16 kernels), coordinate pairs
+# as float2, weights and logits as float, dOut as float4.
+LANE_WIDTHS = {"value": 16, "sampling_locations": 8, "offsets": 8, "attention_weights": 4,
+               "attn_logits": 4, "grad_out": 16}
+
+
+def check_aligned(name: str, ptr: int, width: int) -> None:
+    """Raise ValueError, naming the input, when its address ``ptr`` is not a multiple of
+    ``width``, the bytes in which the kernel reads it: a contiguous view that starts at an
+    odd element would fault inside the kernel's vector loads."""
+    if ptr % width:
+        raise ValueError(f"{name} at address {ptr:#x} is not aligned to the {width}-byte words "
+                         f"the kernel reads it in")
+
+
 def _launch(name: str, c_fn: str, inputs: Dict[str, torch.Tensor], spatial_shapes: Shapes,
             outs: Sequence[Tuple[Tuple[int, ...], bool]],
             dims: Tuple[int, ...], S: Optional[int] = None,
-            value_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+            value_dtype: torch.dtype = torch.float32,
+            widths: Optional[Dict[str, int]] = None) -> List[torch.Tensor]:
     """Validate the inputs, allocate the outputs ((shape, zeroed) each) and launch
     ``c_fn`` on the current stream; raise on a refused launch. ``inputs`` are passed
     in order, then the outputs, the level shapes and ``dims``. ``S`` (tokens) defaults
     to the first input's dimension 1. The first input (value, or B5's table) must be of
-    ``value_dtype``, every other input float32 (TypeError otherwise); the outputs take
-    ``value_dtype``."""
+    ``value_dtype``, every other input float32 (TypeError otherwise), each contiguous and
+    aligned to its width in ``widths`` (default LANE_WIDTHS; ValueError otherwise); the
+    outputs take ``value_dtype``."""
     S = next(iter(inputs.values())).shape[1] if S is None else S
     if sum(h * w for h, w in spatial_shapes) != S or not 1 <= len(spatial_shapes) <= _MAX_LEVELS:
         raise ValueError(f"{name}: spatial_shapes {spatial_shapes} do not match S={S} "
                          f"(1..{_MAX_LEVELS} levels)")
+    widths = LANE_WIDTHS if widths is None else widths
     for i, (key, t) in enumerate(inputs.items()):
         want = value_dtype if i == 0 else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
+        check_aligned(f"{name}: {key}", t.data_ptr(), widths[key])
     if _on_cpu(*inputs.values()):
         raise ValueError(f"{name}: the kernel takes CUDA tensors")
     from ._build import load
@@ -432,17 +454,19 @@ class _EncoderFunction(torch.autograd.Function):
 
 
 def _kernel_info(name: str, which: int, smem_bytes: int = 0) -> Dict[str, int]:
-    """Registers and local memory a thread, and resident warps per SM at ``smem_bytes`` of
-    dynamic shared memory a block, of kernel ``which`` of ``ms_deform_attn_kernel_info``
-    as the CUDA runtime reports them for the loaded library (needs a card)."""
+    """Registers and local memory a thread, resident warps per SM at ``smem_bytes`` of
+    dynamic shared memory a block, and static shared memory a block, of kernel ``which`` of
+    ``ms_deform_attn_kernel_info`` as the CUDA runtime reports them for the loaded library
+    (needs a card)."""
     from ._build import load
 
     fn = load("ms_deform_attn.cu", _SIGNATURES).ms_deform_attn_kernel_info
-    info = (_I * 3)()
+    info = (_I * 4)()
     rc = fn(which, smem_bytes, info)
     if rc != 0:
         raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with cudaError {rc}")
-    return {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2]}
+    return {"registers": info[0], "local_bytes": info[1], "warps_per_sm": info[2],
+            "static_smem_bytes": info[3]}
 
 
 def kernel_info() -> Dict[str, Dict[str, int]]:

@@ -43,6 +43,7 @@ from .deform_attn import (
     _MAX_LEVELS,
     _MAX_SAMPLES,
     KERNEL_D,
+    LANE_WIDTHS,
     MERGED,
     MERGED_BF16,
     MERGED_TABLE,
@@ -157,7 +158,8 @@ def merged_table(value: torch.Tensor, spatial_shapes: Shapes) -> torch.Tensor:
     name, c_fn = ((MERGED_TABLE_BF16, "ms_deform_attn_merged_table_bf16") if bf16
                   else (MERGED_TABLE, "ms_deform_attn_merged_table"))
     return _launch(name, c_fn, {"value": value}, spatial_shapes, [((B, M, S, 4 * D), False)],
-                   (B, S, M, D, len(spatial_shapes)), value_dtype=value.dtype)[0]
+                   (B, S, M, D, len(spatial_shapes)), value_dtype=value.dtype,
+                   widths={"value": 8 if bf16 else 16})[0]
 
 
 def merged_sample(table: torch.Tensor, spatial_shapes: Shapes, sampling_locations: torch.Tensor,
@@ -184,7 +186,8 @@ def merged_sample(table: torch.Tensor, spatial_shapes: Shapes, sampling_location
                    {"table": table, "sampling_locations": sampling_locations,
                     "attention_weights": attention_weights},
                    spatial_shapes, [((B, Lq, M * KERNEL_D), False)],
-                   (B, S, Lq, M, KERNEL_D, L, P), S=S, value_dtype=table.dtype)[0]
+                   (B, S, Lq, M, KERNEL_D, L, P), S=S, value_dtype=table.dtype,
+                   widths={**LANE_WIDTHS, "table": 8 if bf16 else 16})[0]
 
 
 def ms_deform_attn_merged(value: torch.Tensor, spatial_shapes: Shapes,
