@@ -412,7 +412,7 @@ def phase_resources(da, dav, _build):
     warps per SM from the CUDA runtime (the footprint kernel's at the dynamic shared memory
     phase 12's footprints take under the shipped budget, and those of the -DFP_WARPS=8
     measurement build under a budget of 0). No lane-layout kernel may keep anything in
-    local memory, and B3 at most 64 registers."""
+    local memory, and B3, B5 bf16 and B5's bf16 table build at most 64 registers."""
     names = {da.QUERIES: "ms_deform_attn_queries_kernel", da.ENCODER: "ms_deform_attn_encoder_kernel",
              da.ENCODER_BWD: "ms_deform_attn_encoder_bwd_kernel",
              da.MERGED: "ms_deform_attn_merged_kernel",
@@ -441,8 +441,9 @@ def phase_resources(da, dav, _build):
               f"a block, {info[name]['warps_per_sm']} resident warps per SM")
         check(info[name]["local_bytes"] == 0, f"{name}: {info[name]['local_bytes']} bytes of "
               "local memory a thread (stack or spills)")
-    check(info[da.QUERIES_BWD]["registers"] <= 64,
-          f"{da.QUERIES_BWD}: {info[da.QUERIES_BWD]['registers']} registers a thread (limit 64)")
+    for name in (da.QUERIES_BWD, da.MERGED_BF16, da.MERGED_TABLE_BF16):
+        check(info[name]["registers"] <= 64,
+              f"{name}: {info[name]['registers']} registers a thread (limit 64)")
     for kernels, elem_bytes in ((fp_names, 4), (fp16_names, 2)):
         fp = dav.vmem_footprints(da.VMEM, SHAPES, P, TILED_HALO, elem_bytes=elem_bytes)
         for (kernel, name), i in zip(kernels.items(), dav.footprint_kernel_info(fp).values()):
@@ -1444,8 +1445,8 @@ def in_turns(name, call, libs, builds, what):
 
 
 def phase_gather_floor(torch, da, dam, _build):
-    """B1, B2 and B5, and B1 and B2 on bf16 value, from the measurement build in which every
-    gathered row is row 0 of its base (an L1 hit) against the real build, on the same inputs
+    """B1, B2 and B5, and B1, B2 and B5 on bf16 value, from the measurement build in which
+    every gathered row is row 0 of its base (an L1 hit) against the real build, on the same inputs
     and in turns (real, row 0, row 0, real): what the memory system adds to each kernel's
     time; and B4 and B3 from the build without their dValue atomics against the real build,
     in turns: what the scatter adds to each."""
@@ -1467,6 +1468,7 @@ def phase_gather_floor(torch, da, dam, _build):
     table = dam.merged_table(value, SHAPES)
     out = torch.empty(B, S, M * D, device=dev)
     value16 = value.bfloat16()
+    table16 = dam.merged_table(value16, SHAPES)
     out16 = torch.empty(B, S, M * D, device=dev, dtype=torch.bfloat16)
     flat = (ctypes.c_int * (2 * L))(*[x for hw in SHAPES for x in hw])
     stream = torch.cuda.current_stream().cuda_stream
@@ -1497,11 +1499,14 @@ def phase_gather_floor(torch, da, dam, _build):
         f"{da.ENCODER_BF16} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_encoder_fwd_bf16(
             value16.data_ptr(), off.data_ptr(), logits.data_ptr(), out16.data_ptr(), flat,
             B, S, M, D, L, P, stream),
+        f"{da.MERGED_BF16} at B={B}, Lq={S}": lambda lib: lib.ms_deform_attn_merged_fwd_bf16(
+            table16.data_ptr(), loc.data_ptr(), attn.data_ptr(), out16.data_ptr(), flat,
+            B, S, S, M, D, L, P, stream),
     }
     for name, call in {**calls, **bf16_calls}.items():
         in_turns(name, call, libs, ("real", "row 0"),
                  "every gathered row an L1 hit; the memory system adds")
-    del value, off, logits, loc, attn, dec_loc, dec_attn, table, out, value16, out16
+    del value, off, logits, loc, attn, dec_loc, dec_attn, table, out, value16, table16, out16
 
     # B4 at the pretraining shape, as phase 6 (dValue accumulates over the timed calls)
     S = sum(h * w for h, w in TRAIN_SHAPES)
@@ -2877,6 +2882,7 @@ def merged_bf16_cases(torch, da, dam, label, shapes, n_queries, seed, info):
     S = sum(h * w for h, w in shapes)
     g = torch.Generator().manual_seed(seed)
     dev = "cuda"
+    clock_mhz = sm_clock_mhz()
     value32 = torch.randn(B, S, M, D, generator=g).bfloat16().float().to(dev)
     value = value32.bfloat16()
     wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device=dev)
@@ -2912,15 +2918,19 @@ def merged_bf16_cases(torch, da, dam, label, shapes, n_queries, seed, info):
     del rows
     t_bound, t_by = bound(nbytes(value, table), 0)
     t_ms = sum(runs["bf16"]) / len(runs["bf16"])
+    ti = info[da.MERGED_TABLE_BF16]
     print(f"[20] {da.MERGED_TABLE_BF16} at the {label} shape (value ({B}, {S}, {M}, {D}) bf16, "
           f"table {nbytes(table) / 1e6:.1f} MB): the plain table's bits exactly, same bits twice; "
           f"kernel {', '.join(f'{t:.4f}' for t in runs['bf16'])} ms against f32's "
           f"{', '.join(f'{t:.4f}' for t in runs['f32'])} ms on the same values in turns "
           f"(f32 {nbytes(value32) * 4 / 1e6:.1f} MB table); device {fmt_us(t_dev)} a launch over "
           f"{t_n} recorded; plain {t_plain:.4f} ms; index_select {t_lib:.4f} ms; bound "
-          f"{t_bound:.4f} ms ({t_by}: value read once, the table written once); "
-          f"{info[da.MERGED_TABLE_BF16]['registers']} registers, "
-          f"{info[da.MERGED_TABLE_BF16]['local_bytes']} bytes of local memory a thread")
+          f"{t_bound:.4f} ms ({t_by}: value read once, the table written once), "
+          f"{100 * t_bound / t_ms:.1f}% of the memory rate "
+          f"({nbytes(value, table) / t_ms / 1e9:.3f} TB/s of {HBM_BYTES_PER_S / 1e12:.2f}); "
+          f"{ti['registers']} registers, "
+          f"{ti['local_bytes']} bytes of local memory a thread, {ti['warps_per_sm']} resident "
+          "warps per SM")
     records[da.MERGED_TABLE_BF16] = dict(
         name=da.MERGED_TABLE_BF16, route="cuda",
         source="gomatching_tpu_torch/csrc/ms_deform_attn.cu",
@@ -2954,6 +2964,12 @@ def merged_bf16_cases(torch, da, dam, label, shapes, n_queries, seed, info):
         b_ms, b_by = bound(v_bytes + nbytes(loc, attn, got),
                            samples * (20 + 2 * D) + taps * (2 * D + 1))
         ms = sum(runs["bf16"]) / len(runs["bf16"])
+        # each sample of a head reads one whole 256-byte table row: two 128-byte lines
+        # requested of the L1, and 256 bytes of L2 where the L1 misses
+        lines, row_bytes = 2 * samples, 256 * samples
+        line_ms = lines / (torch.cuda.get_device_properties(0).multi_processor_count
+                           * clock_mhz * 1e3)
+        bi = info[da.MERGED_BF16]
         print(f"[20] {da.MERGED_BF16} {label} {case} (Lq={Lq}): within one bf16 ulp of plain "
               f"({n_diff} of {got.numel()} elements differ, max |diff| {err:.3e}; {n_over} more "
               f"than an ulp apart, all within {near0:.2e} <= ATOL_KERNEL), same bits twice; "
@@ -2961,9 +2977,12 @@ def merged_bf16_cases(torch, da, dam, label, shapes, n_queries, seed, info):
               f"f32's {', '.join(f'{t:.4f}' for t in runs['f32'])} ms in turns (device "
               f"{fmt_us(dev_us)} a launch over {n_rec} recorded); with the table build "
               f"{both_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
-              f"{v_bytes / 1e6:.1f} MB of bf16 value rows touched); "
-              f"{info[da.MERGED_BF16]['registers']} registers, "
-              f"{info[da.MERGED_BF16]['local_bytes']} bytes of local memory a thread")
+              f"{v_bytes / 1e6:.1f} MB of bf16 value rows touched), {100 * b_ms / ms:.1f}% of it; "
+              f"{lines / 1e6:.2f}M table-row lines, {line_ms:.4f} ms at one line an SM cycle "
+              f"({clock_mhz:.0f} MHz); {row_bytes / 1e9:.3f} GB of table rows requested, "
+              f"{row_bytes / ms / 1e9:.3f} TB/s at the kernel's time; {bi['registers']} "
+              f"registers, {bi['local_bytes']} bytes of local memory a thread, "
+              f"{bi['warps_per_sm']} resident warps per SM")
         if case == "encoder":
             records[da.MERGED_BF16] = dict(
                 name=da.MERGED_BF16, route="cuda",
@@ -2974,10 +2993,62 @@ def merged_bf16_cases(torch, da, dam, label, shapes, n_queries, seed, info):
     return records
 
 
+def edge_merged_bf16(torch, da, dam):
+    """Phase 20: B5's table build and B5 on bf16 value against their plain versions at the
+    EDGE_CASES shapes (L*P = 12 and 64, one level, 1-wide and 1-tall levels, where the base
+    clamps to 0 and slot 1 is masked, B = 2 with M = 3: an idle half-warp), at Lq = S
+    (reference points plus offsets) and at EDGE_LQ queries (locations partly off the maps),
+    1% of the samples 100 times farther out: the table the plain table's bits exactly, B5
+    within one bf16 ulp (check_one_ulp), each the same bits twice."""
+    g = torch.Generator().manual_seed(20)
+    for name, b, m, shapes, p in EDGE_CASES:
+        S, L = sum(h * w for h, w in shapes), len(shapes)
+        value = torch.randn(b, S, m, D, generator=g).bfloat16().cuda()
+        before = da.launch_counts[da.MERGED_TABLE_BF16]
+        table = dam.merged_table(value, shapes)
+        check(da.launch_counts[da.MERGED_TABLE_BF16] == before + 1,
+              f"{da.MERGED_TABLE_BF16} {name}: no launch")
+        want = dam.merged_corner_table(value.permute(0, 2, 1, 3), shapes)
+        torch.cuda.synchronize()
+        check(torch.equal(table, want), f"{da.MERGED_TABLE_BF16} {name}: differs from the plain "
+              "table")
+        same_bits(torch, f"{da.MERGED_TABLE_BF16} {name}", lambda: dam.merged_table(value, shapes),
+                  table)
+        wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32)
+        off = torch.randn(b, S, m, L, p, 2, generator=g) * 3.0
+        off = torch.where(torch.rand(off.shape, generator=g) < 0.01, off * 100.0, off)
+        near = torch.rand(b, EDGE_LQ, m, L, p, 2, generator=g) * 1.3 - 0.15
+        far = (torch.rand(near.shape, generator=g) - 0.5) * 200.0
+        locs = {"Lq=S": (da.encoder_reference_points(shapes)[None, :, None, None, None, :]
+                         + off / wh[None, None, None, :, None, :]),
+                f"Lq={EDGE_LQ}": torch.where(torch.rand(near.shape, generator=g) < 0.01, far, near)}
+        for case, loc in locs.items():
+            loc = loc.cuda()
+            lq = loc.shape[1]
+            attn = (torch.randn(b, lq, m, L * p, generator=g).softmax(-1)
+                    .view(b, lq, m, L, p).cuda())
+            before = da.launch_counts[da.MERGED_BF16]
+            got = dam.ms_deform_attn_merged(value, shapes, loc, attn)
+            check(got.dtype == torch.bfloat16 and da.launch_counts[da.MERGED_BF16] == before + 1,
+                  f"{da.MERGED_BF16} {name} {case}: not launched in bf16")
+            want = dam.ms_deform_attn_merged_plain(value, shapes, loc, attn)
+            torch.cuda.synchronize()
+            err, n_diff, n_over, near0 = check_one_ulp(torch, f"{da.MERGED_BF16} {name} {case}",
+                                                       got, want)
+            same_bits(torch, f"{da.MERGED_BF16} {name} {case}",
+                      lambda: dam.ms_deform_attn_merged(value, shapes, loc, attn), got)
+            print(f"[20] {da.MERGED_BF16} and {da.MERGED_TABLE_BF16} at {name} (B={b}, M={m}, "
+                  f"levels {shapes}, P={p}, {case}): the table the plain table's bits exactly; "
+                  f"B5 within one bf16 ulp of plain ({n_diff} of {got.numel()} elements differ, "
+                  f"max |diff| {err:.3e}; {n_over} more than an ulp apart, all within "
+                  f"{near0:.2e} <= ATOL_KERNEL); each the same bits twice")
+
+
 def phase_bf16_samplers(torch, da, dam, dav, daf):
-    """Phase 20: B5 and its table build on bf16 value at the ICDAR15 and DSText shapes, and
-    the four B6 entries on bf16 value at phase 12's inputs, each against its plain bf16
-    version, the same bits twice, timed beside the f32 kernel on the same values in turns,
+    """Phase 20: B5 and its table build on bf16 value at the ICDAR15 and DSText shapes and at
+    the edge shapes (edge_merged_bf16), and the four B6 entries on bf16 value at phase 12's
+    inputs, each against its plain bf16 version, the same bits twice, timed (but for the
+    edge shapes) beside the f32 kernel on the same values in turns,
     with the staged share of the bf16 footprints beside the f32 ones'. Returns the
     kernels-line records of B5 bf16 and its table (ICDAR15's encoder shape) and of the B6
     entries on bf16."""
@@ -2987,6 +3058,7 @@ def phase_bf16_samplers(torch, da, dam, dav, daf):
     info = da.kernel_info()
     records = merged_bf16_cases(torch, da, dam, "ICDAR15", SHAPES, NQ * NPTS, 20, info)
     merged_bf16_cases(torch, da, dam, "DSText", DS_SHAPES, DS_QUERIES, 21, info)
+    edge_merged_bf16(torch, da, dam)
     torch.cuda.empty_cache()
 
     S = sum(h * w for h, w in SHAPES)

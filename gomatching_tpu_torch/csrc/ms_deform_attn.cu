@@ -207,21 +207,37 @@
 //       chip_smoke.py phase 9 prints as its library_ms).
 //
 // GoMatching++ in the production precision path ('pallas' with MODEL.PRECISION bfloat16)
-// runs both on bf16 value:
+// runs both on bf16 value, each a body of its own:
 //
-//   ms_deform_attn_merged_table_bf16, ms_deform_attn_merged_fwd_bf16  -- the same bodies
-//       (merged_table<T>, merged_fwd<T>) instantiated for __nv_bfloat16. The table is
-//       value's dtype, as JAX builds it (_merged_corner_table on bf16 value), a copy of
-//       bits in 256-byte rows; B5 widens each row exactly, scales it by f32 slot weights,
-//       sums in f32 and rounds the output once, as _sampling_kernel does with its f32 slot
-//       weights and accumulator. Lane l keeps word l of a row (8 bytes of bf16: corner l/8,
-//       channels 4(l%8)..+3), so the rows are 32 words, the row offsets, slot weights and
-//       sums are the f32 kernel's. Unlike B1/B2's TPU kernels, JAX's B5 does not round its
-//       weights to bf16, so the two differ only in the order of the f32 sums. On an NVIDIA
-//       H100 80GB HBM3 at 700 W (chip_smoke.py phase 20): B5 bf16 0.688 ms at the encoder
-//       shape against f32's 0.814 on the same values (55 registers, no stack), the table
-//       0.188 against 0.220 ms (bound 0.085: the copy reaches 45% of the memory rate).
-//
+//   ms_deform_attn_merged_table_bf16  -- the table in value's dtype, as JAX builds it
+//       (_merged_corner_table on bf16 value): a copy of bits in 256-byte rows. A lane moves
+//       one 16-byte word (a warp two rows, 512 contiguous bytes), each warp walks 16
+//       consecutive tokens of one (batch, head) with its level, row and column found once
+//       and stepped, and each lane has its 8 loads in flight before its first store (its
+//       note is at ms_deform_attn_merged_table_bf16_kernel).
+//   ms_deform_attn_merged_fwd_bf16  -- B5 on that table through the paired-head body of B1
+//       and B2 bf16 (paired_fwd_bf16, PAIRED_MERGED): two heads a warp, lane h of a half
+//       reading word h of a 256-byte row, so one 16-byte load a lane gathers one sample's
+//       whole row for both heads (4 128-byte lines a warp load); each lane owns one sample
+//       of a chunk of 16 and computes its base row and four slot weights once. It widens
+//       each row exactly, scales it by f32 slot weights, sums in f32 and rounds the output
+//       once, as _sampling_kernel does with its f32 slot weights and accumulator; unlike
+//       B1/B2's TPU kernels, JAX's B5 does not round its weights to bf16, so the two differ
+//       only in the order of the f32 sums.
+// Their first forms instantiated the f32 bodies for bf16, a lane reading 8 bytes where f32
+// reads 16: B5 bf16 0.683 ms at the encoder shape, the table 0.189 ms (45% of the memory
+// rate, each 8-byte word paying a level search, a division and 64-bit address arithmetic).
+// ptxas now: B5 bf16 64 registers, the table 59, no stack, no spills; 32 warps per SM each.
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phases 15 and 20): the table 0.111 ms
+// at the ICDAR15 shape (B = 3, value (3, 37171, 8, 32)) against a byte bound of 0.085 ms
+// (57.1 MB read, 228.4 MB written: 76.5% of the memory rate) and f32's 0.220 in turns; B5
+// bf16 0.437 ms at the encoder shape against a byte bound of 0.085 ms and f32's 0.811 in
+// turns, 0.046 ms at the decoder's (bound 0.017). What bounds B5 bf16 now is its own work
+// and where its rows come from: with every row an L1 hit it takes 0.327 ms of its 0.435, so
+// the memory system adds 25% (B2 bf16 6%): a 256-byte table row serves one cell, so samples
+// in neighbouring cells share no line and most rows come from L2 (3.65 GB of rows
+// requested a call, 8.4 TB/s at the kernel's time), where value's rows are shared by
+// neighbouring cells' corners; the 28.5M row lines take 0.109 ms at one line an SM cycle.
 // A fourth forward serves the encoder variants that stage tile footprints
 // (B6a-c: ms_deform_attn_encoder_vmem, _vmem_tm, _vmem_v3 and _fused):
 //
@@ -285,9 +301,9 @@ __device__ int msda_row_mask = 0;
 
 // A lane's 4 channels of a head row are one word: a float4 of f32 value, or 8 bytes of 4
 // bf16 (a bf16 head row is 64 bytes, 8 lanes x 8 B, so the lane layout and the row
-// offsets in words are the same for both types where a kernel reads bf16 through it: B5
-// and the footprint kernels; B1's and B2's bf16 kernels read four 16-byte words a head
-// row, paired_fwd_bf16). ``as_float4`` widens a word exactly;
+// offsets in words are the same for both types where a kernel reads bf16 through it: the
+// footprint kernels only; B1's, B2's and B5's bf16 kernels, paired_fwd_bf16, and B5's bf16
+// table build read 16-byte words of 8 channels). ``as_float4`` widens a word exactly;
 // ``store_row`` rounds a lane's 4 f32 sums to the output type, to nearest even for bf16.
 template <typename T>
 struct RowWord {
@@ -602,9 +618,9 @@ ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __re
 }
 
 // ---------------------------------------------------------------------------
-// B1 and B2 on bf16 value (the production precision path): the paired-head lane layout.
+// B1, B2 and B5 on bf16 value (the production precision path): the paired-head lane layout.
 //
-// A warp takes one query (B1) or token (B2) and TWO heads, m = 2 blockIdx.y + (lane >> 4):
+// A warp takes one query (B1, B5) or token (B2) and TWO heads, m = 2 blockIdx.y + (lane >> 4):
 // each half-warp is one head's chain, so a warp runs two independent chains and the
 // per-query work (indices, the token's reference point, the level table) is paid once for
 // both. Within a half, lane h = 4c + w plays two roles:
@@ -631,6 +647,13 @@ ms_deform_attn_encoder_kernel(const float* __restrict__ value, const float* __re
 // reference's and the f32 kernel's (ref + off / (W, H)) * (W, H) - 0.5 without its
 // division, so x and y can differ from theirs by a few f32 roundings (well under one bf16
 // ulp of the output; chip_smoke.py phase 17 holds it to the plain version).
+// B5 (PAIRED_MERGED) reads the corner-merged table (B, M, S, 4*32) instead of value: a bf16
+// table row is 256 bytes, 16 words, and lane h of a half reads word h (corner c, channels
+// 8w..8w+7), so one warp load gathers one sample's whole row for each head (4 128-byte
+// lines, where B1 and B2 touch 8). The owner computes the sample's clamped base row and its
+// four slot weights (axis_slots, the f32 B5's arithmetic in the reference's order) and
+// writes (the base row, slot weight c) for each corner c: the same row for the four, which
+// is always a valid row of the head's slice.
 #define MSDA_BF16_CHUNK 16
 // samples whose loads a gatherer has in flight at once (a divisor of MSDA_BF16_CHUNK)
 #define MSDA_BF16_GROUP 8
@@ -649,17 +672,34 @@ __device__ __forceinline__ void fma_bf16x8(float (&acc)[8], float w, uint4 v) {
   }
 }
 
-// ENCODER: B2 (xy are raw offsets in target-level cells from the token's reference point,
-// wq the attention logits); else B1 (xy normalized locations, wq softmaxed weights).
-// value (B, S, M, 32) bf16; xy (B, Nq, M, L, P, 2), wq (B, Nq, M, L*P) f32; out
-// (B, Nq, M*32) bf16; Nq = S for B2. Grid (ceil(Nq / 8), ceil(M / 2), B).
-template <bool ENCODER>
-__device__ __forceinline__ void paired_fwd_bf16(const __nv_bfloat16* __restrict__ value,
+// Slot weights of one axis (_merged_indices_and_slot_weights :103-111): the true
+// corners c0 (weight 1 - f) and c0 + 1 (weight f) land on slot 0 or 1 of the
+// window anchored at ``base``; a corner off the map matches no slot, and slot 1
+// is dropped when it lies past the level's edge (size 1: it holds a duplicate).
+__device__ __forceinline__ void axis_slots(float c0, float f, float base, float size,
+                                           float& w_lo, float& w_hi) {
+  w_lo = (base == c0 ? 1.f - f : 0.f) + (base == c0 + 1.f ? f : 0.f);
+  w_hi = (base + 1.f == c0 ? 1.f - f : 0.f) + (base + 1.f == c0 + 1.f ? f : 0.f);
+  if (!(base + 1.f <= size - 1.f)) w_hi = 0.f;
+}
+
+// What the paired-head body samples: B1 (xy normalized locations, wq softmaxed weights;
+// value rows), B2 (xy raw offsets in target-level cells from the token's reference point,
+// wq the attention logits; value rows) or B5 (B1's inputs; rows of the corner-merged table).
+enum PairedGeometry { PAIRED_QUERIES, PAIRED_ENCODER, PAIRED_MERGED };
+
+// src: value (B, S, M, 32) bf16, or for B5 the table (B, M, S, 4*32) bf16; xy (B, Nq, M, L,
+// P, 2), wq (B, Nq, M, L*P) f32; out (B, Nq, M*32) bf16; Nq = S for B2. Grid (ceil(Nq / 8),
+// ceil(M / 2), B).
+template <PairedGeometry GEOM>
+__device__ __forceinline__ void paired_fwd_bf16(const __nv_bfloat16* __restrict__ src,
                                                 const float* __restrict__ xy,
                                                 const float* __restrict__ wq,
                                                 __nv_bfloat16* __restrict__ out,
                                                 const LevelInfo& lv, int S, int Nq, int M,
                                                 int L, int P) {
+  constexpr bool ENCODER = GEOM == PAIRED_ENCODER;
+  constexpr bool MERGED = GEOM == PAIRED_MERGED;
   __shared__ int4 s_lv[MSDA_MAX_LEVELS];  // (h, w, start) of each level
   __shared__ __align__(16) int2 s_geo[MSDA_WARPS_PER_BLOCK][2][4][MSDA_GEO_STRIDE];
   if (threadIdx.x < MSDA_MAX_LEVELS) {
@@ -710,10 +750,13 @@ __device__ __forceinline__ void paired_fwd_bf16(const __nv_bfloat16* __restrict_
     for (int k = 8; k > 0; k >>= 1) mx = fmaxf(mx, __shfl_xor_sync(MSDA_FULL, mx, k));
   }
 
-  const int tw = M * 4;  // 16-byte words a token
+  const int tw = M * 4;  // 16-byte words a token of value
   const int magic = level_magic(P);
+  // the gatherer's word of row 0 of the head: word h & 3 of value's head row, or word h of
+  // a merged table row (16 words a row)
   const uint4* base =
-      reinterpret_cast<const uint4*>(value + ((int64_t)b * S * M + mc) * 32) + (h & 3);
+      MERGED ? reinterpret_cast<const uint4*>(src + ((int64_t)b * M + mc) * S * 128) + h
+             : reinterpret_cast<const uint4*>(src + ((int64_t)b * S * M + mc) * 32) + (h & 3);
   int2(*geo)[MSDA_GEO_STRIDE] = s_geo[warp][half];
   const int2* mine = geo[h >> 2];  // the gatherer's corner row
 #ifdef MSDA_GATHER_ROW0
@@ -736,10 +779,28 @@ __device__ __forceinline__ void paired_fwd_bf16(const __nv_bfloat16* __restrict_
       esum += e;
     }
     // owner: sample k's cell on its level (level k / P; k < 64 here) and its four corners
-    {
-      const int4 lvl = s_lv[min((k * magic) >> 16, MSDA_MAX_LEVELS - 1)];
-      const float wf = (float)lvl.y;
-      const float hf = (float)lvl.x;
+    const int4 lvl = s_lv[min((k * magic) >> 16, MSDA_MAX_LEVELS - 1)];
+    const float wf = (float)lvl.y;
+    const float hf = (float)lvl.x;
+    if (MERGED) {
+      // the table's clamped base row and four slot weights, as the f32 B5 (merged_fwd)
+      // computes them: x = loc * W - 0.5 with the product rounded, as the reference does
+      const float x = __fmul_rn(o.x, wf) - 0.5f;
+      const float y = __fmul_rn(o.y, hf) - 0.5f;
+      const float x0 = floorf(x);
+      const float y0 = floorf(y);
+      const float bx = fminf(fmaxf(x0, 0.f), fmaxf(wf - 2.f, 0.f));
+      const float by = fminf(fmaxf(y0, 0.f), fmaxf(hf - 2.f, 0.f));
+      float wx0, wx1, wy0, wy1;
+      axis_slots(x0, x - x0, bx, wf, wx0, wx1);
+      axis_slots(y0, y - y0, by, hf, wy0, wy1);
+      // past L*P the level may be past the last (start == S): row 0, weight 0
+      const int r = kv ? (lvl.z + (int)by * lvl.y + (int)bx) * 16 : 0;
+      geo[0][h] = make_int2(r, __float_as_int(wy0 * wx0 * e));
+      geo[1][h] = make_int2(r, __float_as_int(wy0 * wx1 * e));
+      geo[2][h] = make_int2(r, __float_as_int(wy1 * wx0 * e));
+      geo[3][h] = make_int2(r, __float_as_int(wy1 * wx1 * e));
+    } else {
       float x, y;
       if (ENCODER) {  // ref * (W, H) - 0.5 + off
         x = fmaf(ref.x, wf, -0.5f) + o.x;
@@ -832,7 +893,7 @@ ms_deform_attn_queries_bf16_kernel(const __nv_bfloat16* __restrict__ value,
                                    const float* __restrict__ loc, const float* __restrict__ attn,
                                    __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int Lq,
                                    int M, int L, int P) {
-  paired_fwd_bf16<false>(value, loc, attn, out, lv, S, Lq, M, L, P);
+  paired_fwd_bf16<PAIRED_QUERIES>(value, loc, attn, out, lv, S, Lq, M, L, P);
 }
 
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
@@ -841,7 +902,7 @@ ms_deform_attn_encoder_bf16_kernel(const __nv_bfloat16* __restrict__ value,
                                    const float* __restrict__ logits,
                                    __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int M,
                                    int L, int P) {
-  paired_fwd_bf16<true>(value, off, logits, out, lv, S, S, M, L, P);
+  paired_fwd_bf16<PAIRED_ENCODER>(value, off, logits, out, lv, S, S, M, L, P);
 }
 
 // Lane 8c + j holds p[k] = its channels' share of corner c's dot for sample k of the batch
@@ -1034,32 +1095,16 @@ ms_deform_attn_queries_bwd_kernel(const float* __restrict__ value, const float* 
   }
 }
 
-// Slot weights of one axis (_merged_indices_and_slot_weights :103-111): the true
-// corners c0 (weight 1 - f) and c0 + 1 (weight f) land on slot 0 or 1 of the
-// window anchored at ``base``; a corner off the map matches no slot, and slot 1
-// is dropped when it lies past the level's edge (size 1: it holds a duplicate).
-__device__ __forceinline__ void axis_slots(float c0, float f, float base, float size,
-                                           float& w_lo, float& w_hi) {
-  w_lo = (base == c0 ? 1.f - f : 0.f) + (base == c0 + 1.f ? f : 0.f);
-  w_hi = (base + 1.f == c0 ? 1.f - f : 0.f) + (base + 1.f == c0 + 1.f ? f : 0.f);
-  if (!(base + 1.f <= size - 1.f)) w_hi = 0.f;
-}
-
-// table (B, M, S, 4*32) of type T (float or __nv_bfloat16); loc (B, Lq, M, L, P, 2);
-// attn (B, Lq, M, L, P); out (B, Lq, M*32) of type T. blockIdx.y is the (batch, head) pair
-// and warp w of block x takes query 8x + w, as in B2. L*P <= 64. Lane l reads word l of a
-// table row (corner l/8, channels 4(l%8)..+3: a float4 of f32, 8 bytes of bf16), so a row
-// is 32 words for either type and the row offsets, slot weights and sums are the f32
-// kernel's; a bf16 row is widened exactly, the weights and sums are f32 and the output is
-// rounded once, at the store (as _sampling_kernel widens each row to f32 and casts its f32
-// sums to value's dtype).
-template <typename T>
-__device__ __forceinline__ void merged_fwd(const T* __restrict__ table,
+// table (B, M, S, 4*32), loc (B, Lq, M, L, P, 2), attn (B, Lq, M, L, P), out (B, Lq, M*32),
+// all f32. blockIdx.y is the (batch, head) pair and warp w of block x takes query 8x + w, as
+// in B2. L*P <= 64. Lane l reads word l of a table row (a float4: corner l/8, channels
+// 4(l%8)..+3), so a row is 32 words.
+__device__ __forceinline__ void merged_fwd(const float* __restrict__ table,
                                            const float* __restrict__ loc,
-                                           const float* __restrict__ attn, T* __restrict__ out,
+                                           const float* __restrict__ attn, float* __restrict__ out,
                                            const LevelInfo& lv, int S, int Lq, int M, int L,
                                            int P) {
-  using Word = typename RowWord<T>::type;
+  using Word = float4;
   const int q = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (q >= Lq) return;
@@ -1123,23 +1168,25 @@ ms_deform_attn_merged_kernel(const float* __restrict__ table, const float* __res
   merged_fwd(table, loc, attn, out, lv, S, Lq, M, L, P);
 }
 
+// B5 on a bf16 table: the paired-head body (PAIRED_MERGED). Grid (ceil(Lq / 8), ceil(M / 2),
+// B).
 __global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
 ms_deform_attn_merged_bf16_kernel(const __nv_bfloat16* __restrict__ table,
                                   const float* __restrict__ loc, const float* __restrict__ attn,
                                   __nv_bfloat16* __restrict__ out, LevelInfo lv, int S, int Lq,
                                   int M, int L, int P) {
-  merged_fwd(table, loc, attn, out, lv, S, Lq, M, L, P);
+  paired_fwd_bf16<PAIRED_MERGED>(table, loc, attn, out, lv, S, Lq, M, L, P);
 }
 
-// value (B, S, M, 32) -> table (B, M, S, 4*32), of type T: one warp per table row, lane j
-// on word j of the row (corner j/8, channels 4(j%8)..+3; a float4 of f32, 8 bytes of bf16),
-// so the warp writes one 512-byte (bf16: 256-byte) row and reads four value head rows.
-// A copy of bits, no arithmetic. blockIdx.y is the (batch, head) pair and each block
-// covers MSDA_WARPS_PER_BLOCK consecutive tokens, so no lane divides 64-bit indices.
-template <typename T>
-__device__ __forceinline__ void merged_table(const T* __restrict__ value, T* __restrict__ table,
-                                             const LevelInfo& lv, int S, int M, int L) {
-  using Word = typename RowWord<T>::type;
+// value (B, S, M, 32) -> table (B, M, S, 4*32), f32: one warp per table row, lane j on word
+// j of the row (a float4: corner j/8, channels 4(j%8)..+3), so the warp writes one 512-byte
+// row and reads four value head rows. A copy of bits, no arithmetic. blockIdx.y is the
+// (batch, head) pair and each block covers MSDA_WARPS_PER_BLOCK consecutive tokens, so no
+// lane divides 64-bit indices.
+__global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ value,
+                                                   float* __restrict__ table, LevelInfo lv,
+                                                   int S, int M, int L) {
+  using Word = float4;
   const int s = blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5);
   if (s >= S) return;
   const int j = threadIdx.x & 31;
@@ -1162,16 +1209,76 @@ __device__ __forceinline__ void merged_table(const T* __restrict__ value, T* __r
   reinterpret_cast<Word*>(table + ((int64_t)bm * S + s) * 128)[j] = __ldg(src + (j & 7));
 }
 
-__global__ void ms_deform_attn_merged_table_kernel(const float* __restrict__ value,
-                                                   float* __restrict__ table, LevelInfo lv,
-                                                   int S, int M, int L) {
-  merged_table(value, table, lv, S, M, L);
+// The bf16 table build. A bf16 row is 256 bytes, 16 words of 16 bytes: lane j of a half-warp
+// moves word j (corner j >> 2, channels 8(j & 3)..+7), so the warp moves two rows at a time,
+// tokens s and s + 1, 512 contiguous bytes of the table. Each warp walks
+// MSDA_TABLE_TOKENS consecutive tokens of one (batch, head) (blockIdx.y): a half finds its
+// first token's level, row and column once (one division) and steps them two tokens at a
+// time, and again only where it crosses into the next level; all MSDA_TABLE_ROWS rows' loads
+// of a half are issued before its first store, so each lane keeps MSDA_TABLE_ROWS 16-byte
+// loads in flight. A copy of bits, no arithmetic. It replaces, on bf16 value, the XLA
+// prologue gomatching_tpu/ops/deform_attn.py:_merged_corner_table that
+// ms_deform_attn_pallas runs (deform_attn_pallas.py:89). Bound: bytes (value read once, the
+// table written once); chip_smoke.py phase 20 prints its share of the memory rate.
+#define MSDA_TABLE_ROWS 8                        // rows a half-warp moves
+#define MSDA_TABLE_TOKENS (2 * MSDA_TABLE_ROWS)  // consecutive tokens a warp walks
+
+// Token s's level dims (h, w, start) and its row and column on that level.
+struct TokenPos {
+  int h, w, start, y, x;
+};
+
+__device__ __forceinline__ TokenPos token_pos(const LevelInfo& lv, int L, int s) {
+  TokenPos p;
+  int l = 0;
+#pragma unroll
+  for (int i = 1; i < MSDA_MAX_LEVELS; ++i) l += (i < L && s >= lv.start[i]);
+  level_dims(lv, l, p.h, p.w, p.start);
+  const int k = s - p.start;
+  p.y = k / p.w;
+  p.x = k - p.y * p.w;
+  return p;
 }
 
-__global__ void ms_deform_attn_merged_table_bf16_kernel(const __nv_bfloat16* __restrict__ value,
-                                                        __nv_bfloat16* __restrict__ table,
-                                                        LevelInfo lv, int S, int M, int L) {
-  merged_table(value, table, lv, S, M, L);
+__global__ void __launch_bounds__(32 * MSDA_WARPS_PER_BLOCK, MSDA_FWD_MIN_BLOCKS)
+ms_deform_attn_merged_table_bf16_kernel(const __nv_bfloat16* __restrict__ value,
+                                        __nv_bfloat16* __restrict__ table, LevelInfo lv, int S,
+                                        int M, int L) {
+  const int lane = threadIdx.x & 31;
+  int s = (blockIdx.x * MSDA_WARPS_PER_BLOCK + (threadIdx.x >> 5)) * MSDA_TABLE_TOKENS +
+          (lane >> 4);
+  if (s >= S) return;
+  const int j = lane & 15;
+  const int dy = j >> 3;        // corner (0,0), (0,+x), (+y,0), (+y,+x); edge duplicates
+  const int dx = (j >> 2) & 1;
+  const int bm = blockIdx.y;
+  const int m = bm % M;
+  const int b = bm / M;
+  const int tw = M * 4;  // 16-byte words a token of value
+  const uint4* src =
+      reinterpret_cast<const uint4*>(value + ((int64_t)b * S * M + m) * 32) + (j & 3);
+  uint4* dst = reinterpret_cast<uint4*>(table + (int64_t)bm * S * 128) + j;
+  TokenPos p = token_pos(lv, L, s);
+  int tok[MSDA_TABLE_ROWS];  // the source token of each row, -1 past the last token
+#pragma unroll
+  for (int u = 0; u < MSDA_TABLE_ROWS; ++u) {
+    tok[u] = s + 2 * u < S
+                 ? p.start + min(p.y + dy, p.h - 1) * p.w + min(p.x + dx, p.w - 1)
+                 : -1;
+    p.x += 2;
+    while (p.x >= p.w) {  // at most twice (a 1-wide level)
+      p.x -= p.w;
+      ++p.y;
+    }
+    if (p.y >= p.h && s + 2 * u + 2 < S) p = token_pos(lv, L, s + 2 * u + 2);
+  }
+  uint4 v[MSDA_TABLE_ROWS];
+#pragma unroll
+  for (int u = 0; u < MSDA_TABLE_ROWS; ++u)
+    if (tok[u] >= 0) v[u] = __ldg(src + (int64_t)tok[u] * tw);
+#pragma unroll
+  for (int u = 0; u < MSDA_TABLE_ROWS; ++u)
+    if (tok[u] >= 0) dst[(int64_t)(s + 2 * u) * 16] = v[u];
 }
 
 // ---------------------------------------------------------------------------
@@ -1813,34 +1920,38 @@ extern "C" int ms_deform_attn_kernel_info(int which, int smem_bytes, int* info) 
 }
 
 // The limits of B5 and its table build (ops/deform_attn_merged.py checks the same): D ==
-// 32; L*P <= 64 samples; the (batch, head) pairs within gridDim.y; the word index of every
-// table row of one (batch, head) pair (32 words a row for either type) in int.
+// 32; L*P <= 64 samples; the (batch, head) pairs within gridDim.y (B5 bf16: the head pairs on
+// y and the batch items on z); the word index of every table row of one (batch, head) pair
+// (32 words a row of f32, 16 of bf16) in int.
 static bool merged_ok(int B, int S, int M, int D, int L, int P) {
   return L >= 1 && L <= MSDA_MAX_LEVELS && D == 32 && P >= 1 && L * P <= MSDA_MAX_SAMPLES &&
          (int64_t)B * M <= 65535 && (int64_t)S * 32 <= INT32_MAX;
 }
 
+// ``paired``: B5 bf16's grid (fwd_grid's paired-head one), else one (batch, head) a y index.
 template <typename T>
 static int launch_merged(void (*kernel)(const T*, const float*, const float*, T*, LevelInfo, int,
                                         int, int, int, int),
-                         const T* table, const float* loc, const float* attn, T* out,
-                         const int* shapes, int B, int S, int Lq, int M, int D, int L, int P,
-                         void* stream) {
+                         bool paired, const T* table, const float* loc, const float* attn,
+                         T* out, const int* shapes, int B, int S, int Lq, int M, int D, int L,
+                         int P, void* stream) {
   if (!merged_ok(B, S, M, D, L, P)) return (int)cudaErrorInvalidValue;
-  if (B * M == 0 || Lq == 0) return (int)cudaSuccess;
-  const dim3 grid((Lq + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  const dim3 grid = fwd_grid(paired, B, Lq, M);
+  if (grid.x == 0) return (int)cudaSuccess;
   kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       table, loc, attn, out, make_levels(shapes, L), S, Lq, M, L, P);
   return (int)cudaGetLastError();
 }
 
+// ``tokens``: the consecutive tokens of one (batch, head) a block covers (one a warp for f32,
+// MSDA_TABLE_TOKENS a warp for bf16).
 template <typename T>
-static int launch_table(void (*kernel)(const T*, T*, LevelInfo, int, int, int), const T* value,
-                        T* table, const int* shapes, int B, int S, int M, int D, int L,
-                        void* stream) {
+static int launch_table(void (*kernel)(const T*, T*, LevelInfo, int, int, int), int tokens,
+                        const T* value, T* table, const int* shapes, int B, int S, int M, int D,
+                        int L, void* stream) {
   if (!merged_ok(B, S, M, D, L, 1)) return (int)cudaErrorInvalidValue;
   if (B * M == 0 || S == 0) return (int)cudaSuccess;
-  const dim3 grid((S + MSDA_WARPS_PER_BLOCK - 1) / MSDA_WARPS_PER_BLOCK, B * M);
+  const dim3 grid((S + tokens - 1) / tokens, B * M);
   kernel<<<grid, 32 * MSDA_WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       value, table, make_levels(shapes, L), S, M, L);
   return (int)cudaGetLastError();
@@ -1850,8 +1961,8 @@ extern "C" int ms_deform_attn_merged_fwd(const float* table, const float* loc,
                                          const float* attn, float* out, const int* shapes,
                                          int B, int S, int Lq, int M, int D, int L, int P,
                                          void* stream) {
-  return launch_merged(ms_deform_attn_merged_kernel, table, loc, attn, out, shapes, B, S, Lq, M,
-                       D, L, P, stream);
+  return launch_merged(ms_deform_attn_merged_kernel, false, table, loc, attn, out, shapes, B, S,
+                       Lq, M, D, L, P, stream);
 }
 
 // B5 on a bf16 table: table and out __nv_bfloat16, loc and attn f32.
@@ -1859,21 +1970,22 @@ extern "C" int ms_deform_attn_merged_fwd_bf16(const __nv_bfloat16* table, const 
                                               const float* attn, __nv_bfloat16* out,
                                               const int* shapes, int B, int S, int Lq, int M,
                                               int D, int L, int P, void* stream) {
-  return launch_merged(ms_deform_attn_merged_bf16_kernel, table, loc, attn, out, shapes, B, S,
-                       Lq, M, D, L, P, stream);
+  return launch_merged(ms_deform_attn_merged_bf16_kernel, true, table, loc, attn, out, shapes, B,
+                       S, Lq, M, D, L, P, stream);
 }
 
 extern "C" int ms_deform_attn_merged_table(const float* value, float* table, const int* shapes,
                                            int B, int S, int M, int D, int L, void* stream) {
-  return launch_table(ms_deform_attn_merged_table_kernel, value, table, shapes, B, S, M, D, L,
-                      stream);
+  return launch_table(ms_deform_attn_merged_table_kernel, MSDA_WARPS_PER_BLOCK, value, table,
+                      shapes, B, S, M, D, L, stream);
 }
 
 // B5's table build on bf16 value: value and table __nv_bfloat16.
 extern "C" int ms_deform_attn_merged_table_bf16(const __nv_bfloat16* value, __nv_bfloat16* table,
                                                 const int* shapes, int B, int S, int M, int D,
                                                 int L, void* stream) {
-  return launch_table(ms_deform_attn_merged_table_bf16_kernel, value, table, shapes, B, S, M, D,
+  return launch_table(ms_deform_attn_merged_table_bf16_kernel,
+                      MSDA_WARPS_PER_BLOCK * MSDA_TABLE_TOKENS, value, table, shapes, B, S, M, D,
                       L, stream);
 }
 

@@ -269,6 +269,9 @@ def _require_cuda(name: str, *tensors: torch.Tensor) -> None:
 # as float2, weights and logits as float, dOut as float4.
 LANE_WIDTHS = {"value": 16, "sampling_locations": 8, "offsets": 8, "attention_weights": 4,
                "attn_logits": 4, "grad_out": 16}
+# The width in bytes in which B5 and its table build read value and the corner-merged table,
+# f32 or bf16: one 16-byte word a lane (a float4 of f32, 8 channels of bf16).
+MERGED_WIDTH = 16
 
 
 def check_aligned(name: str, ptr: int, width: int) -> None:

@@ -24,10 +24,11 @@ there. It has no backward: the TPU kernel has none and JAX trains through 'tiled
 enabled and an input requires grad. Launches count in ``deform_attn.launch_counts``
 under ``MERGED`` and ``MERGED_TABLE``.
 
-A bfloat16 value (``MODEL.PRECISION`` bfloat16 under 'pallas') takes the same two kernels
-instantiated for bf16 (``ms_deform_attn_merged_table_bf16``, a bf16 table that copies the
-value's bits; ``ms_deform_attn_merged_fwd_bf16``), counted under ``MERGED_TABLE_BF16`` and
-``MERGED_BF16``, with locations and attention in f32: as JAX's ``ms_deform_attn_pallas``
+A bfloat16 value (``MODEL.PRECISION`` bfloat16 under 'pallas') takes two bf16 kernels of
+their own (``ms_deform_attn_merged_table_bf16``, a bf16 table that copies the value's bits;
+``ms_deform_attn_merged_fwd_bf16``, two heads a warp), both reading 16-byte words
+(``MERGED_WIDTH``), counted under ``MERGED_TABLE_BF16`` and ``MERGED_BF16``, with
+locations and attention in f32: as JAX's ``ms_deform_attn_pallas``
 builds the table in value's dtype, widens each row to f32, multiplies it by f32 slot
 weights, sums in f32 and casts the output to value's dtype once. The plain version does
 the same on the CPU. Any other dtype mix raises ValueError on the card.
@@ -48,6 +49,7 @@ from .deform_attn import (
     MERGED_BF16,
     MERGED_TABLE,
     MERGED_TABLE_BF16,
+    MERGED_WIDTH,
     Shapes,
     _launch,
     _level_slices,
@@ -159,7 +161,7 @@ def merged_table(value: torch.Tensor, spatial_shapes: Shapes) -> torch.Tensor:
                   else (MERGED_TABLE, "ms_deform_attn_merged_table"))
     return _launch(name, c_fn, {"value": value}, spatial_shapes, [((B, M, S, 4 * D), False)],
                    (B, S, M, D, len(spatial_shapes)), value_dtype=value.dtype,
-                   widths={"value": 8 if bf16 else 16})[0]
+                   widths={"value": MERGED_WIDTH})[0]
 
 
 def merged_sample(table: torch.Tensor, spatial_shapes: Shapes, sampling_locations: torch.Tensor,
@@ -187,7 +189,7 @@ def merged_sample(table: torch.Tensor, spatial_shapes: Shapes, sampling_location
                     "attention_weights": attention_weights},
                    spatial_shapes, [((B, Lq, M * KERNEL_D), False)],
                    (B, S, Lq, M, KERNEL_D, L, P), S=S, value_dtype=table.dtype,
-                   widths={**LANE_WIDTHS, "table": 8 if bf16 else 16})[0]
+                   widths={**LANE_WIDTHS, "table": MERGED_WIDTH})[0]
 
 
 def ms_deform_attn_merged(value: torch.Tensor, spatial_shapes: Shapes,

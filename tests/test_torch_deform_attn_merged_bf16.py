@@ -12,10 +12,12 @@ Tolerances, elementwise, from what each side rounds:
     where the output is so near 0 that its ulp is below the sums' reordering;
   - against the f32 core on the same (bf16-valued) inputs: one rounding, at most half an
     ulp, 2**-8 of the magnitude, plus 3e-5 for f32 sums in another order.
-Cases: the encoder (Lq = S), the decoder (Lq != S) and 1-wide / 1-tall levels; locations
-partly outside [0, 1]. Also: the wrappers dispatch bf16 value to these plain versions on
-the CPU without counting a launch, and the kernel entries refuse CPU tensors and every
-dtype mix but bf16 (or f32) value with f32 locations and attention."""
+Cases: the encoder (Lq = S), the decoder (Lq != S), 1-wide / 1-tall levels, and the edge
+shapes phase 20 runs on the card (L*P = 16 at M = 3, L*P = 64, one level, Lq = 13);
+locations partly outside [0, 1]. Also: the wrappers dispatch bf16 value to these plain
+versions on the CPU without counting a launch, the kernel entries refuse CPU tensors and
+every dtype mix but bf16 (or f32) value with f32 locations and attention, and a bf16 input
+off the 16-byte words the kernels read (``MERGED_WIDTH``) is refused before any launch."""
 
 import numpy as np
 import pytest
@@ -27,10 +29,17 @@ import jax.numpy as jnp
 from gomatching_tpu_torch.ops import deform_attn as da
 from gomatching_tpu_torch.ops import deform_attn_merged as dam
 
+EDGE_LEVELS = ((6, 9), (3, 5), (2, 3), (1, 2))  # chip_smoke.py's EDGE_LEVELS
 CASES = {
     "encoder": dict(shapes=((8, 10), (4, 5), (2, 3)), B=2, M=2, D=8, P=2, Lq=None),
     "decoder": dict(shapes=((6, 8), (3, 4)), B=1, M=4, D=8, P=3, Lq=17),
     "degenerate": dict(shapes=((1, 7), (5, 1), (1, 1), (3, 4)), B=1, M=2, D=4, P=3, Lq=13),
+    # the edge shapes chip_smoke.py phase 20 holds the kernels to (odd M: an idle half-warp
+    # in the bf16 B5; L*P = 64: four chunks of 16 samples; one level; Lq not a multiple of 8)
+    "LP16_M3": dict(shapes=EDGE_LEVELS, B=1, M=3, D=8, P=4, Lq=None),
+    "LP64": dict(shapes=EDGE_LEVELS, B=1, M=2, D=8, P=16, Lq=9),
+    "L1": dict(shapes=((7, 5),), B=1, M=2, D=8, P=4, Lq=None),
+    "Lq13": dict(shapes=EDGE_LEVELS, B=1, M=2, D=8, P=3, Lq=13),
 }
 HALF_ULP = 2.0**-8
 
@@ -140,4 +149,45 @@ def test_bf16_kernel_entries_refuse_cpu_tensors_and_other_dtypes(bad):
     if bad == "value":
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             dam.merged_table(v, shapes)
+    assert da.launch_counts == before
+
+
+def test_bf16_merged_entries_refuse_inputs_off_16_byte_words(monkeypatch):
+    """B5 and its table build read bf16 value and the bf16 table in 16-byte words, as they do
+    f32 (``MERGED_WIDTH``): a bf16 view that starts 4 elements (8 bytes) into its storage,
+    which the kernels' earlier 8-byte reads took, is refused with ValueError naming the
+    input, before anything is built or counted. The wrappers dispatch CPU tensors to their
+    plain versions (or refuse them) before the guard, so here they are made to take the
+    kernel route; the launcher then refuses the aligned CPU tensors only as such."""
+    assert da.MERGED_WIDTH == 16
+    rng = np.random.RandomState(4)
+    shapes, B, M, L, P, Lq = [(3, 4), (2, 2)], 1, 2, 2, 2, 5
+    S = sum(h * w for h, w in shapes)
+    value = torch.from_numpy(rng.randn(B, S, M, da.KERNEL_D).astype(np.float32)).bfloat16()
+    loc = torch.from_numpy(rng.uniform(-0.1, 1.1, (B, Lq, M, L, P, 2)).astype(np.float32))
+    attn = torch.from_numpy(rng.rand(B, Lq, M, L, P).astype(np.float32))
+    table = dam.merged_corner_table(value.permute(0, 2, 1, 3), shapes)
+
+    def offset_view(t):
+        store = torch.empty(t.numel() + 4, dtype=t.dtype)
+        assert store.data_ptr() % 16 == 0
+        view = store[4:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 8
+        return view
+
+    monkeypatch.setattr(dam, "_on_cpu", lambda *tensors: False)
+    before = dict(da.launch_counts)
+    with pytest.raises(ValueError, match=rf"{da.MERGED_BF16}: table at address .* 16-byte"):
+        dam.merged_sample(offset_view(table), shapes, loc, attn)
+    with pytest.raises(ValueError, match=rf"{da.MERGED_TABLE_BF16}: value at address .* 16-byte"):
+        dam.merged_table(offset_view(value), shapes)
+    # aligned, the same inputs pass the guard and are refused only as CPU tensors
+    with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
+        dam.merged_sample(table, shapes, loc, attn)
+    with pytest.raises(ValueError, match="the kernel takes CUDA tensors"):
+        dam.merged_table(value, shapes)
+    # the guard itself at that width
+    with pytest.raises(ValueError, match="value at address .* 16-byte"):
+        da.check_aligned("value", offset_view(value).data_ptr(), dam.MERGED_WIDTH)
     assert da.launch_counts == before
