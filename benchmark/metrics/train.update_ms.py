@@ -1,0 +1,8 @@
+"""Host milliseconds a step in the trainer's ``update`` phase (``Trainer.phase_t``, which
+ends in a copy to the host), over the window's steps."""
+
+
+def read(rec):
+    if rec.get("kind") != "train" or not rec["iters"]:
+        return None
+    return rec["phase_s"]["update"] * 1e3 / rec["iters"]

@@ -1,0 +1,21 @@
+"""On the card, at each cell's own size: its control (the reference in the
+program's place one precision lower) comes out not correct on three seeds, and the
+program itself correct. Run on the chip:
+
+    python3 -m pytest -q benchmark/tests/test_portbench_control.py
+"""
+
+import pytest
+
+from benchmark.calibrate import readings
+
+CELLS = ["icdar15-f32-video", "dstext-pp-bf16-video", "icdar15-f32-tracker-train"]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("workload", CELLS)
+def test_control_fails_and_program_passes(cuda_device, workload):
+    ctrl = readings(workload, [101, 202, 303], True, 4.0, cuda_device)
+    assert not any(r["correct"] for r in ctrl), ctrl
+    prog = readings(workload, [404], False, 4.0, cuda_device)
+    assert all(r["correct"] for r in prog), prog
