@@ -18,7 +18,8 @@ driver loop of the reference ``eval.py``:
     the association transformer back on the device with bucket-padded tokens.
 
 Stage wall-clock is tracked in the reference's ``time_cost`` buckets
-(eval.py:303-304).
+(eval.py:303-304), by the port's spans (``utils/profiling.py``), which also name each
+part of a spot call and of the tracker's work in a profiler's trace.
 
 With a ``torch.distributed`` group (JAX's mesh predictor, predictor.py:104-122,
 :296-351), each spot batch's frames are split evenly over the ranks, a short last batch
@@ -31,7 +32,6 @@ multiple of the ranks, as JAX's sharding requires.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -42,6 +42,7 @@ from ..data.preprocess import compute_test_size, decode_i420, device_preprocess,
 from ..models.gomatching import PRECISIONS, build_model, compute_dtype
 from ..tracking.tracker import FrameDetections, Tracker
 from ..utils.ctc import ctc_decode, load_char_table
+from ..utils.profiling import span
 from ..weights import init_weights_, load_weights, params_from_jax
 from .checkpoint import load_checkpoint, load_jax_params
 
@@ -148,10 +149,11 @@ class VideoPredictor:
             return None if a is None else torch.from_numpy(
                 np.ascontiguousarray(a, dtype)).to(self.device)
 
-        toks = dev(tokens, np.float32).to(self.assoc_dtype)
-        out = self.model.associate(toks, dev(valid, bool), short_term, dev(boxes, np.float32),
-                                   dev(times, np.float32))
-        return out.float().cpu().numpy()
+        with span("assoc"):
+            toks = dev(tokens, np.float32).to(self.assoc_dtype)
+            out = self.model.associate(toks, dev(valid, bool), short_term,
+                                       dev(boxes, np.float32), dev(times, np.float32))
+            return out.float().cpu().numpy()
 
     def encode_frames(self, frames_u8: np.ndarray) -> np.ndarray:
         """uint8 BGR frames -> what goes to the device: planar I420 (B, H*3//2, W) under
@@ -166,27 +168,31 @@ class VideoPredictor:
     def spot_batch_packed(self, frames_u8: np.ndarray, target_hw) -> np.ndarray:
         """uint8 BGR frames (B, H, W, 3) -> packed (B, nq, K) f32 detections."""
         cfg = self.cfg
-        wire = self.encode_frames(frames_u8)
-        raw = torch.from_numpy(np.ascontiguousarray(wire)).to(self.device)
-        if raw.ndim == 3:  # I420: decoded to BGR in [0, 255] on the device
-            raw = decode_i420(raw)
-        imgs = device_preprocess(raw, target_hw, cfg.MODEL.PIXEL_MEAN, cfg.MODEL.PIXEL_STD,
-                                 cfg.INPUT.FORMAT)
-        out = self.model.spot_and_detect(imgs, self.score_thresh)
-        B, nq = out["scores"].shape
-        packed = torch.cat(
-            [
-                out["scores"][..., None],
-                out["valid"][..., None].float(),
-                out["boxes"],
-                out["ctrl_points"].reshape(B, nq, -1),
-                out["recs"].float(),  # ids < 2^24: exact
-                out["bd"].reshape(B, nq, -1),
-                out["reid"],
-            ],
-            -1,
-        )
-        return packed.cpu().numpy()
+        with span("spot.encode"):
+            wire = np.ascontiguousarray(self.encode_frames(frames_u8))
+        with span("spot.upload"):
+            raw = torch.from_numpy(wire).to(self.device)
+        with span("spot.model"):
+            if raw.ndim == 3:  # I420: decoded to BGR in [0, 255] on the device
+                raw = decode_i420(raw)
+            imgs = device_preprocess(raw, target_hw, cfg.MODEL.PIXEL_MEAN,
+                                     cfg.MODEL.PIXEL_STD, cfg.INPUT.FORMAT)
+            out = self.model.spot_and_detect(imgs, self.score_thresh)
+            B, nq = out["scores"].shape
+            packed = torch.cat(
+                [
+                    out["scores"][..., None],
+                    out["valid"][..., None].float(),
+                    out["boxes"],
+                    out["ctrl_points"].reshape(B, nq, -1),
+                    out["recs"].float(),  # ids < 2^24: exact
+                    out["bd"].reshape(B, nq, -1),
+                    out["reid"],
+                ],
+                -1,
+            )
+        with span("spot.readback"):
+            return packed.cpu().numpy()
 
     def spot_batch_sharded(self, frames_u8: np.ndarray, target_hw) -> np.ndarray:
         """``spot_batch_packed`` over the group: the batch padded with zero frames to a
@@ -238,26 +244,27 @@ class VideoPredictor:
         )
         dets: List[FrameDetections] = []
         for s in range(0, len(frames), self.spot_batch):
-            t0 = time.time()
-            batch = np.stack([np.ascontiguousarray(f) for f in frames[s : s + self.spot_batch]])
-            tc["pre_process"] = tc.get("pre_process", 0) + time.time() - t0
-            t0 = time.time()
-            outs = self.unpack_spot(self.spot_batch_packed(batch, in_hw) if self.group is None
-                                    else self.spot_batch_sharded(batch, in_hw))
-            tc["detector"] = tc.get("detector", 0) + time.time() - t0
-            for i in range(len(batch)):
-                valid = outs["valid"][i]
-                dets.append(
-                    FrameDetections(
-                        boxes=outs["boxes"][i][valid],
-                        scores=outs["scores"][i][valid],
-                        ctrl_points=outs["ctrl_points"][i][valid],
-                        recs=outs["recs"][i][valid],
-                        bd=outs["bd"][i][valid],
-                        reid=outs["reid"][i][valid],
-                        image_hw=in_hw,
+            with span("stack", tc, "pre_process"):
+                batch = np.stack([np.ascontiguousarray(f)
+                                  for f in frames[s : s + self.spot_batch]])
+            with span("spot.call", tc, "detector"):
+                outs = self.unpack_spot(self.spot_batch_packed(batch, in_hw)
+                                        if self.group is None
+                                        else self.spot_batch_sharded(batch, in_hw))
+            with span("spot.unpack"):
+                for i in range(len(batch)):
+                    valid = outs["valid"][i]
+                    dets.append(
+                        FrameDetections(
+                            boxes=outs["boxes"][i][valid],
+                            scores=outs["scores"][i][valid],
+                            ctrl_points=outs["ctrl_points"][i][valid],
+                            recs=outs["recs"][i][valid],
+                            bd=outs["bd"][i][valid],
+                            reid=outs["reid"][i][valid],
+                            image_hw=in_hw,
+                        )
                     )
-                )
         self._orig_hw = orig_hw
         return dets
 
@@ -276,21 +283,20 @@ class VideoPredictor:
 
         def flush(buf):
             dets = self.spot_frames(buf, tc)
-            t0 = time.time()
-            # one batched matcher call covers every adjacent pair's short-term
-            # pass, including the pair spanning the previous window
-            prevs = ([self.tracker.frames[-1]] if self.tracker.frames else []) + dets[:-1]
-            cache = self.tracker.precompute_short_asso(
-                list(zip(prevs, dets[len(dets) - len(prevs):]))
-            )
-            self.tracker.time_cost["short_match"] += time.time() - t0
-            t0 = time.time()
-            self.tracker.precompute_long_asso(dets, cache)
-            self.tracker.time_cost["long_match"] += time.time() - t0
-            t0 = time.time()
-            for det in dets:
-                self.tracker.step(det, short_asso_cache=cache)
-            tc["tracker"] = tc.get("tracker", 0) + time.time() - t0
+            trk = self.tracker
+            with span("track"):
+                with span("track.short", trk.time_cost, "short_match"):
+                    # one batched matcher call covers every adjacent pair's short-term
+                    # pass, including the pair spanning the previous window
+                    prevs = ([trk.frames[-1]] if trk.frames else []) + dets[:-1]
+                    cache = trk.precompute_short_asso(
+                        list(zip(prevs, dets[len(dets) - len(prevs):]))
+                    )
+                with span("track.long", trk.time_cost, "long_match"):
+                    trk.precompute_long_asso(dets, cache)
+                for det in dets:
+                    with span("track.step", tc, "tracker"):
+                        trk.step(det, short_asso_cache=cache)
 
         buf: List[np.ndarray] = []
         for frame in frames:
@@ -304,20 +310,19 @@ class VideoPredictor:
         for k, v in self.tracker.time_cost.items():
             tc[k] = tc.get(k, 0) + v
 
-        t0 = time.time()
-        tracked = self.tracker.remove_short_tracks()
-        if self._orig_hw is not None:
-            orig_h, orig_w = self._orig_hw
-            for f in tracked:
-                sy = orig_h / f.image_hw[0]
-                sx = orig_w / f.image_hw[1]
-                f.ctrl_points = f.ctrl_points.copy()
-                f.ctrl_points[:, 0::2] *= sx
-                f.ctrl_points[:, 1::2] *= sy
-                f.bd = f.bd.copy()
-                f.bd[..., 0::2] *= sx
-                f.bd[..., 1::2] *= sy
-        tc["post_process"] = tc.get("post_process", 0) + time.time() - t0
+        with span("post", tc, "post_process"):
+            tracked = self.tracker.remove_short_tracks()
+            if self._orig_hw is not None:
+                orig_h, orig_w = self._orig_hw
+                for f in tracked:
+                    sy = orig_h / f.image_hw[0]
+                    sx = orig_w / f.image_hw[1]
+                    f.ctrl_points = f.ctrl_points.copy()
+                    f.ctrl_points[:, 0::2] *= sx
+                    f.ctrl_points[:, 1::2] *= sy
+                    f.bd = f.bd.copy()
+                    f.bd[..., 0::2] *= sx
+                    f.bd[..., 1::2] *= sy
         return tracked
 
     def decode_text(self, rec) -> str:

@@ -33,7 +33,10 @@ One ``Trainer.step``:
   3. update: the losses on the spot's query features, backward into ``roi_heads``,
      clip, AdamW and the LR schedule; the losses come back in one copy.
 ``phase_t`` holds each step's host wall by phase; each phase ends in a copy to the host,
-so the device has finished its work when the phase's clock stops.
+so the device has finished its work when the phase's clock stops. The phases are the
+spans ``train.spot``, ``train.host`` and ``train.update``; the update's parts are
+``update.loss``, ``update.backward``, ``update.apply`` and ``update.readback``
+(``utils/profiling.py``).
 
 ``Trainer.step_multi`` is JAX's data-parallel step (train.py:648-728): several clips on
 one padded canvas and frame count, their padding frames masked by ``frame_valid``, the
@@ -58,6 +61,7 @@ from ..data.preprocess import decode_i420, encode_i420
 from ..models.gomatching import FROZEN_SUBMODULES, build_model, compute_dtype
 from ..models.resnet import FrozenBN
 from ..parallel.mesh import all_reduce_mean_, gather_objects, host_group, rank_and_world
+from ..utils.profiling import span
 from ..weights import init_weights_, load_weights
 from .losses import asso_ce_loss, build_asso_targets, match_rescore, rescore_loss
 from .optim import build_optimizer, clip_by_global_norm_, clip_max_norm
@@ -383,14 +387,18 @@ class Trainer:
                ) -> Dict[str, float]:
         """Loss, backward into roi_heads, the clip over the trainable parameters, AdamW
         and the LR schedule; returns the losses (one copy to the host)."""
-        total, losses = self.loss(self.to_device(batch), query_features)
+        with span("update.loss"):
+            total, losses = self.loss(self.to_device(batch), query_features)
+            losses["total_loss"] = total
+            values = torch.stack([v.detach() for v in losses.values()])
         self.optimizer.zero_grad(set_to_none=True)
-        if total.requires_grad:  # under FREEZE_TYPE ROIheads no loss reaches a trainable one
-            total.backward()
-        losses["total_loss"] = total
-        values = torch.stack([v.detach() for v in losses.values()])
-        self.apply_gradients(values)
-        return dict(zip(losses, values.cpu().tolist()))
+        with span("update.backward"):
+            if total.requires_grad:  # under FREEZE_TYPE ROIheads no loss reaches a trainable one
+                total.backward()
+        with span("update.apply"):
+            self.apply_gradients(values)
+        with span("update.readback"):
+            return dict(zip(losses, values.cpu().tolist()))
 
     def apply_gradients(self, losses: torch.Tensor) -> float:
         """The tail of every update, after ``backward()``: a zero gradient for each
@@ -423,16 +431,16 @@ class Trainer:
         single-device ``step``, which the one-rank loop keeps: its dropout draws from one
         generator that persists across steps (and a resumed run's state), where
         ``step_multi`` seeds one per clip from the step and the clip's index."""
-        t0 = time.perf_counter()
-        spot_out = self.spot(images, image_hw)
-        host = self.host_fields(spot_out)
-        t1 = time.perf_counter()
-        batch = self.prepare_batch(host, targets)
-        self.last_batches = [batch]
-        t2 = time.perf_counter()
-        metrics = self.update(batch, spot_out["query_features"])
-        t3 = time.perf_counter()
-        self.phase_t = {"spot": t1 - t0, "host": t2 - t1, "update": t3 - t2}
+        phase: Dict[str, float] = {}
+        with span("train.spot", phase, "spot"):
+            spot_out = self.spot(images, image_hw)
+            host = self.host_fields(spot_out)
+        with span("train.host", phase, "host"):
+            batch = self.prepare_batch(host, targets)
+            self.last_batches = [batch]
+        with span("train.update", phase, "update"):
+            metrics = self.update(batch, spot_out["query_features"])
+        self.phase_t = phase
         return metrics
 
     def step_multi(self, clips: Sequence[Tuple[np.ndarray, Optional[np.ndarray], Dict]]
@@ -446,38 +454,44 @@ class Trainer:
         ``_sharded_update_fn``). Returns the losses averaged over every clip of every
         rank. ``image_hw`` None: each frame fills the canvas (JAX :700-706)."""
         rank = rank_and_world(self.group)[0] if self.group is not None else 0
-        t0 = time.perf_counter()
-        spots = []
-        for images, image_hw, _ in clips:
-            if image_hw is None and np.ndim(images) == 4:
-                image_hw = np.tile(np.asarray(images.shape[1:3], np.float32)[None],
-                                   (len(images), 1))
-            out = self.spot(images, image_hw)
-            spots.append((out["query_features"], self.host_fields(out)))
-        t1 = time.perf_counter()
-        batches = [self.prepare_batch(host, targets, frame_valid=targets.get("frame_valid"))
-                   for (_, host), (_, _, targets) in zip(spots, clips)]
-        self.last_batches = batches
-        t2 = time.perf_counter()
-        n = len(clips)
-        head = self.model.roi_heads
-        self.optimizer.zero_grad(set_to_none=True)
-        sums: Dict[str, torch.Tensor] = {}
-        for i, ((qf, _), batch) in enumerate(zip(spots, batches)):
-            head.dropout_generator = torch.Generator(device=self.device).manual_seed(
-                clip_dropout_seed(self.step_count, rank * n + i))
-            total, losses = self.loss(self.to_device(batch), qf)
-            if total.requires_grad:
-                (total / n).backward()
-            losses["total_loss"] = total
-            for k, v in losses.items():
-                sums[k] = sums.get(k, 0) + v.detach()
-        means = torch.stack([v / n for v in sums.values()])
-        allreduce_s = self.apply_gradients(means)
-        metrics = dict(zip(sums, means.cpu().tolist()))
-        t3 = time.perf_counter()
-        self.phase_t = {"spot": t1 - t0, "host": t2 - t1, "update": t3 - t2 - allreduce_s,
-                        "allreduce": allreduce_s}
+        phase: Dict[str, float] = {}
+        with span("train.spot", phase, "spot"):
+            spots = []
+            for images, image_hw, _ in clips:
+                if image_hw is None and np.ndim(images) == 4:
+                    image_hw = np.tile(np.asarray(images.shape[1:3], np.float32)[None],
+                                       (len(images), 1))
+                out = self.spot(images, image_hw)
+                spots.append((out["query_features"], self.host_fields(out)))
+        with span("train.host", phase, "host"):
+            batches = [self.prepare_batch(host, targets,
+                                          frame_valid=targets.get("frame_valid"))
+                       for (_, host), (_, _, targets) in zip(spots, clips)]
+            self.last_batches = batches
+        with span("train.update", phase, "update"):
+            n = len(clips)
+            head = self.model.roi_heads
+            self.optimizer.zero_grad(set_to_none=True)
+            sums: Dict[str, torch.Tensor] = {}
+            for i, ((qf, _), batch) in enumerate(zip(spots, batches)):
+                head.dropout_generator = torch.Generator(device=self.device).manual_seed(
+                    clip_dropout_seed(self.step_count, rank * n + i))
+                with span("update.loss"):
+                    total, losses = self.loss(self.to_device(batch), qf)
+                with span("update.backward"):
+                    if total.requires_grad:
+                        (total / n).backward()
+                losses["total_loss"] = total
+                for k, v in losses.items():
+                    sums[k] = sums.get(k, 0) + v.detach()
+            means = torch.stack([v / n for v in sums.values()])
+            with span("update.apply"):
+                allreduce_s = self.apply_gradients(means)
+            with span("update.readback"):
+                metrics = dict(zip(sums, means.cpu().tolist()))
+        phase["update"] -= allreduce_s
+        phase["allreduce"] = allreduce_s
+        self.phase_t = phase
         return metrics
 
     @property

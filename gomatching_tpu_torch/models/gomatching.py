@@ -28,6 +28,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.boxes import nms_mask
+from ..utils.profiling import span
 from .lst_matcher import LSTMatcherHead
 from .pos_encoding import position_encoding_2d
 from .resnet import FrozenBN, ResNet
@@ -227,7 +228,8 @@ class GoMatchingModel(nn.Module):
         )
         thresh = self.test_score_threshold if score_thresh is None else score_thresh
         sel = final_scores > thresh
-        valid = sel & nms_mask(boxes, final_scores, sel, self.nms_thresh)
+        with span("spot.nms"):
+            valid = sel & nms_mask(boxes, final_scores, sel, self.nms_thresh)
         return {
             "scores": final_scores,
             "valid": valid,

@@ -40,6 +40,7 @@ import torch.nn as nn
 from ..ops.deform_attn import ms_deform_attn_encoder, ms_deform_attn_queries
 from ..ops.deform_attn_merged import ms_deform_attn_merged
 from ..utils.misc import inverse_sigmoid
+from ..utils.profiling import count, span
 from .layers import MLP, MultiHeadAttention, ffn
 from .pos_encoding import point_query_pos_embed, position_encoding_2d
 
@@ -109,14 +110,20 @@ class MSDeformAttn(nn.Module):
         # dtype and the f32 reference points and level sizes promote the locations to f32
         # (:216-217), the kernel taking the weights as f32 (deform_attn_dec_vmem.py:170)
         if is_encoder_self_attn and token_valid is None and not pallas:
-            out = ms_deform_attn_encoder(value, spatial_shapes, _f32(offsets), _f32(logits))
+            offsets, logits = _f32(offsets), _f32(logits)
+            count("sampler.encoder.rows." + str(value.dtype).split(".")[-1],
+                  value.shape[0] * value.shape[1])
+            with span("sampler.encoder"):
+                out = ms_deform_attn_encoder(value, spatial_shapes, offsets, logits)
         else:
             attn = logits.softmax(-1).view(B, Lq, M, L, P)
             wh = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
                               device=query.device)
             loc = reference_points[:, :, None, :, None, :] + offsets / wh[None, None, None, :, None, :]
             sampler = ms_deform_attn_merged if pallas else ms_deform_attn_queries
-            out = sampler(value, spatial_shapes, loc, _f32(attn))
+            attn = _f32(attn)
+            with span("sampler.queries"):
+                out = sampler(value, spatial_shapes, loc, attn)
         return self.output_proj(out)
 
 

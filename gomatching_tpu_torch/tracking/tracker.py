@@ -22,7 +22,6 @@ JAX tracker passes them (tracker.py:175-181, :293). The JAX package's device-poo
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -30,6 +29,7 @@ import numpy as np
 
 from ..ops.hungarian import solve
 from ..utils.boxes import pairwise_iou_np
+from ..utils.profiling import span
 
 BUCKETS = (32, 64, 128, 256, 512, 1024)
 
@@ -489,22 +489,19 @@ class Tracker:
             det.track_ids = np.arange(1, len(det) + 1, dtype=np.int64)
             self.id_count = len(det) + 1
         elif frame_id == 1:
-            t0 = time.time()
-            self._short_term(self.frames[0], det, cached)
-            self.time_cost["short_match"] += time.time() - t0
+            with span("track.short", self.time_cost, "short_match"):
+                self._short_term(self.frames[0], det, cached)
             for i in range(len(det)):
                 if det.track_ids[i] < 0:
                     self.id_count += 1
                     det.track_ids[i] = self.id_count
         else:
-            t0 = time.time()
-            self._short_term(self.frames[frame_id - 1], det, cached)
-            self.time_cost["short_match"] += time.time() - t0
+            with span("track.short", self.time_cost, "short_match"):
+                self._short_term(self.frames[frame_id - 1], det, cached)
             if (det.track_ids == -1).any():
                 win_st = max(0, frame_id + 1 - self.test_len)
-                t0 = time.time()
-                self._long_term(self.frames[win_st : frame_id + 1])
-                self.time_cost["long_match"] += time.time() - t0
+                with span("track.long", self.time_cost, "long_match"):
+                    self._long_term(self.frames[win_st : frame_id + 1])
         if len(np.unique(det.track_ids)) != len(det.track_ids):
             raise RuntimeError(f"duplicate track ids in frame {frame_id}: {det.track_ids}")
         # free reid memory outside the sliding window (gom_lstmatcher.py:401-402)

@@ -1,9 +1,20 @@
-"""Tracing / profiling utilities (the port's copy of gomatching_tpu/utils/profiling.py).
+"""Tracing / profiling utilities (the port's copy of gomatching_tpu/utils/profiling.py,
+and the port's spans).
 
 The reference's hand-rolled wall-clock segmentation -- a ``time_cost`` dict with stage
 buckets threaded through inference (reference eval.py:303-304, gom_lstmatcher.py:273-289)
 plus per-video FPS prints -- and ``device_trace``, a ``torch.profiler`` Chrome trace of
 the host and the CUDA device (the reference has no trace support).
+
+The port's spans (``span``; every name in ``SPANS``) and counters (``count``; the one
+counter, ``sampler.encoder.rows.<value dtype>``, is B x S of each encoder sampler call)
+add host seconds, calls and counts to one registry of this module, which ``snapshot``
+and ``since`` read. A span may also add its seconds to a bucket (a ``time_cost`` or
+``Trainer.phase_t`` dict). While a ``torch.profiler`` records, a span also opens
+``torch.profiler.record_function(name)``, so that its range lies in the Chrome trace on
+the clock of the kernels it launched; at any other time it opens nothing, since an
+unrecorded ``record_function`` still costs ~10 us. There is no switch: tracing is on
+exactly while a profiler records (``device_trace``, a benchmark's traced window).
 """
 
 from __future__ import annotations
@@ -13,6 +24,8 @@ import os
 import time
 from typing import Dict, Optional
 
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 STAGES = (
     "total_time",
@@ -26,42 +39,135 @@ STAGES = (
     "post_process",
 )
 
+# every span the port opens (``spot.encode`` to ``spot.readback`` nest in ``spot.call``,
+# ``spot.nms`` in ``spot.model``, the samplers' in ``spot.model`` or ``train.spot``, the
+# tracker's in ``track``, the update's parts in ``train.update``); none is named as a
+# span of the benchmark's (``window``, ``spot``, ``host``, ``tracker``, ...)
+SPANS = (
+    "stack",            # a spot batch's frames stacked (time_cost pre_process)
+    "spot.call",        # a spot call and its packed copy unpacked (time_cost detector)
+    "spot.encode",      # encode_frames: encode_i420 on the host under yuv420
+    "spot.upload",      # the frames' copy to the device
+    "spot.model",       # decode, preprocess, the spot, detection and the packing
+    "spot.nms",         # nms_mask in GoMatchingModel.detect
+    "spot.readback",    # the packed copy to the host: the host waits for the device
+    "spot.unpack",      # the batch's rows into each frame's FrameDetections
+    "sampler.encoder",  # B2: the encoder sampler on the raw offsets and logits
+    "sampler.queries",  # B1 or B5: a sampler on normalized locations
+    "track",            # a window's tracker work in process_video
+    "track.short",      # short-term passes (time_cost short_match)
+    "track.long",       # long-term passes (time_cost long_match)
+    "track.step",       # Tracker.step of one frame (time_cost tracker)
+    "assoc",            # one matcher call on the device (VideoPredictor.associate)
+    "post",             # remove_short_tracks and the rescaling (time_cost post_process)
+    "train.spot",       # Trainer: the frozen spot and its host fields (phase_t spot)
+    "train.host",       # prepare_batch (phase_t host)
+    "train.update",     # the update (phase_t update)
+    "update.loss",      # the batch to the device and the loss forward
+    "update.backward",  # backward
+    "update.apply",     # apply_gradients: zero fill, clip, AdamW, the schedule
+    "update.readback",  # the losses' copy to the host
+)
+
+_KINDS = ("seconds", "calls", "counts")
+_ALL: Dict[str, Dict[str, float]] = {k: {} for k in _KINDS}
+_TRACED: Dict[str, Dict[str, float]] = {k: {} for k in _KINDS}
+
+
+class span:
+    """A span of the program:
+
+        with span("spot.nms"):
+            ...work...
+
+    adds its host seconds (``time.perf_counter``) and one call under ``name`` to the
+    registry and, given a ``bucket`` dict, its seconds to ``bucket[key]`` (``key``
+    defaults to ``name``); opens ``record_function(name)`` only while a profiler
+    records."""
+
+    __slots__ = ("name", "bucket", "key", "_t0", "_range")
+
+    def __init__(self, name: str, bucket: Optional[Dict[str, float]] = None,
+                 key: Optional[str] = None):
+        self.name = name
+        self.bucket = bucket
+        self.key = name if key is None else key
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = time.perf_counter() - self._t0
+        name = self.name
+        regs = (_ALL,)
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            regs = (_ALL, _TRACED)
+        for reg in regs:
+            sec, calls = reg["seconds"], reg["calls"]
+            sec[name] = sec.get(name, 0.0) + dt
+            calls[name] = calls.get(name, 0) + 1
+        bucket = self.bucket
+        if bucket is not None:
+            bucket[self.key] = bucket.get(self.key, 0.0) + dt
+        return False
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the registry's counter ``name``."""
+    for reg in (_ALL, _TRACED) if _autograd_profiler._is_profiler_enabled else (_ALL,):
+        counts = reg["counts"]
+        counts[name] = counts.get(name, 0) + n
+
+
+def snapshot(traced: bool = False) -> Dict[str, Dict[str, float]]:
+    """The registry's sums since the process started: ``{"seconds": {span: s}, "calls":
+    {span: n}, "counts": {counter: n}}``. ``traced``: only what was recorded while a
+    profiler recorded (the spans whose ranges a trace holds)."""
+    reg = _TRACED if traced else _ALL
+    return {k: dict(reg[k]) for k in _KINDS}
+
+
+def since(snap: Dict[str, Dict[str, float]], traced: bool = False) -> Dict[str, Dict[str, float]]:
+    """What the registry gained since ``snap`` (a ``snapshot`` of the same ``traced``)."""
+    now = snapshot(traced)
+    return {k: {n: v - snap[k].get(n, 0) for n, v in now[k].items() if v != snap[k].get(n, 0)}
+            for k in _KINDS}
+
 
 def new_time_cost() -> Dict[str, float]:
     """Fresh stage-bucket dict with the reference's keys (eval.py:303-304)."""
     return {k: 0.0 for k in STAGES}
 
 
-class StageTimer:
-    """Accumulates wall-clock into a time_cost bucket:
+class StageTimer(span):
+    """A span that accumulates wall-clock into a time_cost bucket named as itself:
 
         with StageTimer(tc, "detector"):
             ...work...
     """
 
+    __slots__ = ()
+
     def __init__(self, time_cost: Dict[str, float], stage: str):
-        self.tc = time_cost
-        self.stage = stage
-
-    def __enter__(self):
-        self.t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        self.tc[self.stage] = self.tc.get(self.stage, 0.0) + time.time() - self.t0
-        return False
+        super().__init__(stage, time_cost)
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: Optional[str]):
     """``torch.profiler`` trace of the host and, when a CUDA device is present, the
     device, written as a Chrome trace to ``<log_dir>/trace.json`` when ``log_dir`` is
-    set; no-op otherwise. View it in chrome://tracing or Perfetto."""
+    set; no-op otherwise. View it in chrome://tracing or Perfetto; the port's spans are
+    its ``user_annotation`` ranges."""
     if not log_dir:
         yield
         return
-    import torch
-
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
