@@ -246,9 +246,19 @@ Phases (any failure exits non-zero and prints no result line):
      ``--pretrain --iters 3``: ms/iter with the upload / spot / host / update split, the
      projected hours for 30 000 iterations, peak memory, finite losses, B1 12 launches a
      tracker step and B1-B4 6 each a pretraining step, nothing else.
+ 28. greedy NMS as one kernel (``ops/nms.py``, ``csrc/nms.cu``) against ``nms_mask_plain``
+     on the card at NMS_CASES (N = 1, 31, 32, 33, all slots invalid, all valid, tied scores,
+     degenerate boxes, f32 IoU exactly on 0.3 and on 0.5, NaN scores, N = 1024, and B = 3 at
+     the two cells' shapes, N = 300 at 0.3 and N = 100 at 0.5, boxes spread like the
+     spotter's and piled on one spot): the keep masks the same bits, the same bits on a
+     second call, one launch a call; at the cells' shapes and at N = 1024 the kernel's time
+     a call on CUDA events, its device time, the host's time to issue it and the plain
+     loop's time beside the scan's bound: the scan's own time and SM cycles a step, from a
+     build that runs the scan NMS_SCAN_PASSES times, timed against the real build in turns;
+     ptxas's report (phases 4 and 11 check one launch a spot batch).
 The line before the last is {"kernels": [...]} (B1-B5, B5's table build, the four B6
-entries, T1, T2, B1 and B2 on bf16 value, and B5, its table build and the four B6 entries
-on bf16 value); the last is {"ok": true, "device": {...}}.
+entries, T1, T2, B1 and B2 on bf16 value, B5, its table build and the four B6 entries
+on bf16 value, and NMS); the last is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -727,22 +737,26 @@ def phase_profile(torch, predictor, tag="[5]", shares=()):
 
 def phase_main(torch, predictor, da, tag, expected):
     """VideoPredictor over synthetic 720p frames; returns the launch counts, which
-    must equal ``expected`` ({kernel: launches per spot batch})."""
+    must equal ``expected`` ({kernel: launches per spot batch}), and the NMS kernel's
+    launches, which must be one a spot batch (both of the first run)."""
     import xml.etree.ElementTree as ET
 
     from gomatching_tpu_torch.eval import annotate
     from gomatching_tpu_torch.evaluation.writer import write_video_results
+    from gomatching_tpu_torch.ops import nms as nms_ops
 
     frames = synthetic_frames()
     predictor.process_video([f.copy() for f in frames[:2]])  # warm-up, not counted
     torch.cuda.synchronize()
     da.reset_launch_counts()
+    nms_ops.reset_launch_counts()
     tc = {}
     t0 = time.time()
     tracked = predictor.process_video([f.copy() for f in frames], tc)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
     counts = dict(da.launch_counts)
+    nms_launches = nms_ops.launch_counts[nms_ops.NMS]
     walls = [elapsed]
     for _ in range(N_REPEATS - 1):
         t0 = time.time()
@@ -783,11 +797,13 @@ def phase_main(torch, predictor, da, tag, expected):
           f"{n_det} detections after short-track removal, {len(ids)} tracks, "
           f"{n_obj} XML objects; matcher calls {stats}")
     print(f"{tag} host wall by stage (s): " + ", ".join(f"{k} {v:.4f}" for k, v in tc.items()))
-    print(f"{tag} kernels launched in the main path: {counts}")
+    print(f"{tag} kernels launched in the main path: {counts}, {nms_ops.NMS} {nms_launches}")
     for name in counts:
         want = expected.get(name, 0) * n_batches
         check(counts[name] == want, f"{name}: {counts[name]} launches, expected {want}")
-    return counts
+    check(nms_launches == n_batches,
+          f"{nms_ops.NMS}: {nms_launches} launches, expected one a spot batch ({n_batches})")
+    return counts, nms_launches
 
 
 def phase_merged(torch, da, dam):
@@ -2707,8 +2723,8 @@ def phase_production(torch, da, ref_tracked):
         t = cfg.MODEL.TRANSFORMER
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        run_counts = phase_main(torch, predictor, da, "[18]",
-                                {da.ENCODER_BF16: t.ENC_LAYERS, da.QUERIES_BF16: t.DEC_LAYERS})
+        run_counts, _ = phase_main(torch, predictor, da, "[18]",
+                                   {da.ENCODER_BF16: t.ENC_LAYERS, da.QUERIES_BF16: t.DEC_LAYERS})
         peak = torch.cuda.max_memory_allocated()
         rows, wall = phase_profile(torch, predictor, "[18]")
         if rows:
@@ -3139,8 +3155,8 @@ def phase_pallas_production(torch, da, dam):
         layers = t.ENC_LAYERS + t.DEC_LAYERS
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        run_counts = phase_main(torch, predictor, da, "[21]",
-                                {da.MERGED_BF16: layers, da.MERGED_TABLE_BF16: layers})
+        run_counts, _ = phase_main(torch, predictor, da, "[21]",
+                                   {da.MERGED_BF16: layers, da.MERGED_TABLE_BF16: layers})
         peak = torch.cuda.max_memory_allocated()
         rows, wall = phase_profile(torch, predictor, "[21]", shares=[
             ("B5 bf16", "ms_deform_attn_merged_bf16_kernel("),
@@ -4489,6 +4505,169 @@ def phase_bench_train(torch, da, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 28: greedy NMS as one kernel (csrc/nms.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+NMS_CELLS = {"ICDAR15": (100, 0.5), "DSText": (300, 0.3)}  # (queries, MODEL NMS_THRESH)
+# (name, N, threshold, boxes, valid, scores): the edge cases of tests/test_torch_nms.py,
+# N = 1024 (the kernel's largest, past the 48 KB of shared memory a launch takes unasked),
+# then each cell's shape with boxes spread like the spotter's and all piled on one spot
+NMS_CASES = [
+    ("N=1", 1, 0.5, "spotter", "some", "rand"), ("N=31", 31, 0.5, "clustered", "some", "rand"),
+    ("N=32", 32, 0.5, "clustered", "some", "rand"), ("N=33", 33, 0.5, "clustered", "some", "rand"),
+    ("all invalid", 40, 0.5, "clustered", "none", "rand"),
+    ("all valid", 40, 0.5, "clustered", "all", "rand"),
+    ("tied scores", 64, 0.5, "clustered", "some", "tied"),
+    ("degenerate", 33, 0.0, "degenerate", "some", "rand"),
+    ("IoU on 0.3", 20, 0.3, "exact", "all", "rand"), ("IoU on 0.5", 20, 0.5, "exact", "all", "rand"),
+    ("NaN scores", 48, 0.5, "clustered", "some", "nan"),
+    ("N=1024", 1024, 0.3, "clustered", "some", "rand"),
+    *[(f"{cell} {kind}", n, thr, kind, "some", "rand") for cell, (n, thr) in NMS_CELLS.items()
+      for kind in ("spotter", "piled")],
+]
+NMS_SCAN_PASSES = 33
+# phase 28's measurement build: the scan run NMS_SCAN_PASSES times (csrc/nms.cu); timed against
+# the real build, in turns, it gives the scan's own time and the cycles of one of its steps
+NMS_SCAN_FLAGS = (f"-DNMS_SCAN_PASSES={NMS_SCAN_PASSES}",)
+
+
+def nms_inputs(torch, seed, N, boxes_kind, valid_kind, scores_kind, B=B):
+    """Seeded (boxes (B, N, 4), scores (B, N), valid (B, N)) on the card, float32 / bool."""
+    rng = np.random.RandomState(seed)
+
+    def spread(hw=(1280, 2276)):  # centres over the frame, 10-400 x 8-120 px, log-uniform
+        c = rng.uniform((0, 0), (hw[1], hw[0]), (B, N, 2))
+        size = np.exp(rng.uniform(np.log((10, 8)), np.log((400, 120)), (B, N, 2)))
+        return np.concatenate([c - size / 2, c + size / 2], -1)
+
+    if boxes_kind in ("spotter", "degenerate", "exact"):
+        boxes = spread((100, 100) if boxes_kind == "degenerate" else (1280, 2276))
+    elif boxes_kind == "clustered":  # around N // 8 centres, jittered by up to 40 px
+        c = rng.uniform((0, 0), (1200, 700), (B, max(1, N // 8), 2))
+        c = c[:, rng.randint(0, c.shape[1], N)] + rng.uniform(-40, 40, (B, N, 2))
+        size = rng.uniform((40, 15), (160, 50), (B, N, 2))
+        boxes = np.concatenate([c - size / 2, c + size / 2], -1)
+    else:  # piled: one 200x60 box jittered by a few px
+        boxes = np.array([500.0, 300.0, 700.0, 360.0]) + rng.uniform(-6, 6, (B, N, 4))
+    boxes = boxes.astype(np.float32)
+    scores = rng.rand(B, N).astype(np.float32)
+    if boxes_kind == "degenerate":  # zero width, zero height, one box repeated, inverted
+        boxes[:, ::3, 2] = boxes[:, ::3, 0]
+        boxes[:, 1::3, 3] = boxes[:, 1::3, 1]
+        boxes[1] = boxes[1, :1]
+        boxes[2, ::2, 2:] = boxes[2, ::2, :2] - 1
+    elif boxes_kind == "exact":  # pairs whose f32 IoU is exactly 3/10 and exactly 1/2
+        for b in range(B):
+            o = 3000 + 100 * b
+            for k, (box, sc) in enumerate([([0, 0, 3, 3], 0.95), ([0, 0, 4, 1], 0.9),
+                                           ([50, 50, 51, 51], 0.95), ([50, 50, 52, 51], 0.9)]):
+                boxes[b, k] = np.float32(box) + o
+                scores[b, k] = sc
+    if valid_kind == "all":
+        valid = np.ones((B, N), bool)
+    elif valid_kind == "none":
+        valid = np.zeros((B, N), bool)
+    else:
+        valid = rng.rand(B, N) > 0.3
+        valid[:, 0] = True
+    if scores_kind == "tied":  # five values, one frame all tied
+        scores = rng.choice(np.linspace(0.1, 0.9, 5), (B, N)).astype(np.float32)
+        scores[1] = 0.5
+    elif scores_kind == "nan":  # sorted first, as torch.sort puts them
+        scores[:, ::7] = np.nan
+    return tuple(torch.from_numpy(a).cuda() for a in (boxes, scores, valid))
+
+
+def phase_nms(torch, _build):
+    """Greedy NMS (``ops/nms.py``, one launch a call) against ``nms_mask_plain`` on the card:
+    the keep masks the same bits at every case of NMS_CASES, the same bits on a second
+    call, one launch a call; at each cell's shape and at N = 1024 the kernel's time a call
+    on CUDA events, its device time, the host's time to issue it, the plain loop's time,
+    and the scan's own time from the NMS_SCAN_FLAGS build in turns (real, scan, scan,
+    real): the bound, and the SM cycles a step; ptxas's report. Returns the kernels-line
+    record (sans launches); its max_abs_err is the most slots a case's masks differ in."""
+    import ctypes
+
+    from gomatching_tpu_torch.ops import nms as nms_ops
+    from gomatching_tpu_torch.ops.nms import nms_mask_plain
+
+    libs = {"real": _build.load("nms.cu", nms_ops._SIGNATURES),
+            "scan": ctypes.CDLL(str(_build.build("nms.cu", flags=_build.NVCC_FLAGS
+                                                 + NMS_SCAN_FLAGS)))}
+    libs["scan"].nms_mask.argtypes = nms_ops._SIGNATURES["nms_mask"]
+    libs["scan"].nms_mask.restype = ctypes.c_int
+    clock_mhz = sm_clock_mhz()
+    report = ptxas_report(_build.build_log("nms.cu"), {nms_ops.NMS: "nms_mask_kernel"})
+    print(f"[28] {nms_ops.NMS} ptxas: {report[nms_ops.NMS]}")
+    check(report[nms_ops.NMS] and all(
+        "0 bytes spill stores" in line and "0 bytes spill loads" in line
+        for line in report[nms_ops.NMS] if "spill" in line), f"{nms_ops.NMS} spills: {report}")
+    timed = {}
+    most_differing = 0
+    for seed, (name, N, thr, *kinds) in enumerate(NMS_CASES):
+        boxes, scores, valid = nms_inputs(torch, 100 + seed, N, *kinds)
+        before = nms_ops.launch_counts[nms_ops.NMS]
+        got = nms_ops.nms_mask(boxes, scores, valid, thr)
+        check(nms_ops.launch_counts[nms_ops.NMS] == before + 1,
+              f"[28] {name}: {nms_ops.launch_counts[nms_ops.NMS] - before} launches a call")
+        want = nms_mask_plain(boxes, scores, valid, thr)
+        torch.cuda.synchronize()
+        differing = int((got != want).sum())
+        most_differing = max(most_differing, differing)
+        check(got.dtype == torch.bool and differing == 0,
+              f"[28] {name}: the kernel keeps {got.sum(1).tolist()} slots, the plain loop "
+              f"{want.sum(1).tolist()}; they differ at {(got != want).nonzero().tolist()[:8]}")
+        same_bits(torch, f"[28] {name}", lambda: nms_ops.nms_mask(boxes, scores, valid, thr), got)
+        line = (f"[28] {name}: B={B} N={N} thr {thr}: valid {valid.sum(1).tolist()}, kept "
+                f"{got.sum(1).tolist()}, the same bits as the plain loop and twice")
+        if name.split()[0] in NMS_CELLS or name == "N=1024":
+            fn = lambda: nms_ops.nms_mask(boxes, scores, valid, thr)  # noqa: E731
+            ms = cuda_time_ms(fn, iters=200, warmup=10)
+            dev_us = device_us(torch, fn, "nms_mask_kernel")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            plain_ms = cuda_time_ms(lambda: nms_mask_plain(boxes, scores, valid, thr),
+                                    iters=5, warmup=1)
+            n_valid = int(valid.sum(1).max())  # the frames run side by side: the longest scan
+            keep = torch.empty_like(got)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def call(lib):
+                return lib.nms_mask(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(),
+                                    keep.data_ptr(), B, N, float(thr), stream)
+
+            turns = {"real": [], "scan": []}
+            for build in ("real", "scan", "scan", "real"):
+                check(call(libs[build]) == 0, f"[28] {name}: the {build} build refused the launch")
+                torch.cuda.synchronize()
+                check(torch.equal(keep, got), f"[28] {name}: the {build} build keeps other slots")
+                turns[build].append(cuda_time_ms(lambda: call(libs[build]), iters=200, warmup=10))
+            real_ms, passes_ms = (sum(turns[k]) / 2 for k in ("real", "scan"))
+            scan_ms = (passes_ms - real_ms) / (NMS_SCAN_PASSES - 1)
+            step_cycles = scan_ms * clock_mhz * 1e3 / max(n_valid, 1)
+            bytes_ms = bound(nbytes(boxes, scores, valid, got), 0)[0]
+            timed[name] = dict(ms=ms, device_us=dev_us, host_us=host_us, plain_ms=plain_ms,
+                               bound_ms=max(scan_ms, bytes_ms))
+            line += (f"; kernel {ms:.4f} ms a call on events (device {fmt_us(dev_us)}, host "
+                     f"{host_us:.1f} us to issue it), plain loop {plain_ms:.3f} ms; bound "
+                     f"{scan_ms * 1e3:.2f} us, the scan's own time ({NMS_SCAN_PASSES} passes "
+                     f"{passes_ms:.4f} ms against one {real_ms:.4f} ms in turns: {n_valid} "
+                     f"dependent steps of {step_cycles:.1f} SM cycles at {clock_mhz:.0f} MHz; "
+                     f"bytes {bytes_ms * 1e3:.4f} us)")
+        print(line)
+    r = timed["DSText spotter"]
+    return {nms_ops.NMS: dict(
+        name=nms_ops.NMS, route="cuda", source="gomatching_tpu_torch/csrc/nms.cu",
+        replaces="none: gomatching_tpu/utils/boxes.py:40 nms_mask is a lax.fori_loop left to XLA",
+        max_abs_err=float(most_differing), ms=r["ms"], plain_ms=r["plain_ms"],
+        bound_ms=r["bound_ms"], bound_by="the N-step scan", library_ms=None)}
+
+
 def main():
     import torch
 
@@ -4520,7 +4699,7 @@ def main():
     builds = (("ms_deform_attn.cu", ()), ("probes.cu", ()), ("ms_deform_attn.cu", ROW0_FLAGS),
               ("ms_deform_attn.cu", NO_SCATTER_FLAGS), ("ms_deform_attn.cu", FP_WARPS8_FLAGS),
               ("probes.cu", T1_L2_FLAGS),
-              ("probes.cu", T1_NO_COPY_FLAGS))
+              ("probes.cu", T1_NO_COPY_FLAGS), ("nms.cu", ()), ("nms.cu", NMS_SCAN_FLAGS))
     with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc per build, all at once
         list(pool.map(lambda sf: _build.build(sf[0], flags=_build.NVCC_FLAGS + sf[1]), builds))
     print(f"[1] kernels built in {time.time() - t0:.1f} s ("
@@ -4536,8 +4715,8 @@ def main():
     print(f"[1] VideoPredictor built with seeded random weights in {time.time() - t0:.1f} s")
     phase_path(torch, predictor, da)
     t = cfg.MODEL.TRANSFORMER
-    counts = phase_main(torch, predictor, da, "[4]",
-                        {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS})
+    counts, nms_launches = phase_main(torch, predictor, da, "[4]",
+                                      {da.ENCODER: t.ENC_LAYERS, da.QUERIES: t.DEC_LAYERS})
     phase_profile(torch, predictor, shares=[("B2", "ms_deform_attn_encoder_kernel("),
                                             ("B1", "ms_deform_attn_queries_kernel(")])
     ref_tracked = predictor.process_video(synthetic_frames())  # phases 18 and 27's reference
@@ -4556,7 +4735,8 @@ def main():
     phase_merged_path(torch, predictor, da, dam)
     t = cfg_pp.MODEL.TRANSFORMER
     layers = t.ENC_LAYERS + t.DEC_LAYERS
-    pp_counts = phase_main(torch, predictor, da, "[11]", {da.MERGED: layers, da.MERGED_TABLE: layers})
+    pp_counts, _ = phase_main(torch, predictor, da, "[11]",
+                              {da.MERGED: layers, da.MERGED_TABLE: layers})
     phase_sampler_ab(torch, predictor)
     phase_profile(torch, predictor, "[11]",
                   shares=[("B5", "ms_deform_attn_merged_kernel("),
@@ -4608,6 +4788,10 @@ def main():
         phase_checkpoints(torch, da, cfg, ref_sd, ref_tracked, counts, tmp)
         phase_bench_train(torch, da, card)
 
+    # greedy NMS as one kernel; its launches are phase 4's, checked there: one a spot batch
+    nms_records = phase_nms(torch, _build)
+    nms_counts = {n: nms_launches for n in nms_records}
+
     kernels = []
     launches = {**{n: counts[n] for n in records}, **{n: train_counts[n] for n in bwd_records},
                 **{n: pp_counts[n] for n in merged_records},
@@ -4615,15 +4799,16 @@ def main():
                 **{n: probe_counts[n] for n in probe_records},
                 **{n: prod_counts[n] for n in bf16_records},
                 **{n: (pallas_counts if n in (da.MERGED_BF16, da.MERGED_TABLE_BF16)
-                       else bench16_counts)[n] for n in bf16_more_records}}
+                       else bench16_counts)[n] for n in bf16_more_records},
+                **{n: nms_counts[n] for n in nms_records}}
     for name, rec in [*records.items(), *bwd_records.items(), *merged_records.items(),
                       *fp_records.items(), *probe_records.items(), *bf16_records.items(),
-                      *bf16_more_records.items()]:
+                      *bf16_more_records.items(), *nms_records.items()]:
         # each kernel's launches are those of the path that runs it: inference, the
         # pretraining's for the backwards, the sampler benchmark's for B6a-c (its bf16 run
         # for B6a-c on bf16 value), the probe tools' for T1 and T2, production inference's
         # for B1 and B2 on bf16 value, GoMatching++ production on 'pallas' for B5 and its
-        # table on bf16 value
+        # table on bf16 value, the main path's (phase 4) for NMS
         rec = dict(rec, launches=launches[name])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                             "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..utils.boxes import nms_mask
+from ..ops.nms import nms_mask
 from ..utils.profiling import span
 from .lst_matcher import LSTMatcherHead
 from .pos_encoding import position_encoding_2d
