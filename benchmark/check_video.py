@@ -33,7 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
-from .reference.model import (Bottleneck, DecoderLayer, EncoderLayer, MatcherDecoderLayer,
+from .reference import trunks
+from .reference.model import (DecoderLayer, EncoderLayer, MatcherDecoderLayer,
                               MatcherEncoderLayer, ReferenceModel, preprocess, resize_hw)
 
 MATCHER_KEYS = ("roi_heads.long_term_matcher.", "roi_heads.short_term_matcher.",
@@ -158,9 +159,8 @@ def _fp8(x):
 # convolutions, and the products inside attention and of the affinities
 PRODUCTS = frozenset((F.linear, F.conv2d, torch.matmul, torch.Tensor.matmul,
                       torch.Tensor.__matmul__, torch.bmm, torch.Tensor.bmm, torch.mm))
-# the layers whose outputs carry the residual stream
-STREAM_LAYERS = (EncoderLayer, DecoderLayer, MatcherEncoderLayer, MatcherDecoderLayer,
-                 Bottleneck)
+# the layers whose outputs carry the residual stream, with the trunk's own
+STREAM_LAYERS = (EncoderLayer, DecoderLayer, MatcherEncoderLayer, MatcherDecoderLayer)
 
 
 class Float8Products(TorchFunctionMode):
@@ -189,8 +189,9 @@ def lower_precision(model: ReferenceModel, m: Dict):
         finally:
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
         return
+    stream = STREAM_LAYERS + tuple(trunks.of(m).STREAM_LAYERS)
     hooks = [mod.register_forward_hook(lambda _m, _a, out: _fp8(out))
-             for mod in model.modules() if isinstance(mod, STREAM_LAYERS)]
+             for mod in model.modules() if isinstance(mod, stream)]
     try:
         with Float8Products():
             yield

@@ -13,66 +13,35 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+from .reference import trunks
+
 TAP_FLOPS = 10  # 4 corner multiply-adds + the attention multiply-add, per channel
 BYTES = {"float32": 4, "bfloat16": 2}
 
 
-def conv_out(n: int, k: int, s: int, p: int) -> int:
-    return (n + 2 * p - k) // s + 1
-
-
-def trunk_flops(h: int, w: int, depth: int = 50) -> Tuple[int, Sequence[Tuple[int, int]]]:
-    """ResNet trunk (stride on the 3x3) at an (h, w) input -> (flops, [res3, res4, res5]
-    map sizes)."""
-    blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]
-    flops = 0
-
-    def conv(hh, ww, cin, cout, k, s):
-        nonlocal flops
-        ho, wo = conv_out(hh, k, s, (k - 1) // 2), conv_out(ww, k, s, (k - 1) // 2)
-        flops += 2 * ho * wo * cout * cin * k * k
-        return ho, wo
-
-    hh, ww = conv(h, w, 3, 64, 7, 2)
-    hh, ww = conv_out(hh, 3, 2, 1), conv_out(ww, 3, 2, 1)  # max pool
-    cin, mid, cout = 64, 64, 256
-    sizes = []
-    for si, n in enumerate(blocks):
-        for b in range(n):
-            stride = 2 if (b == 0 and si > 0) else 1
-            if b == 0:
-                conv(hh, ww, cin, cout, 1, stride)
-            conv(hh, ww, cin, mid, 1, 1)
-            h2, w2 = conv(hh, ww, mid, mid, 3, stride)
-            conv(h2, w2, mid, cout, 1, 1)
-            hh, ww, cin = h2, w2, cout
-        if si > 0:
-            sizes.append((hh, ww))
-        mid *= 2
-        cout *= 2
-    return flops, sizes
-
-
 def level_shapes(h: int, w: int, m: Dict) -> Sequence[Tuple[int, int]]:
-    """The encoder's (h, w) per level at an (h, w) input."""
-    sizes = list(trunk_flops(h, w, m["resnet_depth"])[1])
+    """The encoder's (h, w) per level at an (h, w) input: the trunk's three maps, then
+    each further level a stride-2 3x3 convolution of the last."""
+    sizes = list(trunks.of(m).flops(h, w, m)[1])
     for _ in range(m["num_feature_levels"] - 3):
         hh, ww = sizes[-1]
-        sizes.append((conv_out(hh, 3, 2, 1), conv_out(ww, 3, 2, 1)))
+        sizes.append((trunks.conv_out(hh, 3, 2, 1), trunks.conv_out(ww, 3, 2, 1)))
     return sizes
 
 
 def spot_flops(h: int, w: int, m: Dict) -> Dict[str, int]:
-    """Operations of one frame's spot at the model input (h, w): trunk, input
-    projections, encoder, proposals, decoder, heads, rescoring and reid."""
+    """Operations of one frame's spot at the model input (h, w): the trunk (its file's
+    ``flops``), input projections, encoder, proposals, decoder, heads, rescoring and
+    reid."""
     C, F_, M = m["hidden_dim"], m["dim_feedforward"], m["nheads"]
     L, Pe, Pd = m["num_feature_levels"], m["enc_n_points"], m["dec_n_points"]
     nq, npts, voc = m["num_queries"], m["num_points"], m["voc_size"]
     D = C // M
-    trunk, sizes = trunk_flops(h, w, m["resnet_depth"])
+    trunk = trunks.of(m)
+    trunk_ops = trunk.flops(h, w, m)[0]
     shapes = level_shapes(h, w, m)
     S = sum(a * b for a, b in shapes)
-    chans = (512, 1024, 2048)
+    chans = trunk.channels(m)
     proj = sum(2 * a * b * chans[i] * C for i, (a, b) in enumerate(shapes[:3]))
     for a, b in shapes[3:]:
         proj += 2 * a * b * chans[-1] * C * 9
@@ -95,7 +64,7 @@ def spot_flops(h: int, w: int, m: Dict) -> Dict[str, int]:
         heads += 2 * Q * C
     fc = m["asso_fc_dim"]
     reid = 2 * nq * (npts * C * fc + (m["asso_num_fc"] - 1) * fc * fc)
-    dense = trunk + proj + enc_dense + proposals + dec_dense + heads + reid
+    dense = trunk_ops + proj + enc_dense + proposals + dec_dense + heads + reid
     return {"dense": dense, "taps": enc_taps + dec_taps, "total": dense + enc_taps + dec_taps,
             "tokens": S}
 

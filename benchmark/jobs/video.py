@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import check_video, counts, frames, tracing
+from ..reference import trunks
 from ..reference.train import iou_np
 from ..weights import make_state_dict
 
@@ -43,10 +44,11 @@ def port_cfg(config: Dict, extra_opts=()):
 
 
 def check_cfg(cfg, m: Dict) -> None:
-    """The port's resolved configuration is the one the configuration file states."""
+    """The port's resolved configuration is the one the configuration file states; the
+    trunk's keys are its file's ``port_fields``."""
     t, a = cfg.MODEL.TRANSFORMER, cfg.MODEL.ASSO_HEAD
     got = {
-        "resnet_depth": cfg.MODEL.RESNETS.DEPTH, "hidden_dim": t.HIDDEN_DIM,
+        **trunks.of(m).port_fields(cfg), "hidden_dim": t.HIDDEN_DIM,
         "nheads": t.NHEADS, "enc_layers": t.ENC_LAYERS, "dec_layers": t.DEC_LAYERS,
         "dim_feedforward": t.DIM_FEEDFORWARD, "num_feature_levels": t.NUM_FEATURE_LEVELS,
         "enc_n_points": t.ENC_N_POINTS, "dec_n_points": t.DEC_N_POINTS,
@@ -64,7 +66,8 @@ def check_cfg(cfg, m: Dict) -> None:
         "boundary_head": bool(t.BOUNDARY_HEAD), "no_pos_emb": bool(a.NO_POS_EMB),
         "num_weight_layers": a.NUM_WEIGHT_LAYERS, "nms_thresh": cfg.VIDEO_TEST.NMS_THRESH,
     }
-    bad = {k: (v, m.get(k)) for k, v in got.items() if m.get(k) != v}
+    want = dict(m, backbone=trunks.name_of(m))
+    bad = {k: (v, want.get(k)) for k, v in got.items() if want.get(k) != v}
     if bad:
         raise ValueError(f"the port's configuration differs from the benchmark's: {bad}")
 

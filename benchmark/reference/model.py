@@ -11,8 +11,9 @@ What the comparison needs is split in stages:
 
   - ``preprocess``: uint8 BGR frames -> normalized NHWC frames (resize with
     antialiasing, optional I420 round trip);
-  - ``encode``: trunk + input projections + deformable encoder + the two-stage
-    proposal heads (class logits and Bezier coordinates of every token);
+  - ``encode``: the configuration's trunk (a file of ``trunks/``) + input projections +
+    deformable encoder + the two-stage proposal heads (class logits and Bezier
+    coordinates of every token);
   - ``select``: the top-k proposals as per-point reference points;
   - ``decode``: the composite decoder from given reference points, then the heads,
     rescoring, score fusion and the reid embedding;
@@ -23,19 +24,20 @@ What the comparison needs is split in stages:
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from . import trunks
+
 Shapes = Sequence[Tuple[int, int]]
-BACKBONE_CHANNELS = (512, 1024, 2048)
 
 
 # ---------------------------------------------------------------------------
-# trunk: ResNet-50 with FrozenBN (detectron2 names)
+# trunk: the configuration's (``trunks/<name>.py``) under detectron2's names
 # ---------------------------------------------------------------------------
 
 
@@ -52,63 +54,6 @@ class FrozenBN(nn.Module):
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         shift = self.bias - self.running_mean * scale
         return x * scale[None, :, None, None] + shift[None, :, None, None]
-
-
-class ConvNorm(nn.Conv2d):
-    def __init__(self, cin, cout, kernel, stride=1):
-        super().__init__(cin, cout, kernel, stride=stride, padding=(kernel - 1) // 2, bias=False)
-        self.norm = FrozenBN(cout)
-
-    def forward(self, x):
-        return self.norm(super().forward(x))
-
-
-class Bottleneck(nn.Module):
-    def __init__(self, cin, mid, cout, stride, has_shortcut):
-        super().__init__()
-        self.shortcut = ConvNorm(cin, cout, 1, stride) if has_shortcut else None
-        self.conv1 = ConvNorm(cin, mid, 1)
-        self.conv2 = ConvNorm(mid, mid, 3, stride)
-        self.conv3 = ConvNorm(mid, cout, 1)
-
-    def forward(self, x):
-        identity = x if self.shortcut is None else self.shortcut(x)
-        y = F.relu(self.conv1(x))
-        y = F.relu(self.conv2(y))
-        return F.relu(self.conv3(y) + identity)
-
-
-class Stem(nn.Module):
-    def __init__(self, c):
-        super().__init__()
-        self.conv1 = ConvNorm(3, c, 7, 2)
-
-    def forward(self, x):
-        return F.max_pool2d(F.relu(self.conv1(x)), kernel_size=3, stride=2, padding=1)
-
-
-class ResNet(nn.Module):
-    """NCHW images -> [res3, res4, res5] (STRIDE_IN_1X1 False: the 3x3 conv strides)."""
-
-    def __init__(self, depth: int = 50):
-        super().__init__()
-        blocks = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}[depth]
-        self.stem = Stem(64)
-        cin, mid, cout = 64, 64, 256
-        for si, n in enumerate(blocks):
-            layers = []
-            for b in range(n):
-                layers.append(Bottleneck(cin, mid, cout, 2 if (b == 0 and si > 0) else 1, b == 0))
-                cin = cout
-            self.add_module(f"res{si + 2}", nn.Sequential(*layers))
-            mid *= 2
-            cout *= 2
-
-    def forward(self, x) -> List[torch.Tensor]:
-        y = self.res2(self.stem(x))
-        r3 = self.res3(y)
-        r4 = self.res4(r3)
-        return [r3, r4, self.res5(r4)]
 
 
 class MaskedBackbone(nn.Module):
@@ -316,16 +261,18 @@ def _shared(module, n):
 
 
 class DeepSoloSpotter(nn.Module):
-    def __init__(self, c=256, heads=8, n_enc=6, n_dec=6, ff=1024, levels=4, enc_points=4,
-                 dec_points=4, num_queries=100, num_points=25, voc_size=37, temperature=10000.0):
+    def __init__(self, channels, c=256, heads=8, n_enc=6, n_dec=6, ff=1024, levels=4,
+                 enc_points=4, dec_points=4, num_queries=100, num_points=25, voc_size=37,
+                 temperature=10000.0):
+        """``channels``: the widths of the trunk's three maps."""
         super().__init__()
         self.d_model, self.levels = c, levels
         self.num_queries, self.num_points = num_queries, num_points
         self.temperature = float(temperature)
         projs = []
         for i in range(levels):
-            conv = (nn.Conv2d(BACKBONE_CHANNELS[i], c, 1) if i < 3
-                    else nn.Conv2d(BACKBONE_CHANNELS[-1], c, 3, stride=2, padding=1))
+            conv = (nn.Conv2d(channels[i], c, 1) if i < 3
+                    else nn.Conv2d(channels[-1], c, 3, stride=2, padding=1))
             projs.append(nn.Sequential(conv, nn.GroupNorm(32, c, eps=1e-5)))
         self.input_proj = nn.ModuleList(projs)
         self.transformer = Transformer(c, ff, levels, heads, enc_points, dec_points, n_enc, n_dec)
@@ -429,11 +376,12 @@ class ReferenceModel(nn.Module):
     def __init__(self, m: Dict):
         super().__init__()
         self.m = dict(m)
-        self.backbone = nn.Sequential(MaskedBackbone(ResNet(m["resnet_depth"])))
+        trunk = trunks.of(m)
+        self.backbone = nn.Sequential(MaskedBackbone(trunk.build(m)))
         self.detection_transformer = DeepSoloSpotter(
-            m["hidden_dim"], m["nheads"], m["enc_layers"], m["dec_layers"], m["dim_feedforward"],
-            m["num_feature_levels"], m["enc_n_points"], m["dec_n_points"], m["num_queries"],
-            m["num_points"], m["voc_size"], m["temperature"])
+            trunk.channels(m), m["hidden_dim"], m["nheads"], m["enc_layers"], m["dec_layers"],
+            m["dim_feedforward"], m["num_feature_levels"], m["enc_n_points"], m["dec_n_points"],
+            m["num_queries"], m["num_points"], m["voc_size"], m["temperature"])
         self.roi_heads = MatcherHead(
             m["hidden_dim"], m["num_points"], m["asso_fc_dim"], m["asso_num_fc"],
             m["asso_num_heads"], m["asso_encoder_layers"], m["asso_decoder_layers"],

@@ -3,7 +3,10 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell is found by name in ``BENCHMARK.json``; its configuration in
-``benchmark/configs/<config>.json``, its traffic in ``benchmark/traffic/<traffic>.json``
+``benchmark/configs/<config>.json`` (whose ``model["backbone"]``, ``resnet`` where it is
+absent, names the trunk: ``benchmark/reference/trunks/<backbone>.py``, which gives the
+plain reference's trunk, the initialisers of its tensors, its operation count and the
+port's trunk keys that are compared), its traffic in ``benchmark/traffic/<traffic>.json``
 (which names the job: ``benchmark/jobs/<job>.py``), the limits of its comparison in
 ``benchmark/limits/<cell>.json`` and each per-layer metric's reader in
 ``benchmark/metrics/<metric>.py``. With ``--trace 0`` the result carries the cell's

@@ -7,9 +7,10 @@ program itself correct. Run on the chip:
 
 import pytest
 
+from benchmark import run
 from benchmark.calibrate import readings
 
-CELLS = ["icdar15-f32-video", "dstext-pp-bf16-video", "icdar15-f32-tracker-train"]
+CELLS = [w["name"] for w in run.load_json(run.ROOT, "BENCHMARK.json")["workloads"]]
 
 
 @pytest.mark.card

@@ -13,6 +13,7 @@ from benchmark.tests.tiny import TINY_MODEL
 from benchmark.weights import make_state_dict
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(f[:-5] for f in os.listdir(os.path.join(HERE, "configs")) if f.endswith(".json"))
 
 
 def model_of(config: str, tiny: bool = True) -> dict:
@@ -21,7 +22,7 @@ def model_of(config: str, tiny: bool = True) -> dict:
     return dict(m, **TINY_MODEL) if tiny else m
 
 
-@pytest.mark.parametrize("config", ["gomatching-icdar15-r50", "gomatching-pp-dstext-r50"])
+@pytest.mark.parametrize("config", CONFIGS)
 def test_spot_flops_match_the_counter(config):
     m = model_of(config)
     ref = ReferenceModel(m)
@@ -40,7 +41,7 @@ def test_spot_flops_match_the_counter(config):
     assert want["taps"] == samples * m["nheads"] * m["num_feature_levels"] * D * 10
 
 
-@pytest.mark.parametrize("config", ["gomatching-icdar15-r50", "gomatching-pp-dstext-r50"])
+@pytest.mark.parametrize("config", CONFIGS)
 @pytest.mark.parametrize("short_term", [True, False])
 def test_matcher_flops_match_the_counter(config, short_term):
     m = model_of(config)

@@ -4,9 +4,10 @@ The same state_dict (reference keys) goes to the port and to the plain reference
 scheme follows the reference's initialisers: every linear and convolution kernel
 N(0, 1/fan_in) with zero biases, norms at identity, FrozenBN at identity, the sampling
 offsets' radial grid bias, N(0, 1) level and point embeddings and the prior-probability
-class bias. Unlike a freshly initialised DeepSolo, the sampling-offset and attention
-kernels are drawn too (N(0, 1/fan_in)), so that where the samplers read depends on the
-content, as in a trained model.
+class bias; the trunk's other tensors as its file's ``init_rules`` says. Unlike a freshly
+initialised DeepSolo, the sampling-offset and attention kernels are drawn too
+(N(0, 1/fan_in)), so that where the samplers read depends on the content, as in a
+trained model.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .reference import trunks
 from .reference.model import FrozenBN, MSDeformAttn, MultiHeadAttention, ReferenceModel
 
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)
@@ -53,6 +55,10 @@ def make_state_dict(model_cfg: Dict, seed: int, device) -> Dict[str, torch.Tenso
             for k, v in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
                          ("running_var", 1.0)):
                 rules[id(getattr(mod, k))] = ("const", v)
+    trunk = skel.backbone[0].backbone
+    tensors = trunk.state_dict(keep_vars=True)
+    for name, rule in trunks.of(model_cfg).init_rules(trunk).items():
+        rules[id(tensors[name])] = rule
     for mod in skel.modules():
         if isinstance(mod, MSDeformAttn):
             rules[id(mod.sampling_offsets.bias)] = (
@@ -65,9 +71,9 @@ def make_state_dict(model_cfg: Dict, seed: int, device) -> Dict[str, torch.Tenso
 
     named = list(skel.state_dict(keep_vars=True).items())
     unique = {}
-    for _, t in named:
+    for name, t in named:
         if id(t) not in rules:
-            raise KeyError("no initialiser for a tensor of the reference model")
+            raise KeyError(f"no initialiser for {name} of the reference model")
         unique.setdefault(id(t), t)
     n_normal = sum(t.numel() for k, t in unique.items() if rules[k][0] == "normal")
     gen = torch.Generator(device=device).manual_seed(int(seed) % (2**63))
