@@ -103,7 +103,8 @@ def backbone_features(backbone: nn.Module, images: torch.Tensor, hidden_dim: int
     ``generator``: the Swin trunk's drop-path randomness (pretraining only)."""
     trunk = backbone[0].backbone
     x = _promoted(images.permute(0, 3, 1, 2).contiguous(), trunk)
-    feats = trunk(x, generator) if generator is not None else trunk(x)
+    with span("trunk"):
+        feats = trunk(x, generator) if generator is not None else trunk(x)
     feats = [feats["res3"], feats["res4"], feats["res5"]]
     pos = [
         position_encoding_2d((f.shape[0], f.shape[2], f.shape[3]), hidden_dim // 2,

@@ -28,6 +28,11 @@ Layout: NCHW at the module's boundary, tokens (B, N, C) inside. The 'transformer
 of stages 3-4 attend over every token of the level with ``torch.matmul`` and ``softmax``
 (JAX computes them with XLA, outside any Pallas kernel): at 1280x2276 stage 3 holds
 80 x 143 tokens, so one head's score matrix is 11440^2 values.
+
+Spans (``utils/profiling.py``): each attention over a whole level runs in
+``trunk.global_attn`` and adds the operations of its two products, 4 B h n^2 hd, to the
+counter ``trunk.global_attn.flops.<dtype>``; each cell's PRM and PCM branches run in
+``trunk.conv``. The windowed attention of stages 1-2 is in neither.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import count, span
 from .resnet import FrozenBN
 from .swin import Mlp, window_partition, window_reverse
 
@@ -55,6 +61,15 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out.transpose(1, 2).reshape(b, n, h * hd)
 
 
+def _attend_level(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``_attend`` over every token of a level, in the span ``trunk.global_attn``; counts
+    the operations of q k^T and of the product with v."""
+    b, h, n, hd = q.shape
+    count("trunk.global_attn.flops." + str(q.dtype).split(".")[-1], 4 * b * h * n * n * hd)
+    with span("trunk.global_attn"):
+        return _attend(q, k, v)
+
+
 def _split_heads(qkv: torch.Tensor, heads: int):
     b, n, c3 = qkv.shape
     return qkv.reshape(b, n, 3, heads, c3 // (3 * heads)).permute(2, 0, 3, 1, 4)
@@ -63,18 +78,20 @@ def _split_heads(qkv: torch.Tensor, heads: int):
 class FullAttention(nn.Module):
     """MHA over all tokens (NormalCell.py:33-58); also the windowed attention of the
     'window' cells (window.py:65-145, no relative-position bias), which maps ``dim`` to
-    ``out_dim``."""
+    ``out_dim``. ``whole_level``: the tokens are a whole level (a 'transformer' cell's),
+    not a window."""
 
-    def __init__(self, dim: int, num_heads: int, out_dim: int = 0):
+    def __init__(self, dim: int, num_heads: int, out_dim: int = 0, whole_level: bool = False):
         super().__init__()
         out_dim = out_dim or dim
         self.num_heads = num_heads
+        self.attend = _attend_level if whole_level else _attend
         self.qkv = nn.Linear(dim, 3 * out_dim)
         self.proj = nn.Linear(out_dim, out_dim)
 
     def forward(self, x):
         q, k, v = _split_heads(self.qkv(x), self.num_heads)
-        return self.proj(_attend(q, k, v))
+        return self.proj(self.attend(q, k, v))
 
 
 class TokenAttention(nn.Module):
@@ -90,7 +107,7 @@ class TokenAttention(nn.Module):
     def forward(self, x):
         q, k, v = _split_heads(self.qkv(x), self.num_heads)
         b, h, n, hd = v.shape
-        return v.transpose(1, 2).reshape(b, n, h * hd) + self.proj(_attend(q, k, v))
+        return v.transpose(1, 2).reshape(b, n, h * hd) + self.proj(_attend_level(q, k, v))
 
 
 def window_apply(x: torch.Tensor, hw: Tuple[int, int], ws: int,
@@ -180,10 +197,11 @@ class ReductionCell(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """NCHW -> (tokens (B, H' * W', token_dim), (H', W'))."""
-        prm = self.PRM(x)
-        b, _, ho, wo = prm.shape
-        prm = prm.flatten(2).transpose(1, 2)
-        conv_x = self.PCM(x).flatten(2).transpose(1, 2)
+        with span("trunk.conv"):
+            prm = self.PRM(x)
+            b, _, ho, wo = prm.shape
+            prm = prm.flatten(2).transpose(1, 2)
+            conv_x = self.PCM(x).flatten(2).transpose(1, 2)
         y = self.attn.attend(prm, (ho, wo), self.tokens_type, self.window_size) + conv_x
         return y + self.attn.mlp(self.attn.norm2(y)), (ho, wo)
 
@@ -199,7 +217,7 @@ class NormalCell(nn.Module):
         self.window_size = window_size
         hidden = int(dim * mlp_ratio)
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
-        self.attn = FullAttention(dim, heads)
+        self.attn = FullAttention(dim, heads, whole_level=tokens_type != "window")
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, hidden, dim)
         self.PCM = pcm(dim, (hidden, dim, dim), (1, 1, 1), group)
@@ -209,7 +227,8 @@ class NormalCell(nn.Module):
         y = self.norm1(x)
         y = (window_apply(y, hw, self.window_size, self.attn) if self.tokens_type == "window"
              else self.attn(y))
-        conv_x = self.PCM(x.transpose(1, 2).reshape(b, c, *hw)).flatten(2).transpose(1, 2)
+        with span("trunk.conv"):
+            conv_x = self.PCM(x.transpose(1, 2).reshape(b, c, *hw)).flatten(2).transpose(1, 2)
         x = x + y + conv_x
         return x + self.mlp(self.norm2(x))
 

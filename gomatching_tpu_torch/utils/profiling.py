@@ -6,15 +6,26 @@ buckets threaded through inference (reference eval.py:303-304, gom_lstmatcher.py
 plus per-video FPS prints -- and ``device_trace``, a ``torch.profiler`` Chrome trace of
 the host and the CUDA device (the reference has no trace support).
 
-The port's spans (``span``; every name in ``SPANS``) and counters (``count``; the one
-counter, ``sampler.encoder.rows.<value dtype>``, is B x S of each encoder sampler call)
-add host seconds, calls and counts to one registry of this module, which ``snapshot``
-and ``since`` read. A span may also add its seconds to a bucket (a ``time_cost`` or
-``Trainer.phase_t`` dict). While a ``torch.profiler`` records, a span also opens
-``torch.profiler.record_function(name)``, so that its range lies in the Chrome trace on
-the clock of the kernels it launched; at any other time it opens nothing, since an
-unrecorded ``record_function`` still costs ~10 us. There is no switch: tracing is on
-exactly while a profiler records (``device_trace``, a benchmark's traced window).
+The port's spans (``span``; every name in ``SPANS``) and counters (``count``:
+``sampler.encoder.rows.<value dtype>``, B x S of each encoder sampler call, and
+``trunk.global_attn.flops.<dtype>``, the operations of the two products of each
+attention over a whole level of the ViTAEv2 trunk) add host seconds, calls and counts to
+one registry of this module, which ``snapshot`` and ``since`` read. A span may also add
+its seconds to a bucket (a ``time_cost`` or ``Trainer.phase_t`` dict). While a
+``torch.profiler`` records, a span also opens ``torch.profiler.record_function(name)``,
+so that its range lies in the Chrome trace on the clock of the kernels it launched; at
+any other time it opens nothing, since an unrecorded ``record_function`` still costs
+~10 us. There is no switch: tracing is on exactly while a profiler records
+(``device_trace``, a benchmark's traced window).
+
+The spans of ``DEVICE_TIMED`` also record a pair of CUDA events on the current stream
+while a profiler records (and a CUDA device is present), and ``device_seconds`` gives
+each such span's summed stream seconds: from when the stream reaches the span's start
+(after the work queued before it) to when it reaches the span's end. That is the time
+from the span's first kernel to its last one's end, idle inside the span included (where
+the host launches slower than the device runs, it reads the host's pace). It stands in
+for the device time of the kernels launched inside the span until the profiler's own
+trace is read by span.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -40,9 +51,10 @@ STAGES = (
 )
 
 # every span the port opens (``spot.encode`` to ``spot.readback`` nest in ``spot.call``,
-# ``spot.nms`` in ``spot.model``, the samplers' in ``spot.model`` or ``train.spot``, the
-# tracker's in ``track``, the update's parts in ``train.update``); none is named as a
-# span of the benchmark's (``window``, ``spot``, ``host``, ``tracker``, ...)
+# ``spot.nms`` in ``spot.model``, the samplers' and ``trunk`` in ``spot.model`` or
+# ``train.spot``, ``trunk.*`` in ``trunk``, the tracker's in ``track``, the update's parts
+# in ``train.update``); none is named as a span of the benchmark's (``window``, ``spot``,
+# ``host``, ``tracker``, ...)
 SPANS = (
     "stack",            # a spot batch's frames stacked (time_cost pre_process)
     "spot.call",        # a spot call and its packed copy unpacked (time_cost detector)
@@ -54,6 +66,9 @@ SPANS = (
     "spot.unpack",      # the batch's rows into each frame's FrameDetections
     "sampler.encoder",  # B2: the encoder sampler on the raw offsets and logits
     "sampler.queries",  # B1 or B5: a sampler on normalized locations
+    "trunk",            # the trunk's call in backbone_features (any trunk)
+    "trunk.global_attn",  # ViTAEv2: softmax(q k^T) v over a whole level (stages 3-4)
+    "trunk.conv",       # ViTAEv2: the PRM and PCM convolution branches of a cell
     "track",            # a window's tracker work in process_video
     "track.short",      # short-term passes (time_cost short_match)
     "track.long",       # long-term passes (time_cost long_match)
@@ -69,9 +84,25 @@ SPANS = (
     "update.readback",  # the losses' copy to the host
 )
 
+# the spans whose stream time ``device_seconds`` gives
+DEVICE_TIMED = ("trunk", "trunk.global_attn", "trunk.conv")
+
 _KINDS = ("seconds", "calls", "counts")
 _ALL: Dict[str, Dict[str, float]] = {k: {} for k in _KINDS}
 _TRACED: Dict[str, Dict[str, float]] = {k: {} for k in _KINDS}
+# (span, start event, end event) not yet read, and the stream seconds read from them
+_PENDING: List[Tuple[str, object, object]] = []
+_DEVICE: Dict[str, float] = {}
+
+
+def _device_event(name: str):
+    """A CUDA event recorded now on the current stream, for a span of ``DEVICE_TIMED``
+    while a CUDA device is present; None otherwise."""
+    if name not in DEVICE_TIMED or not torch.cuda.is_available():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
 
 class span:
@@ -83,9 +114,9 @@ class span:
     adds its host seconds (``time.perf_counter``) and one call under ``name`` to the
     registry and, given a ``bucket`` dict, its seconds to ``bucket[key]`` (``key``
     defaults to ``name``); opens ``record_function(name)`` only while a profiler
-    records."""
+    records, and for a span of ``DEVICE_TIMED`` a CUDA event pair then too."""
 
-    __slots__ = ("name", "bucket", "key", "_t0", "_range")
+    __slots__ = ("name", "bucket", "key", "_t0", "_range", "_event")
 
     def __init__(self, name: str, bucket: Optional[Dict[str, float]] = None,
                  key: Optional[str] = None):
@@ -97,6 +128,7 @@ class span:
         if _autograd_profiler._is_profiler_enabled:
             self._range = torch.profiler.record_function(self.name)
             self._range.__enter__()
+            self._event = _device_event(self.name)
         else:
             self._range = None
         self._t0 = time.perf_counter()
@@ -109,6 +141,10 @@ class span:
         if self._range is not None:
             self._range.__exit__(exc_type, exc, tb)
             regs = (_ALL, _TRACED)
+            if self._event is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                _PENDING.append((name, self._event, end))
         for reg in regs:
             sec, calls = reg["seconds"], reg["calls"]
             sec[name] = sec.get(name, 0.0) + dt
@@ -139,6 +175,17 @@ def since(snap: Dict[str, Dict[str, float]], traced: bool = False) -> Dict[str, 
     now = snapshot(traced)
     return {k: {n: v - snap[k].get(n, 0) for n, v in now[k].items() if v != snap[k].get(n, 0)}
             for k in _KINDS}
+
+
+def device_seconds() -> Dict[str, float]:
+    """The stream seconds of each span of ``DEVICE_TIMED`` since the process started,
+    summed over what was recorded while a profiler recorded (the module docstring says
+    what they hold); waits for the device to finish the spans recorded so far."""
+    for name, start, end in _PENDING:
+        end.synchronize()
+        _DEVICE[name] = _DEVICE.get(name, 0.0) + start.elapsed_time(end) * 1e-3
+    _PENDING.clear()
+    return dict(_DEVICE)
 
 
 def new_time_cost() -> Dict[str, float]:

@@ -36,12 +36,15 @@ PARENTS = {
     "spot.model": {"spot.call"}, "spot.readback": {"spot.call"}, "spot.nms": {"spot.model"},
     "sampler.encoder": {"spot.model", "train.spot"},
     "sampler.queries": {"spot.model", "train.spot"},
+    "trunk": {"spot.model", "train.spot"},
+    "trunk.global_attn": {"trunk"}, "trunk.conv": {"trunk"},
     "track.short": {"track", "track.step"}, "track.long": {"track", "track.step"},
     "track.step": {"track"}, "assoc": {"track.short", "track.long"},
     "train.spot": {None}, "train.host": {None}, "train.update": {None},
     "update.loss": {"train.update"}, "update.backward": {"train.update"},
     "update.apply": {"train.update"}, "update.readback": {"train.update"},
 }
+VITAE_SPANS = {"trunk.global_attn", "trunk.conv"}
 FRAMES, WINDOW = 7, 4
 
 
@@ -119,7 +122,8 @@ def test_span_opens_no_range_without_a_profiler(monkeypatch, program):
 
 def test_trace_holds_the_program_spans_nested(traced):
     events = traced["events"]
-    assert {e["name"] for e in events} == set(profiling.SPANS)
+    # the ResNet trunk opens no span of the ViTAEv2 trunk's (tests/test_torch_vitae_reference.py)
+    assert {e["name"] for e in events} == set(profiling.SPANS) - VITAE_SPANS
     by_tid = {}
     for e in events:
         by_tid.setdefault(e["tid"], []).append(
@@ -130,7 +134,7 @@ def test_trace_holds_the_program_spans_nested(traced):
             parent = max(around, key=lambda s: (s[0], -s[1]))[2] if around else None
             assert parent in PARENTS[name], (name, parent)
     # each range in the trace is one call the registry counted
-    calls = {n: sum(e["name"] == n for e in events) for n in profiling.SPANS}
+    calls = {n: sum(e["name"] == n for e in events) for n in set(profiling.SPANS) - VITAE_SPANS}
     got = {k: v for k, v in traced["video"]["calls"].items()}
     for k, v in traced["step"]["calls"].items():
         got[k] = got.get(k, 0) + v
